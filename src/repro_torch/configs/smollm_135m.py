@@ -1,0 +1,21 @@
+"""smollm-135m [dense] — 30L d_model=576 9H (GQA kv=3) d_ff=1536 vocab=49152.
+Llama-arch small. [hf:HuggingFaceTB/SmolLM-135M; hf]
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="smollm-135m",
+    family="dense",
+    n_layers=30,
+    d_model=576,
+    n_heads=9,
+    n_kv_heads=3,
+    head_dim=64,
+    d_ff=1536,
+    vocab_size=49_152,
+    rope="rope",
+    rope_theta=10_000.0,
+    act="silu",
+    tie_embeddings=True,
+    source="hf:HuggingFaceTB/SmolLM-135M; hf",
+)
