@@ -6,22 +6,33 @@ Phases, in order; any failed check exits non-zero:
 
 1. device: a CUDA device must be present; prints its name and power limit;
    TF32 off for matmuls and convolutions (full fp32).
-2. build: compiles every CUDA kernel of the serve path from
+2. build: compiles every CUDA kernel of the serve paths from
    ``src/repro_torch/kernels/csrc`` with nvcc, all at once.
 3. parity: each kernel against its plain PyTorch version on the same CUDA
-   tensors, f32 and bf16, at the serve path's shapes and the edge cases
-   (q_offset, window, softcap, non-causal, D != Dv, ragged lengths).
+   tensors, f32 and bf16, at the serve paths' shapes and the edge cases
+   (q_offset, window, softcap, non-causal, D != Dv, ragged lengths; for
+   paged attention both entry points, windows T = 1..5, a null-block free
+   slot, permuted tables and a poisoned table tail).
 4. times: each kernel, its plain version and the one PyTorch call that
-   computes the same function (scaled_dot_product_attention, timed only as
-   a yardstick), median of CUDA-event-timed runs.
+   computes the same function where there is one (scaled_dot_product_attention,
+   timed only as a yardstick; none reads K/V through a block table).
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
    every prefill and decode step, and that the first batch's logits on the
    card match the same engine on the CPU.
+6. paged serve: ``serve --paged`` at full width in four flag sets (plain;
+   prefix cache on the shared-prefix workload with 16-token chunks;
+   speculation with 4 n-gram drafts; preemption at a 3e6-byte pool), then
+   one long paged batch (4 x 1024-token prompts, 32 new tokens, 16-token
+   pages); checks that paged attention ran once per layer on every decode or
+   verify step and flash attention once per layer on every prefill chunk,
+   that every run passed the engine's leak audit, and that the paged
+   engine's first prefill and decode logits on the card match the CPU.
 
-The last three lines are a JSON object of per-kernel numbers (launches on
-the serve phase's paths, error, device time, plain-version and library
+Each path runs with the launch counts set to 0 just before it and read just
+after.  The last three lines are a JSON object of per-kernel numbers
+(launches on those paths, error, device time, plain-version and library
 times, bound), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.  A copy of every number goes to
 ``chiprun_out/chip_smoke.json``.
@@ -50,9 +61,13 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference)
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_reference)
+from repro_torch.kernels.paged_attention import (  # noqa: E402
+    paged_decode_attention, paged_decode_attention_reference,
+    paged_window_attention, paged_window_attention_reference)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.serving import EngineConfig, InferenceEngine, greedy  # noqa: E402
+from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
+                                 PagedEngine, PagedEngineConfig, greedy)
 
 # Bounds use the H100 data sheet's peaks: HBM bytes/s, and FLOP/s of fp32
 # outside the tensor cores (what these FMA kernels use) and of bf16.
@@ -82,7 +97,42 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("softcap", 3, 64, 6, 3, 8, 8, 50.0, None, [64, 33, 2]),
     ("kv_len_1", 4, 256, 9, 3, 64, 64, None, None, [1, 1, 1, 1]),
 ]
-TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode"}
+LONG_PAGE, LONG_PAGES = 16, 66        # ceil((1024 + 32) / 16) pages a sequence
+PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
+    # the JAX package's CASES of tests/test_paged_attention.py
+    ("jax_case0", "decode", 2, 1, 4, 2, 16, 16, 8, 4, 16, None, None),
+    ("jax_case1", "decode", 3, 1, 6, 3, 8, 8, 16, 3, 24, 50.0, None),
+    ("jax_case2", "decode", 1, 1, 8, 8, 32, 32, 4, 6, 32, None, None),
+    ("jax_case3", "decode", 4, 1, 16, 2, 64, 64, 16, 2, 48, None, None),
+    ("paged_serve_decode", "decode", 4, 1, 9, 3, 64, 64, 8, 4, 55, None,
+     [24, 20, 17, 31]),
+    ("window_t1", "window", 4, 1, 9, 3, 64, 64, 8, 4, 55, None, None),
+    ("window_t2", "window", 4, 2, 9, 3, 64, 64, 8, 4, 55, None, None),
+    ("window_t4", "window", 4, 4, 9, 3, 64, 64, 8, 4, 55, 30.0, None),
+    ("window_t5", "window", 4, 5, 9, 3, 64, 64, 8, 4, 55, None, None),
+    ("kv_len_1", "decode", 4, 1, 9, 3, 64, 64, 8, 4, 55, None, [1, 1, 1, 1]),
+    ("free_slot", "decode", 4, 1, 9, 3, 64, 64, 8, 4, 55, None, [24, 9, 31, 1]),
+    ("permuted_table", "window", 4, 3, 9, 3, 64, 64, 16, 8, 40, None, None),
+    ("poisoned_tail", "window", 4, 5, 9, 3, 64, 64, 8, 6, 40, None,
+     [6, 11, 3, 15]),
+    ("d96_dv64", "window", 2, 3, 4, 2, 96, 64, 8, 4, 16, None, None),
+    ("paged_long_decode", "decode", 4, 1, 9, 3, 64, 64, LONG_PAGE, LONG_PAGES,
+     4 * LONG_PAGES + 1, None, [LONG_PROMPT + 17] * 4),
+    ("paged_long_window", "window", 4, 5, 9, 3, 64, 64, LONG_PAGE, LONG_PAGES,
+     4 * LONG_PAGES + 1, None, [LONG_PROMPT + 12] * 4),
+]
+PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window")
+TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
+         "paged_attention": "paged_long_decode"}
+PAGED_BUDGET, PREEMPT_BUDGET = "2e7", "3e6"
+PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
+    "a_paged": ["--paged", "--kv-budget", PAGED_BUDGET],
+    "b_prefix_chunked": ["--prefix-cache", "--workload", "shared-prefix",
+                         "--chunk-tokens", "16", "--kv-budget", PAGED_BUDGET],
+    "c_speculate": ["--speculate", "--spec-tokens", "4", "--kv-budget",
+                    PAGED_BUDGET],
+    "d_preempt": ["--paged", "--preempt", "--kv-budget", PREEMPT_BUDGET],
+}
 
 
 def fail(msg: str) -> None:
@@ -169,6 +219,55 @@ def flash_cost(case, dtype):
     return nbytes, 2.0 * (d + dv) * pairs * b * h
 
 
+def paged_inputs(case, dtype, gen):
+    """(q, k_pool, v_pool, block_tables, kv_len) for a PAGED_CASES entry:
+    a permuted table over blocks 1..n-1 (block 0 is the null block), the
+    given lengths or random ones; ``free_slot`` points its last row at the
+    null block, ``poisoned_tail`` points every page past the valid ones at
+    the null block and fills it with +-1e3."""
+    name, entry, b, t, h, kv, d, dv, bs, nb, n, cap, lens = case
+    q = randn(gen, b, t, h, d, dtype=dtype)
+    kp = randn(gen, n, bs, kv, d, dtype=dtype)
+    vp = randn(gen, n, bs, kv, dv, dtype=dtype)
+    perm = 1 + torch.randperm(n - 1, generator=gen, device="cuda")
+    bt = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+    lo = 1 if entry == "decode" else 0
+    hi = nb * bs + 1 if entry == "decode" else nb * bs - t + 1
+    kl = torch.tensor(lens, dtype=torch.int32, device="cuda") if lens else \
+        torch.randint(lo, hi, (b,), generator=gen, device="cuda").to(torch.int32)
+    if name == "free_slot":
+        bt[-1] = 0
+    if name == "poisoned_tail":
+        for i, n_len in enumerate(lens):
+            bt[i, -(-(n_len + t) // bs):] = 0
+        kp[0], vp[0] = 1e3, -1e3
+    if entry == "decode":
+        q = q[:, 0].contiguous()
+    return (q, kp, vp, bt, kl), dict(softcap=cap)
+
+
+def paged_fns(case):
+    return (paged_decode_attention, paged_decode_attention_reference) \
+        if case[1] == "decode" else \
+        (paged_window_attention, paged_window_attention_reference)
+
+
+def paged_cost(case, dtype):
+    """(bytes, operations) paged attention needs for this case's lengths:
+    the valid K/V rows (those of the longest row of each sequence), q, the
+    output, the table entries read and kv_len; 2 (D + Dv) operations per
+    visible (query row, key) pair."""
+    name, entry, b, t, h, kv, d, dv, bs, nb, n, cap, lens = case
+    size = torch.finfo(dtype).bits // 8
+    last = [n_len - 1 for n_len in lens] if entry == "decode" else lens
+    rows = sum(base + t for base in last)                 # keys per sequence
+    pairs = sum(base + i + 1 for base in last for i in range(t))
+    pages = sum(-(-(base + t) // bs) for base in last)
+    nbytes = size * (rows * kv * (d + dv) + b * t * h * (d + dv)) \
+        + 4 * (pages + b)
+    return nbytes, 2.0 * (d + dv) * pairs * h
+
+
 def decode_cost(case, dtype):
     _, b, s, h, kv, d, dv, cap, window, kv_len = case
     size = torch.finfo(dtype).bits // 8
@@ -211,12 +310,15 @@ def phase_build() -> dict:
 def phase_parity() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     out, bad = {}, []
-    for kernel, cases, make, fn, ref in (
-            ("flash_attention", FLASH_CASES, flash_inputs, flash_attention,
-             flash_attention_reference),
-            ("decode_attention", DECODE_CASES, decode_inputs, decode_attention,
-             decode_attention_reference)):
-        for case in cases:
+    paged = [(case, *paged_fns(case)) for case in PAGED_CASES]
+    for kernel, cases, make in (
+            ("flash_attention", [(c, flash_attention, flash_attention_reference)
+                                 for c in FLASH_CASES], flash_inputs),
+            ("decode_attention", [(c, decode_attention,
+                                   decode_attention_reference)
+                                  for c in DECODE_CASES], decode_inputs),
+            ("paged_attention", paged, paged_inputs)):
+        for case, fn, ref in cases:
             for dtype in (torch.float32, torch.bfloat16):
                 args, kw = make(case, dtype, gen)
                 got = fn(*args, **kw)
@@ -264,10 +366,21 @@ def phase_times() -> dict:
             lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                                    enable_gqa=True),
             decode_cost(case, torch.float32))
+    for case in PAGED_CASES:
+        if case[0] not in PAGED_TIMED:
+            continue
+        args, kw = paged_inputs(case, torch.float32, gen)
+        fn, ref = paged_fns(case)
+        # no PyTorch call reads K/V through a block table: library_ms null
+        out[f"paged_attention/{case[0]}"] = time_three(
+            lambda: fn(*args, **kw), lambda: ref(*args, **kw), None,
+            paged_cost(case, torch.float32))
     for tag, r in out.items():
+        lib = "none" if r["library_ms"] is None else \
+            f"{r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f})"
         print(f"[times] {tag}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f}), "
               f"plain {r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f}), "
-              f"library {r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f}), "
+              f"library {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device time "
               f"{'from torch.profiler' if r['device_ms'] is not None else 'not seen: event times'}",
               flush=True)
@@ -275,11 +388,14 @@ def phase_times() -> dict:
 
 
 def time_three(kernel, plain, library, cost) -> dict:
-    """Kernel, plain version and library call on the same inputs, with the
-    bound of the function from its bytes and operations."""
+    """Kernel, plain version and library call (None: there is none) on the
+    same inputs, with the bound of the function from its bytes and
+    operations."""
     nbytes, ops = cost
     b_ms, b_by = bound(nbytes, ops, torch.float32)
-    k, p, lib = timed(kernel), timed(plain), timed(library)
+    k, p = timed(kernel), timed(plain)
+    lib = timed(library) if library is not None else {"ms": None,
+                                                      "call_ms": None}
     return {**k, "plain_ms": p["ms"], "plain_call_ms": p["call_ms"],
             "plain_launches": p["launches_per_call"],
             "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
@@ -318,15 +434,23 @@ def step_breakdown(what: str, fn) -> dict:
 def reset_launches() -> None:
     flash_attention.launches = 0
     decode_attention.launches = 0
+    paged_window_attention.launches = 0
 
 
-def check_launches(what: str, prefills: int, steps: int, n_layers: int) -> dict:
+def check_launches(what: str, prefills: int, steps: int, n_layers: int,
+                   paged: bool = False) -> dict:
+    """Launches of the path just run: flash attention once per layer and
+    prefill call, the decode kernel (paged attention on a paged path) once
+    per layer and decode or verify step, the other decode kernel never."""
     got = {"flash_attention": flash_attention.launches,
-           "decode_attention": decode_attention.launches}
+           "decode_attention": decode_attention.launches,
+           "paged_attention": paged_window_attention.launches}
     want = {"flash_attention": n_layers * prefills,
-            "decode_attention": n_layers * steps}
+            "decode_attention": 0 if paged else n_layers * steps,
+            "paged_attention": n_layers * steps if paged else 0}
     print(f"[serve] {what} launches {got} (expected {want})", flush=True)
-    if got != want or min(got.values()) <= 0:
+    used = ("flash_attention", "paged_attention" if paged else "decode_attention")
+    if got != want or min(got[k] for k in used) <= 0:
         fail(f"{what}: kernel launches {got}, expected {want}")
     return got
 
@@ -355,6 +479,18 @@ def logits_parity(cfg, prompts) -> dict:
     return errs
 
 
+def check_outputs(what: str, cfg, outs: dict, n: int = 12) -> None:
+    if len(outs) != n or any(not v or any(not 0 <= t < cfg.vocab_size for t in v)
+                             for v in outs.values()):
+        fail(f"{what}: missing outputs or token ids outside the vocab")
+
+
+def agreement(outs: dict, ref: dict) -> tuple[int, int]:
+    """(tokens equal position by position, tokens) of two output sets."""
+    same = sum(a == b for rid in ref for a, b in zip(outs.get(rid, []), ref[rid]))
+    return same, sum(len(v) for v in ref.values())
+
+
 def phase_serve() -> dict:
     cfg = get_config("smollm-135m")
     reset_launches()
@@ -364,10 +500,7 @@ def phase_serve() -> dict:
     results = res["results"]
     serve_launches = check_launches("serve", len(results),
                                     sum(r.steps for r in results), cfg.n_layers)
-    outs = res["outputs"]
-    if len(outs) != 12 or any(not v or any(not 0 <= t < cfg.vocab_size for t in v)
-                              for v in outs.values()):
-        fail("serve: missing outputs or token ids outside the vocab")
+    check_outputs("serve", cfg, res["outputs"])
 
     rng = np.random.default_rng(0)
     prompts = rng.integers(2, cfg.vocab_size, (4, LONG_PROMPT)).tolist()
@@ -408,7 +541,9 @@ def phase_serve() -> dict:
     del params, eng, cache
 
     errs = logits_parity(cfg, first_prompts)
-    return {"serve": {"digest": res["digest"], "tokens": res["tokens"],
+    return {"padded_outputs": res["outputs"], "first_prompts": first_prompts,
+            "long_outputs": long.outputs,
+            "serve": {"digest": res["digest"], "tokens": res["tokens"],
                       "seconds": res["seconds"], "wall_s": wall,
                       "tok_per_s": res["tokens"] / res["seconds"],
                       "batches": len(results),
@@ -421,6 +556,154 @@ def phase_serve() -> dict:
             "profile": profile, "logits_max_abs_err": errs}
 
 
+def paged_logits_parity(cfg, prompts) -> dict:
+    """Logits recorded from the paged engine's own path while
+    ``PagedEngine.run_continuous`` serves ``prompts`` (one prefill each, then
+    one paged decode step) on the card and on the CPU (plain kernel
+    versions, same seeded weights): every prefill and the first decode step
+    are compared."""
+    pcfg = PagedEngineConfig(max_batch=len(prompts), block_size=8,
+                             n_blocks=64, max_seq_len=64, max_new_tokens=2)
+    prefill, decode_step = api.prefill, api.paged_decode_step
+    got = {}
+    for device in ("cuda", "cpu"):
+        rec = {"prefill": [], "decode": None, "tokens": None}
+
+        def rec_prefill(*a, **kw):
+            lg, cache = prefill(*a, **kw)
+            rec["prefill"].append(lg.float().cpu())
+            return lg, cache
+
+        def rec_decode(cfg_, params_, toks, *a, **kw):
+            lg, pools = decode_step(cfg_, params_, toks, *a, **kw)
+            if rec["decode"] is None:
+                rec["decode"], rec["tokens"] = lg.float().cpu(), toks.cpu()
+            return lg, pools
+
+        params = api.init_params(cfg, seed=0, dtype=torch.float32, device=device)
+        eng = PagedEngine(cfg, params, pcfg)
+        api.prefill, api.paged_decode_step = rec_prefill, rec_decode
+        try:
+            eng.run_continuous([Request(rid=i, tokens=p, input_len=len(p),
+                                        slo=1e9, arrival=0.0, true_output_len=2)
+                                for i, p in enumerate(prompts)])
+        finally:
+            api.prefill, api.paged_decode_step = prefill, decode_step
+        if len(rec["prefill"]) != len(prompts) or rec["decode"] is None:
+            fail(f"paged engine on {device}: {len(rec['prefill'])} prefills "
+                 f"and {'no' if rec['decode'] is None else 'a'} decode step "
+                 f"for {len(prompts)} prompts")
+        got[device] = (torch.cat(rec["prefill"]), rec["decode"], rec["tokens"])
+        del params, eng
+    if not torch.equal(got["cuda"][2], got["cpu"][2]):
+        fail("card and CPU paged engines fed different tokens to their first "
+             "decode step (a near-tied argmax flipped); logits not comparable")
+    errs = {name: (got["cuda"][i] - got["cpu"][i]).abs().max().item()
+            for i, name in enumerate(("prefill", "decode"))}
+    for name, err in errs.items():
+        print(f"[paged] card vs CPU paged {name} logits: max_abs_err "
+              f"{err:.3e} (tol {TOL_LOGITS})", flush=True)
+        if not err <= TOL_LOGITS:
+            fail(f"card vs CPU paged {name} logits differ by {err}")
+    return errs
+
+
+def phase_paged(padded: dict) -> dict:
+    cfg = get_config("smollm-135m")
+    padded_sp = serve.main(SERVE_ARGS + ["--workload", "shared-prefix"])
+    runs, launches = {}, {k: 0 for k in TIMED}
+    for name, flags in PAGED_SETS.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        out = serve.main(SERVE_ARGS + flags)      # raises if the leak audit fails
+        wall = time.perf_counter() - t0
+        res = out["results"][0]
+        got = check_launches(name, res.prefill_chunks, res.steps, cfg.n_layers,
+                             paged=True)
+        for k in launches:
+            launches[k] += got[k]
+        check_outputs(name, cfg, out["outputs"])
+        ref = padded_sp["outputs"] if "shared-prefix" in flags \
+            else padded["padded_outputs"]
+        same, total = agreement(out["outputs"], ref)
+        runs[name] = {"digest": out["digest"], "tokens": out["tokens"],
+                      "seconds": out["seconds"], "wall_s": wall,
+                      "tok_per_s": out["tokens"] / out["seconds"],
+                      "steps": res.steps, "prefill_chunks": res.prefill_chunks,
+                      "acceptance": res.acceptance_rate,
+                      "prefix_hits": res.prefix_hits,
+                      "prefix_lookups": res.prefix_lookups,
+                      "preemptions": res.preemptions,
+                      "peak_blocks": res.peak_blocks,
+                      "agree_with_padded": [same, total], "launches": got}
+        print(f"[paged] {name}: {out['tokens']} tokens in {out['seconds']:.2f}s "
+              f"({runs[name]['tok_per_s']:.1f} tok/s), {res.steps} steps, "
+              f"{res.prefill_chunks} prefill chunks, acceptance "
+              f"{res.acceptance_rate:.3f}, prefix hits {res.prefix_hits}/"
+              f"{res.prefix_lookups}, preemptions {res.preemptions}; leak "
+              f"audit passed; {same}/{total} tokens agree with the padded path",
+              flush=True)
+    if runs["d_preempt"]["preemptions"] <= 0:
+        fail(f"d_preempt: no preemption at a {PREEMPT_BUDGET}-byte pool")
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size, (4, LONG_PROMPT)).tolist()
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    pcfg = PagedEngineConfig(max_batch=4, block_size=LONG_PAGE,
+                             n_blocks=4 * LONG_PAGES + 1,
+                             max_seq_len=LONG_PROMPT + LONG_NEW,
+                             max_new_tokens=LONG_NEW)
+    eng = PagedEngine(cfg, params, pcfg)
+
+    def reqs():
+        return [Request(rid=i, tokens=p, input_len=len(p), slo=1e9,
+                        arrival=0.0, true_output_len=LONG_NEW)
+                for i, p in enumerate(prompts)]
+    eng.run_continuous(reqs())                              # warm-up
+    reset_launches()
+    long = eng.run_continuous(reqs())
+    got = check_launches("long paged batch", long.prefill_chunks, long.steps,
+                         cfg.n_layers, paged=True)
+    for k in launches:
+        launches[k] += got[k]
+    check_outputs("long paged batch", cfg, long.outputs, n=4)
+    tokens = sum(len(v) for v in long.outputs.values())
+    if tokens != 4 * LONG_NEW:
+        fail(f"long paged batch: {tokens} tokens, expected {4 * LONG_NEW}")
+    same, total = agreement(long.outputs, padded["long_outputs"])
+    print(f"[paged] long paged batch: prefill {long.prefill_s * 1e3:.2f} ms "
+          f"({long.prefill_chunks} prompts, {4 * LONG_PROMPT / long.prefill_s:.0f} "
+          f"prompt tok/s), decode {long.steps} steps in {long.decode_s * 1e3:.2f} ms "
+          f"({tokens / long.decode_s:.1f} tok/s); {same}/{total} tokens agree "
+          f"with the padded long batch", flush=True)
+
+    # one paged decode step at the long batch's shape, K/V through permuted
+    # 66-page tables at kv_len 1041
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    pools = api.init_paged_pools(cfg, pcfg.n_blocks, LONG_PAGE, device="cuda")
+    for p in pools:
+        p["k"].normal_(generator=gen)
+        p["v"].normal_(generator=gen)
+    bt = (1 + torch.randperm(4 * LONG_PAGES, generator=gen, device="cuda")
+          ).reshape(4, LONG_PAGES).to(torch.int32)
+    kv_len = torch.full((4,), LONG_PROMPT + 17, dtype=torch.int32, device="cuda")
+    toks = torch.randint(2, cfg.vocab_size, (4, 1), generator=gen, device="cuda")
+    profile = {"long paged decode step": step_breakdown(
+        "long paged decode step (4 x kv 1041, 16-token pages)",
+        lambda: api.paged_decode_step(cfg, params, toks, pools, bt, kv_len))}
+    del params, eng, pools
+    errs = paged_logits_parity(cfg, padded["first_prompts"])
+    return {"runs": runs,
+            "long_paged_batch": {"prefill_ms": long.prefill_s * 1e3,
+                                 "decode_ms": long.decode_s * 1e3,
+                                 "steps": long.steps,
+                                 "decode_tok_per_s": tokens / long.decode_s,
+                                 "agree_with_padded": [same, total],
+                                 "launches": got},
+            "profile": profile, "logits_max_abs_err": errs,
+            "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev = phase_device()
@@ -428,7 +711,11 @@ def main() -> None:
     parity = phase_parity()
     times = phase_times()
     served = phase_serve()
-    launches = {k: served["serve"]["launches"][k] + served["long_batch"]["launches"][k]
+    paged = phase_paged(served)
+    for key in ("padded_outputs", "first_prompts", "long_outputs"):
+        served.pop(key)
+    launches = {k: served["serve"]["launches"][k]
+                + served["long_batch"]["launches"][k] + paged["launches"][k]
                 for k in TIMED}
     kernels = []
     for name, case, src, replaces in (
@@ -437,7 +724,10 @@ def main() -> None:
              "src/repro/kernels/flash_attention/flash_attention.py:92"),
             ("decode_attention", TIMED["decode_attention"],
              "src/repro_torch/kernels/csrc/decode_attention.cu",
-             "src/repro/kernels/decode_attention/decode_attention.py:75")):
+             "src/repro/kernels/decode_attention/decode_attention.py:75"),
+            ("paged_attention", TIMED["paged_attention"],
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention/paged_attention.py:137")):
         t = times[f"{name}/{case}"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -446,7 +736,7 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     record = {"device": dev, "build": built, "parity": parity, "times": times,
-              **served, "kernels": kernels,
+              **served, "paged": paged, "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,10 +1,11 @@
 """Batch schedulers: the paper's SLO-ODBS (Algorithm 1) and its SLO-DBS /
 ODBS projections, plus the FIFO and S³-style bin-packing baselines.
 
-Own copy of ``repro/core/scheduler.py`` for the single-engine serve path:
-the prefix-affinity grouping and the speculative-decoding discount belong to
-the paged-engine slice and are left out, so every config here behaves like
-the reference's default (``prefix_aware=False``, ``spec_speedup=1``).
+Own copy of ``repro/core/scheduler.py`` for the single-engine serve paths,
+with ``derive_chunk_tokens`` for the paged engine's ``--chunk-tokens -1``.
+The prefix-affinity grouping and the speculative-decoding discount feed only
+the cluster paths and are left out, so every config here behaves like the
+reference's default (``prefix_aware=False``, ``spec_speedup=1``).
 """
 from __future__ import annotations
 
@@ -34,6 +35,17 @@ def _dynamic_cap(cm: float, cfg: SchedulerConfig) -> int:
         return cfg.max_batch
     scale = 1.0 + cm / max(cfg.threshold, 1e-9)
     return max(1, min(cfg.max_batch, int(cfg.base_cap / scale) + 1))
+
+
+def derive_chunk_tokens(cfg: SchedulerConfig, *, block_size: int = 16,
+                        max_chunk_blocks: int = 16) -> int:
+    """Per-iteration prefill token budget for the paged engine's chunked
+    prefill, derived from the batch-close composite threshold: chunk blocks
+    scale with ``threshold / (w1 + w2)`` (1e3 composite units ~ one KV
+    block of prefill), clamped to [1, max_chunk_blocks] blocks."""
+    w = max(cfg.w1 + cfg.w2, 1e-9)
+    blocks = int(cfg.threshold / w / 1e3)
+    return block_size * max(1, min(max_chunk_blocks, blocks))
 
 
 def slo_odbs(requests: Iterable[Request], cfg: SchedulerConfig,

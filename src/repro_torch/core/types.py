@@ -1,7 +1,7 @@
 """Core serving types shared by the profiler, scheduler, monitor and engine.
 
-Own copy of ``repro/core/types.py``, trimmed to the single-engine serve path
-(no cluster, fleet or retry bookkeeping)."""
+Own copy of ``repro/core/types.py``, trimmed to the single-engine serve
+paths, padded and paged (no cluster, fleet or retry bookkeeping)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -25,6 +25,9 @@ class Request:
     start_time: Optional[float] = None
     finish_time: Optional[float] = None
     first_token_time: Optional[float] = None
+    # per-phase latency attribution (obs.trace.LatencyBreakdown), attached
+    # by the paged engine at finish so SLO violations decompose by phase
+    breakdown: Optional[object] = None
 
     @property
     def latency(self) -> Optional[float]:

@@ -2,9 +2,9 @@
 input/output lengths, uniform-random SLOs in [1, 350] s (paper §5.1).
 
 Own copy of ``repro/data/workload.py`` (numpy only, so a seed gives the same
-request stream as the reference), trimmed to the single-model workload the
-default serve path draws; the shared-prefix and mixed-model generators come
-with the paged-engine and cluster slices.
+request stream as the reference), trimmed to the single-model workloads the
+serve paths draw: the Alpaca-like mix and the shared-prefix mix; the
+mixed-model generator comes with the cluster slice.
 
 Prompts carry a learnable verbosity signal: tokens from the low "marker"
 range correlate with long answers.
@@ -42,9 +42,10 @@ class WorkloadConfig:
     diurnal_amplitude: float = 0.8
 
 
-def gen_arrivals(rng: np.random.Generator, cfg: WorkloadConfig) -> np.ndarray:
+def gen_arrivals(rng: np.random.Generator, cfg) -> np.ndarray:
     """Arrival timestamps: homogeneous Poisson, Markov-modulated bursts, or a
-    diurnal sinusoid by thinning."""
+    diurnal sinusoid by thinning.  ``cfg`` is a WorkloadConfig or a
+    SharedPrefixConfig (the same arrival fields)."""
     n, rate = cfg.n_requests, cfg.arrival_rate
     if cfg.arrival_pattern == "poisson":
         return np.cumsum(rng.exponential(1.0 / rate, n))
@@ -96,6 +97,65 @@ def gen_requests(cfg: WorkloadConfig) -> list[Request]:
             rid=i, tokens=toks.tolist(), input_len=in_len,
             slo=float(rng.uniform(cfg.slo_lo, cfg.slo_hi)),
             arrival=float(arrivals[i]), true_output_len=out_len))
+    return reqs
+
+
+@dataclass
+class SharedPrefixConfig:
+    """Shared-prefix / multi-turn serving scenario (beyond-paper): every
+    request is ``template + unique suffix`` (``turns == 1``, the
+    system-prompt / few-shot pattern the prefix cache serves), or
+    conversations whose turn-k prompt is the previous prompt + a synthetic
+    answer + new user text (``turns > 1``)."""
+    n_requests: int = 64
+    n_templates: int = 4               # distinct system prompts
+    prefix_len: int = 48               # template length (tokens)
+    suffix_mean: float = 3.0           # lognormal of the unique-suffix length
+    suffix_sigma: float = 0.5
+    turns: int = 1
+    answer_len: int = 24               # synthetic assistant tokens per turn
+    arrival_rate: float = 8.0
+    slo_lo: float = 1.0
+    slo_hi: float = 350.0
+    vocab: int = 1024
+    output_base: float = 32.0
+    output_max: int = 1024
+    seed: int = 0
+    # --- arrival process (same knobs as WorkloadConfig) ---
+    arrival_pattern: str = "poisson"
+    burst_factor: float = 5.0
+    burst_mean_s: float = 4.0
+    quiet_mean_s: float = 12.0
+    quiet_factor: float = 0.25
+    diurnal_period: float = 60.0
+    diurnal_amplitude: float = 0.8
+
+
+def gen_shared_prefix_requests(cfg: SharedPrefixConfig) -> list[Request]:
+    rng = np.random.default_rng(cfg.seed)
+    templates = [rng.integers(0, cfg.vocab, cfg.prefix_len).tolist()
+                 for _ in range(cfg.n_templates)]
+    arrivals = gen_arrivals(rng, cfg)
+    # round-robin conversations over templates; each conversation's context
+    # grows turn over turn
+    n_convs = max(1, cfg.n_requests // cfg.turns)
+    contexts = [list(templates[c % cfg.n_templates]) for c in range(n_convs)]
+    reqs = []
+    for i in range(cfg.n_requests):
+        conv = i % n_convs
+        suffix_len = int(np.clip(
+            rng.lognormal(cfg.suffix_mean, cfg.suffix_sigma), 4, 256))
+        prompt = contexts[conv] + rng.integers(0, cfg.vocab,
+                                               suffix_len).tolist()
+        out_len = int(np.clip(rng.lognormal(np.log(cfg.output_base), 0.5),
+                              1, cfg.output_max))
+        reqs.append(Request(
+            rid=i, tokens=prompt, input_len=len(prompt),
+            slo=float(rng.uniform(cfg.slo_lo, cfg.slo_hi)),
+            arrival=float(arrivals[i]), true_output_len=out_len))
+        if cfg.turns > 1:
+            contexts[conv] = prompt + rng.integers(
+                0, cfg.vocab, cfg.answer_len).tolist()
     return reqs
 
 

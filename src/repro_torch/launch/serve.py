@@ -2,14 +2,25 @@
 
   PYTHONPATH=src python -m repro_torch.launch.serve --no-reduced --device cuda
 
-Port of the single-engine default path of ``repro/launch/serve.py``: the
-resource profiler predicts each request's output length, SLO-ODBS (or the
+Port of the single-engine paths of ``repro/launch/serve.py``: the resource
+profiler predicts each request's output length, SLO-ODBS (or the
 ``--scheduler`` baseline) composes batches, the padded engine runs each
 batch (``--continuous``: the continuous engine runs the queue), and the
-monitor feeds every finished request back into the predictor online.  Same
-flags and defaults as the reference; ``--reduced`` is on by default and
-``--no-reduced`` serves the full-width model.  The paged, prefix, speculate,
-cluster, fault and profile flags exit with "not ported yet".
+monitor feeds every finished request back into the predictor online.
+
+``--paged`` serves through the paged continuous-batching engine instead
+(block-table KV pool sized from ``--kv-budget`` bytes, per-prompt prefill,
+allocator-gated admission, every decode step through the paged-attention
+kernel).  ``--prefix-cache`` adds the radix prefix cache (``--workload
+shared-prefix`` exercises it), ``--lookahead N`` lets admission skip a
+blocked queue head, ``--chunk-tokens N`` chunks prompt prefill (``-1``
+derives N from the scheduler threshold), ``--preempt`` evicts the slack-most
+resident for recompute under block pressure, and ``--speculate`` verifies
+``--spec-tokens`` drafts of ``--drafter`` per iteration in one window pass.
+
+Same flags and defaults as the reference; ``--reduced`` is on by default and
+``--no-reduced`` serves the full-width model.  The cluster, fault and
+profile flags exit with "not ported yet".
 """
 from __future__ import annotations
 
@@ -23,19 +34,20 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (LengthPredictor, Monitor, PredictorConfig,
-                              ResourceProfiler, SchedulerConfig, get_scheduler)
+                              ResourceProfiler, SchedulerConfig,
+                              derive_chunk_tokens, get_scheduler)
 from repro_torch.core.types import Request
-from repro_torch.data.workload import WorkloadConfig, gen_requests, train_pairs
+from repro_torch.data.workload import (SharedPrefixConfig, WorkloadConfig,
+                                       gen_requests,
+                                       gen_shared_prefix_requests, train_pairs)
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.transformer import Transformer
-from repro_torch.serving import EngineConfig, InferenceEngine
+from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
+                                 PagedEngineConfig, get_drafter)
 
 # flags of the reference CLI whose paths later slices port
 _LATER_FLAGS = {
-    "paged-engine slice": ("--paged", "--prefix-cache", "--lookahead",
-                           "--chunk-tokens", "--preempt", "--speculate",
-                           "--spec-tokens", "--drafter", "--kv-budget"),
     "cluster slice": ("--replicas", "--models", "--fleet", "--router",
                       "--autoscale", "--fault-crash", "--fault-mtbf",
                       "--fault-mttr", "--fault-seed", "--retry-budget",
@@ -57,14 +69,23 @@ def outputs_digest(done: dict) -> str:
 
 def make_requests(cfg: ModelConfig, n: int, max_new: int,
                   workload: str = "alpaca") -> list[Request]:
-    """The reference serve path's request stream: seeded workload, prompts
-    cut to 16 tokens of the model's vocab, output lengths in [1, max_new]."""
-    pattern = workload if workload in ("bursty", "diurnal") else "poisson"
-    reqs = gen_requests(WorkloadConfig(n_requests=n, seed=0,
-                                       vocab=cfg.vocab_size,
-                                       arrival_pattern=pattern))
+    """The reference serve path's request stream: a seeded workload with
+    output lengths in [1, max_new] — the Alpaca-like mix with prompts cut
+    to 16 tokens of the model's vocab, or the shared-prefix mix (16-token
+    templates, prompts cut to 32 tokens)."""
+    if workload == "shared-prefix":
+        reqs = gen_shared_prefix_requests(SharedPrefixConfig(
+            n_requests=n, n_templates=max(2, n // 6), prefix_len=16,
+            suffix_mean=2.0, vocab=cfg.vocab_size, seed=0))
+        cut = 32
+    else:
+        pattern = workload if workload in ("bursty", "diurnal") else "poisson"
+        reqs = gen_requests(WorkloadConfig(n_requests=n, seed=0,
+                                           vocab=cfg.vocab_size,
+                                           arrival_pattern=pattern))
+        cut = 16
     for r in reqs:
-        r.tokens = [t % cfg.vocab_size for t in r.tokens[:16]]
+        r.tokens = [t % cfg.vocab_size for t in r.tokens[:cut]]
         r.input_len = len(r.tokens)
         r.true_output_len = r.true_output_len % max_new + 1
     return reqs
@@ -79,12 +100,27 @@ def fit_predictor(cfg: ModelConfig, device) -> LengthPredictor:
     return pred
 
 
+def paged_config(cfg: ModelConfig, reqs: list[Request], max_new: int,
+                 kv_budget: float, **kw) -> PagedEngineConfig:
+    """The reference serve path's paged pool: 8-token blocks, 4 slots, the
+    pool sized from ``kv_budget`` bytes, block tables wide enough for the
+    longest prompt plus the decode budget."""
+    max_prompt = max(len(r.tokens) for r in reqs)
+    max_seq = max(64, -(-(max_prompt + max_new) // 8) * 8)
+    return PagedEngineConfig.from_memory_budget(
+        cfg, kv_budget, max_batch=4, block_size=8, max_seq_len=max_seq,
+        max_new_tokens=max_new, **kw)
+
+
 def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
           predictor: LengthPredictor, *, scheduler: str = "slo-odbs",
-          continuous: bool = False, max_new: int = 16) -> dict:
+          continuous: bool = False, max_new: int = 16,
+          paged: PagedEngineConfig | None = None, drafter=None) -> dict:
     """Profile -> schedule -> execute -> monitor, on the device the
-    parameters live on.  Returns the outputs, their digest, the batch
-    results, the elapsed seconds and the monitor."""
+    parameters live on; ``paged`` serves the queue through the paged engine
+    (``drafter`` its speculation proposer, None: the config's default).
+    Returns the outputs, their digest, the engine results, the elapsed
+    seconds and the monitor."""
     engine = InferenceEngine(cfg, params,
                              EngineConfig(max_batch=4, cache_len=64,
                                           max_new_tokens=max_new))
@@ -93,7 +129,13 @@ def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
     prof.profile(reqs)
     results = []
     t0 = time.perf_counter()
-    if continuous:
+    if paged is not None:
+        res = PagedEngine(cfg, params, paged, monitor=mon,
+                          drafter=drafter).run_continuous(
+            sorted(reqs, key=lambda r: r.arrival))
+        results.append(res)
+        done = res.outputs
+    elif continuous:
         res = engine.run_continuous(sorted(reqs, key=lambda r: r.arrival))
         results.append(res)
         done = res.outputs
@@ -112,6 +154,33 @@ def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
             "tokens": sum(len(v) for v in done.values()), "monitor": mon}
 
 
+def print_paged(res, pcfg: PagedEngineConfig, drafter_name: str) -> None:
+    """The reference's summary lines of a paged run."""
+    print(f"paged: {res.admission_waves} admission waves, "
+          f"prefill_tokens={res.prefill_tokens}, "
+          f"peak_blocks={res.peak_blocks}, "
+          f"kv_util={res.kv_utilization:.3f}, "
+          f"waste_vs_padded={res.waste_vs_padded:.3f}")
+    if pcfg.spec_tokens:
+        print(f"speculate: {pcfg.spec_tokens} drafts/iter "
+              f"({drafter_name}), acceptance={res.acceptance_rate:.3f}, "
+              f"{res.steps} iterations for {res.generated_tokens} "
+              f"tokens ({res.iterations_per_token:.3f} it/tok), "
+              f"rolled_back={res.spec_rolled_blocks} blocks")
+    if pcfg.chunk_tokens or pcfg.preempt:
+        print(f"interleave: {res.prefill_chunks} chunks, "
+              f"stall={res.prefill_stall_s*1e3:.1f}ms, "
+              f"p99_itl={res.p99_inter_token_s*1e3:.2f}ms, "
+              f"preemptions={res.preemptions} "
+              f"({res.preempted_tokens} tokens recomputed)")
+    if pcfg.prefix_cache:
+        print(f"prefix: {res.prefix_hits}/{res.prefix_lookups} hits, "
+              f"hit_tokens={res.prefix_hit_tokens}, "
+              f"cow_forks={res.cow_forks}, "
+              f"evictions={res.prefix_evictions}, "
+              f"peak_residents={res.peak_residents}")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m")
@@ -123,6 +192,36 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=["slo-odbs", "slo-dbs", "odbs", "fifo", "s3"])
     ap.add_argument("--continuous", action="store_true",
                     help="beyond-paper continuous batching mode")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged continuous batching (block-table KV cache)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="radix-tree prefix sharing over the paged pool "
+                         "(implies --paged)")
+    ap.add_argument("--lookahead", type=int, default=0,
+                    help="queue entries scanned past a blocked head "
+                         "(paged admission)")
+    ap.add_argument("--chunk-tokens", type=int, default=0,
+                    help="per-iteration prefill chunk budget for the paged "
+                         "engine (0: whole-prompt prefill at admission; "
+                         "-1: derive from the scheduler's composite "
+                         "threshold)")
+    ap.add_argument("--preempt", action="store_true",
+                    help="under block pressure evict the resident with the "
+                         "most SLO slack and requeue it for recompute "
+                         "instead of blocking a tighter arrival")
+    ap.add_argument("--speculate", action="store_true",
+                    help="speculative decoding on the paged engine: drafts "
+                         "verified in one multi-token kernel pass; greedy "
+                         "acceptance keeps outputs token-identical (implies "
+                         "--paged)")
+    ap.add_argument("--spec-tokens", type=int, default=4,
+                    help="draft tokens verified per engine iteration")
+    ap.add_argument("--drafter", default="ngram", choices=["ngram", "model"],
+                    help="draft proposer: n-gram prompt lookup, or a small "
+                         "draft LM (seeded random weights: plumbing demo, "
+                         "low acceptance)")
+    ap.add_argument("--kv-budget", type=float, default=2e6,
+                    help="paged KV pool budget in bytes")
     ap.add_argument("--workload", default="alpaca",
                     choices=["alpaca", "shared-prefix", "bursty", "diurnal"])
     ap.add_argument("--max-new", type=int, default=16)
@@ -143,9 +242,14 @@ def main(argv=None) -> dict:
         for flag in flags:
             if hasattr(args, flag[2:].replace("-", "_")):
                 ap.error(f"{flag} is not ported yet ({slice_name})")
-    if args.workload == "shared-prefix":
-        ap.error("--workload shared-prefix is not ported yet "
-                 "(paged-engine slice)")
+    if args.prefix_cache or args.speculate:
+        args.paged = True
+    spec_tokens = args.spec_tokens if args.speculate else 0
+    if args.chunk_tokens < 0:
+        args.chunk_tokens = derive_chunk_tokens(SchedulerConfig(),
+                                                block_size=8)
+        print(f"chunk budget from scheduler threshold: "
+              f"{args.chunk_tokens} tokens/iteration")
     device = resolve_device(args.device)
     where = (f"{device} ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else str(device))
@@ -157,9 +261,29 @@ def main(argv=None) -> dict:
           f"on {where}")
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device=device)
     reqs = make_requests(cfg, args.requests, args.max_new, args.workload)
+    pcfg = drafter = None
+    if args.paged:
+        pcfg = paged_config(cfg, reqs, args.max_new, args.kv_budget,
+                            prefix_cache=args.prefix_cache,
+                            admit_lookahead=args.lookahead,
+                            chunk_tokens=args.chunk_tokens,
+                            preempt=args.preempt, spec_tokens=spec_tokens,
+                            drafter=args.drafter)
+        print(f"paged pool: {pcfg.usable_blocks} usable blocks (+null) x "
+              f"{pcfg.block_size} slots ({args.kv_budget:.0f} B budget, "
+              f"prefix_cache={'on' if pcfg.prefix_cache else 'off'}, "
+              f"chunk_tokens={pcfg.chunk_tokens}, "
+              f"preempt={'on' if pcfg.preempt else 'off'}, "
+              f"speculate={pcfg.spec_tokens or 'off'})")
+        if spec_tokens and args.drafter == "model":
+            drafter = get_drafter("model", draft_cfg=cfg,
+                                  draft_params=api.init_params(
+                                      cfg, seed=7, device=device))
     out = serve(cfg, params, reqs, fit_predictor(cfg, device),
                 scheduler=args.scheduler, continuous=args.continuous,
-                max_new=args.max_new)
+                max_new=args.max_new, paged=pcfg, drafter=drafter)
+    if pcfg is not None:
+        print_paged(out["results"][0], pcfg, args.drafter)
     dt, total = out["seconds"], out["tokens"]
     print(f"served {len(out['outputs'])} requests, {total} tokens in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s on {where})")

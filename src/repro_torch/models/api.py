@@ -1,11 +1,13 @@
-"""Model API of the port: init / prefill / decode for the decoder-only
-family.  Port of ``repro/models/api.py`` (the encoder-decoder dispatch, the
-paged steps and the dry-run specs come with their slices)."""
+"""Model API of the port: init / prefill / decode and the paged decode and
+verify steps for the decoder-only family.  Port of ``repro/models/api.py``
+(the encoder-decoder dispatch and the dry-run specs come with their
+slices)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import Transformer
 
@@ -18,15 +20,65 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Transformer, batch: dict, *,
             cache_len: int, kv_len=None, prefix_kv=None):
-    """batch: {"tokens": [B, S]}.  Returns (logits [B, Vp], cache)."""
-    if prefix_kv is not None:
-        raise NotImplementedError(
-            "prefix-continuation prefill is not ported yet (paged-engine slice)")
+    """batch: {"tokens": [B, S]}.  Returns (logits [B, Vp], cache).
+    ``prefix_kv`` (per-layer K/V of an already computed prompt prefix)
+    requests continuation prefill of the uncached suffix — see
+    T.lm_prefill."""
     return T.lm_prefill(cfg, params, batch["tokens"], cache_len=cache_len,
-                        kv_len=kv_len)
+                        kv_len=kv_len, prefix_kv=prefix_kv)
 
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params: Transformer, tokens, cache, kv_len):
     """tokens [B, 1]; kv_len [B] int32.  Returns (logits [B, Vp], cache)."""
     return T.lm_decode_step(cfg, params, tokens, cache, kv_len)
+
+
+@torch.inference_mode()
+def paged_decode_step(cfg: ModelConfig, params: Transformer, tokens, pools,
+                      block_tables, kv_len):
+    """Decode one token per sequence against the paged pools (updated in
+    place).  tokens [B, 1]; block_tables [B, nb] int32; kv_len [B] int32.
+    Returns (logits [B, Vp], pools)."""
+    return T.lm_paged_decode_step(cfg, params, tokens, pools, block_tables,
+                                  kv_len)
+
+
+@torch.inference_mode()
+def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
+                    block_tables, kv_len, blk, off):
+    """Speculative-verification step: score T tokens per sequence (the
+    current input token plus T-1 drafts) against the paged pools in one
+    pass.  tokens [B, T]; blk/off [B, T] scatter targets (the null block
+    where a position is invalid); kv_len [B] history before the window.
+    Returns (logits [B, T, Vp], pools)."""
+    return T.lm_paged_spec_step(cfg, params, tokens, pools, block_tables,
+                                kv_len, blk, off)
+
+
+def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:
+    """Whether the architecture's decode cache can live in paged KV blocks:
+    every layer a full-attention GQA layer (no sliding-window ring
+    buffers)."""
+    for spec in cfg.layer_plan():
+        if spec.attn == "window" and cfg.sliding_window:
+            return False, "sliding-window layers use the ring cache"
+    return True, ""
+
+
+def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
+                     dtype=torch.float32, device: str | torch.device = "cuda"
+                     ) -> list[dict]:
+    """Zeroed paged K/V pools, one {"k": [n_blocks, bs, KV, hd], "v": ...}
+    per layer: the physical (n_blocks, block_size) axes every sequence
+    shares, in the place of the decode cache's per-sequence (B, S)."""
+    ok, why = paged_compatible(cfg)
+    if not ok:
+        raise ValueError(f"{cfg.name}: {why}")
+    device = resolve_device(device)
+    kv, hd, dv = cfg.n_kv_heads, cfg.head_dim_eff, cfg.v_head_dim_eff
+    return [{"k": torch.zeros((n_blocks, block_size, kv, hd), dtype=dtype,
+                              device=device),
+             "v": torch.zeros((n_blocks, block_size, kv, dv), dtype=dtype,
+                              device=device)}
+            for _ in range(cfg.n_layers)]

@@ -1,10 +1,12 @@
-"""GQA attention with prefill and decode paths.  Port of
-``repro/models/attention.py``, plain-GQA contiguous-cache branches only.
+"""GQA attention with prefill, decode and paged-decode paths.  Port of
+``repro/models/attention.py``, plain-GQA branches only.
 
-Prefill runs the flash-attention kernel; decode writes the new token's K/V
-into the cache in place and runs the flash-decoding kernel.  The sliding
-window ring cache, MLA, prefix continuation and sharded branches raise
-``NotImplementedError`` until their slices land.
+Prefill (and its prefix-continuation form) runs the flash-attention kernel;
+decode writes the new token's K/V into the contiguous cache in place and
+runs the flash-decoding kernel; paged decode and the speculative verify
+window write into one layer's block pool in place and run the paged
+attention kernel.  The sliding window ring cache, MLA and sharded branches
+raise ``NotImplementedError`` until their slices land.
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.paged_attention import (paged_decode_attention,
+                                                 paged_window_attention)
 from repro_torch.models.common import Dense, apply_dense, apply_rope
 
 
@@ -73,14 +77,23 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     """Full-sequence attention.  Returns (y, cache entry or None);
     ``cache_len`` > 0 allocates a cache {"k", "v"} [B, cache_len, KV, hd].
     Right-padded rows attend causally like every other row (no length
-    mask): their outputs are never read."""
-    if prefix is not None:
-        raise NotImplementedError(
-            "prefix-continuation prefill is not ported yet (paged-engine slice)")
+    mask): their outputs are never read.
+
+    ``prefix`` ({"k": [B, P, KV, hd], "v": [B, P, KV, dv]}) switches to
+    continuation prefill: x holds only the uncached suffix (``positions``
+    already offset by P), and the queries attend over the prefix K/V
+    concatenated with the suffix's, causal at absolute positions through
+    the kernel's ``q_offset``.  The returned cache covers the suffix only."""
     _check_supported(cfg, spec, plan)
     q, k, v = _qkv(cfg, p, x, positions)
     b, s = q.shape[:2]
-    out = flash_attention(q, k, v, causal=causal, softcap=cfg.attn_softcap)
+    if prefix is not None:
+        out = flash_attention(q, torch.cat([prefix["k"].to(k.dtype), k], dim=1),
+                              torch.cat([prefix["v"].to(v.dtype), v], dim=1),
+                              causal=causal, softcap=cfg.attn_softcap,
+                              q_offset=prefix["k"].shape[1])
+    else:
+        out = flash_attention(q, k, v, causal=causal, softcap=cfg.attn_softcap)
     y = apply_dense(p.o, out.reshape(b, s, -1))
     cache = None
     if cache_len:
@@ -114,3 +127,50 @@ def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                            softcap=cfg.attn_softcap)
     y = apply_dense(p.o, out.reshape(b, -1))
     return y.reshape(b, 1, -1), cache
+
+
+def attn_paged_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
+                      x: torch.Tensor, pool: dict, block_tables: torch.Tensor,
+                      kv_len: torch.Tensor, *, plan=None):
+    """One-token decode against one layer's paged pool {"k": [N, bs, KV, hd],
+    "v": [N, bs, KV, dv]}.  x: [B, 1, d]; block_tables [B, nb] int32 (rows
+    padded with a valid null block); kv_len [B] int32 current lengths.  The
+    new token's K/V is written into slot ``kv_len`` of its sequence's table
+    in place — the reference returns a new pool — then attention reads
+    through the table.  Returns (y, pool)."""
+    _check_supported(cfg, spec, plan)
+    b = x.shape[0]
+    q, k, v = _qkv(cfg, p, x, kv_len[:, None])
+    bs = pool["k"].shape[1]
+    rows = torch.arange(b, device=x.device)
+    blk = block_tables[rows, (kv_len // bs).long()].long()
+    off = (kv_len % bs).long()
+    pool["k"][blk, off] = k[:, 0]
+    pool["v"][blk, off] = v[:, 0]
+    out = paged_decode_attention(q[:, 0], pool["k"], pool["v"], block_tables,
+                                 kv_len + 1, softcap=cfg.attn_softcap)
+    y = apply_dense(p.o, out.reshape(b, -1))
+    return y.reshape(b, 1, -1), pool
+
+
+def attn_paged_spec(cfg: ModelConfig, spec: LayerSpec, p: Attention,
+                    x: torch.Tensor, pool: dict, block_tables: torch.Tensor,
+                    kv_len: torch.Tensor, blk: torch.Tensor, off: torch.Tensor,
+                    *, plan=None):
+    """Multi-token decode (speculative verification) against a paged pool.
+    x: [B, T, d] — the current input token plus T-1 drafts per sequence;
+    kv_len [B] history length before the window; blk/off [B, T] the
+    engine's scatter targets for each window position's K/V (the null block
+    where a position is invalid).  All T positions' K/V are written in one
+    in-place scatter, then attention reads through the table, causal within
+    the window.  Returns (y [B, T, d], pool)."""
+    _check_supported(cfg, spec, plan)
+    b, t, _ = x.shape
+    positions = kv_len[:, None] + torch.arange(t, device=x.device)[None, :]
+    q, k, v = _qkv(cfg, p, x, positions)
+    blk, off = blk.long(), off.long()
+    pool["k"][blk, off] = k
+    pool["v"][blk, off] = v
+    out = paged_window_attention(q, pool["k"], pool["v"], block_tables, kv_len,
+                                 softcap=cfg.attn_softcap)
+    return apply_dense(p.o, out.reshape(b, t, -1)), pool

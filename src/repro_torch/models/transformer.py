@@ -2,8 +2,9 @@
 the attention + dense-MLP block.
 
 The reference stacks layer groups and runs one ``lax.scan``; here the stack
-is an ``nn.ModuleList`` of ``n_layers`` blocks run by a Python loop, and the
-decode cache is a list with one {"k", "v"} entry per layer.
+is an ``nn.ModuleList`` of ``n_layers`` blocks run by a Python loop.  The
+decode cache, the paged pools and a continuation prefill's prefix K/V are
+each a list with one {"k", "v"} entry per layer.
 """
 from __future__ import annotations
 
@@ -68,14 +69,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
-                *, positions, cache, kv_len, mode: str, cache_len: int):
-    """Returns (x, new cache entry or None)."""
+                *, positions, cache, kv_len, mode: str, cache_len: int,
+                block_tables=None, spec_scatter=None):
+    """Returns (x, new cache entry or None).  With ``block_tables`` the
+    decode reads and writes the layer's paged pool (``cache``), and
+    ``spec_scatter`` ((blk, off) [B, T]) makes it the multi-token verify
+    window.  In prefill mode a ``cache`` entry is a prefix K/V to continue
+    from."""
     h = apply_norm(cfg, p.norm1, x)
-    if mode == "decode":
+    if mode == "decode" and block_tables is not None \
+            and spec_scatter is not None:
+        mx, c = attn.attn_paged_spec(cfg, spec, p.mixer, h, cache,
+                                     block_tables, kv_len, *spec_scatter)
+    elif mode == "decode" and block_tables is not None:
+        mx, c = attn.attn_paged_decode(cfg, spec, p.mixer, h, cache,
+                                       block_tables, kv_len)
+    elif mode == "decode":
         mx, c = attn.attn_decode(cfg, spec, p.mixer, h, cache, kv_len)
     else:
         mx, c = attn.attn_prefill(cfg, spec, p.mixer, h, positions=positions,
-                                  cache_len=cache_len, kv_len=kv_len)
+                                  cache_len=cache_len, kv_len=kv_len,
+                                  prefix=cache)
     if cfg.post_block_norms:
         mx = apply_norm(cfg, p.norm1_post, mx)
     x = x + mx
@@ -87,14 +101,17 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
 
 def apply_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                 positions, mode: str, cache: Optional[list] = None,
-                kv_len=None, cache_len: int = 0):
+                kv_len=None, cache_len: int = 0, block_tables=None,
+                spec_scatter=None):
     """Run every block.  Returns (x, new cache list or None)."""
     specs = cfg.layer_plan()
     new_cache = []
     for i, blk in enumerate(params.blocks):
         x, c = block_apply(cfg, specs[i], blk, x, positions=positions,
                            cache=cache[i] if cache is not None else None,
-                           kv_len=kv_len, mode=mode, cache_len=cache_len)
+                           kv_len=kv_len, mode=mode, cache_len=cache_len,
+                           block_tables=block_tables,
+                           spec_scatter=spec_scatter)
         new_cache.append(c)
     return x, (new_cache if any(c is not None for c in new_cache) else None)
 
@@ -113,15 +130,22 @@ def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Ten
 
 
 def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
-               cache_len: int, kv_len: Optional[torch.Tensor] = None):
+               cache_len: int, kv_len: Optional[torch.Tensor] = None,
+               prefix_kv: Optional[list] = None):
     """Prompt processing.  tokens [B, S]; kv_len [B] valid prompt lengths of
     the right-padded rows.  Returns (logits [B, Vp] of each row's last valid
-    token, cache)."""
+    token, cache).
+
+    ``prefix_kv`` (one {"k": [B, P, KV, hd], "v": ...} per layer) switches
+    to continuation prefill: ``tokens`` holds only the uncached suffix at
+    positions P.., the prefix K/V is attended through, the returned cache
+    covers the suffix only, and ``kv_len`` counts valid suffix tokens."""
     b, s = tokens.shape
     x = embed_tokens(cfg, params, tokens)
-    positions = torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    p_len = prefix_kv[0]["k"].shape[1] if prefix_kv is not None else 0
+    positions = p_len + torch.arange(s, device=tokens.device)[None, :].expand(b, s)
     x, cache = apply_stack(cfg, params, x, positions=positions, mode="prefill",
-                           kv_len=kv_len, cache_len=cache_len)
+                           kv_len=kv_len, cache_len=cache_len, cache=prefix_kv)
     x = apply_norm(cfg, params.final_norm, x)
     if kv_len is not None:
         last = x[torch.arange(b, device=x.device), (kv_len - 1).clamp_min(0)]
@@ -139,3 +163,35 @@ def lm_decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
                            cache=cache, kv_len=kv_len)
     x = apply_norm(cfg, params.final_norm, x)
     return lm_head(cfg, params, x[:, 0]), cache
+
+
+def lm_paged_decode_step(cfg: ModelConfig, params: Transformer,
+                         tokens: torch.Tensor, pools: list,
+                         block_tables: torch.Tensor, kv_len: torch.Tensor):
+    """One decode step against the paged pools (one {"k", "v"} per layer,
+    written in place).  tokens [B, 1]; block_tables [B, nb] int32; kv_len
+    [B] int32.  Returns (logits [B, Vp], pools)."""
+    x = embed_tokens(cfg, params, tokens)
+    x, pools = apply_stack(cfg, params, x, positions=None, mode="decode",
+                           cache=pools, kv_len=kv_len,
+                           block_tables=block_tables)
+    x = apply_norm(cfg, params.final_norm, x)
+    return lm_head(cfg, params, x[:, 0]), pools
+
+
+def lm_paged_spec_step(cfg: ModelConfig, params: Transformer,
+                       tokens: torch.Tensor, pools: list,
+                       block_tables: torch.Tensor, kv_len: torch.Tensor,
+                       blk: torch.Tensor, off: torch.Tensor):
+    """Multi-token (speculative-verification) step against the paged pools.
+    tokens [B, T] = current input token + T-1 drafts; kv_len [B] history
+    before the window; blk/off [B, T] per-position scatter targets.  Returns
+    (logits [B, T, Vp], pools); logits[:, t] scores the token after window
+    position t."""
+    x = embed_tokens(cfg, params, tokens)
+    x, pools = apply_stack(cfg, params, x, positions=None, mode="decode",
+                           cache=pools, kv_len=kv_len,
+                           block_tables=block_tables,
+                           spec_scatter=(blk, off))
+    x = apply_norm(cfg, params.final_norm, x)
+    return lm_head(cfg, params, x), pools

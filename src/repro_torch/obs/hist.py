@@ -43,6 +43,10 @@ class Histogram:
         self.min_v = min(self.min_v, v)
         self.max_v = max(self.max_v, v)
 
+    def record_many(self, vs) -> None:
+        for v in vs:
+            self.record(v)
+
     @property
     def mean(self) -> float:
         return self.total / self.n if self.n else float("nan")

@@ -1,5 +1,16 @@
-"""Serving runtime of the port: the padded and continuous engine and the
-greedy sampler."""
+"""Serving runtime of the port: the padded and continuous engine, the paged
+continuous-batching engine with its block allocator, prefix cache and
+drafters, and the greedy sampler."""
 from repro_torch.serving.engine import (BatchResult, EngineConfig,  # noqa: F401
                                         InferenceEngine)
+from repro_torch.serving.kv_cache import (BlockAllocator, PagedKVCache,  # noqa: F401
+                                          PagedKVConfig, kv_block_bytes)
+from repro_torch.serving.paged_engine import (PagedBatchResult,  # noqa: F401
+                                              PagedDecodeState, PagedEngine,
+                                              PagedEngineConfig,
+                                              PrefillProgress)
+from repro_torch.serving.prefix_cache import (PrefixCache, PrefixMatch,  # noqa: F401
+                                              RadixBlockTree)
 from repro_torch.serving.sampling import greedy  # noqa: F401
+from repro_torch.serving.speculative import (Drafter, ModelDrafter,  # noqa: F401
+                                             NGramDrafter, get_drafter)

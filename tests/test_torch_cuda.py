@@ -15,8 +15,12 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   decode_attention_reference)
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_reference)
+from repro_torch.kernels.paged_attention import (
+    paged_decode_attention, paged_decode_attention_reference,
+    paged_window_attention, paged_window_attention_reference)
 from repro_torch.models import api
-from repro_torch.serving import EngineConfig, InferenceEngine
+from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
+                                 PagedEngineConfig)
 
 pytestmark = pytest.mark.cuda
 
@@ -39,6 +43,20 @@ DECODE_CASES = [
     (2, 128, 8, 8, 16, 16, None, 40, [128, 77]),
     (2, 300, 12, 1, 128, 96, None, None, [300, 299]),      # D != Dv, G = 12
     (2, 80, 4, 2, 64, 64, None, None, [90, 0]),            # past the slots; empty
+]
+
+PAGED_CASES = [
+    # b, t, h, kv, d, dv, block_size, logical_blocks, phys_blocks, softcap
+    (2, 1, 4, 2, 16, 16, 8, 4, 16, None),       # the JAX package's CASES
+    (3, 1, 6, 3, 8, 8, 16, 3, 24, 50.0),
+    (1, 1, 8, 8, 32, 32, 4, 6, 32, None),
+    (4, 1, 16, 2, 64, 64, 16, 2, 48, None),
+    (4, 1, 9, 3, 64, 64, 8, 4, 40, None),       # serve decode
+    (4, 2, 9, 3, 64, 64, 8, 4, 40, None),
+    (4, 4, 9, 3, 64, 64, 8, 4, 40, None),
+    (4, 5, 9, 3, 64, 64, 8, 4, 40, 30.0),       # serve verify window
+    (2, 3, 4, 2, 96, 64, 8, 4, 16, None),       # D != Dv
+    (2, 2, 16, 2, 256, 256, 4, 5, 16, None),    # widest head, group 8
 ]
 
 
@@ -97,6 +115,82 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
     assert (got[~ok] == 0).all()
 
 
+def _paged_inputs(gen, case, dtype):
+    b, t, h, kv, d, dv, bs, nb, n, _ = case
+    q = _randn(gen, b, t, h, d, dtype=dtype)
+    kp = _randn(gen, n, bs, kv, d, dtype=dtype)
+    vp = _randn(gen, n, bs, kv, dv, dtype=dtype)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    bt = perm[:b * nb].reshape(b, nb).to(torch.int32).contiguous()
+    base = torch.randint(0, nb * bs - t + 1, (b,), generator=gen,
+                         device="cuda").to(torch.int32)
+    return q, kp, vp, bt, base
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    """Both entry points of K1 against their plain versions, through a
+    permuted table with ragged lengths; the decode entry at kv_len 1 too."""
+    cap = case[-1]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, kp, vp, bt, base = _paged_inputs(gen, case, dtype)
+    n = paged_window_attention.launches
+    got = paged_window_attention(q, kp, vp, bt, base, softcap=cap)
+    torch.cuda.synchronize()
+    assert paged_window_attention.launches == n + 1
+    want = paged_window_attention_reference(q, kp, vp, bt, base, softcap=cap)
+    assert got.dtype == dtype and got.shape == want.shape
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+    for kv_len in (base + 1, torch.ones_like(base)):
+        got = paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt, kv_len,
+                                     softcap=cap)
+        want = paged_decode_attention_reference(q[:, 0], kp, vp, bt, kv_len,
+                                                softcap=cap)
+        assert (got.float() - want.float()).abs().max().item() \
+            <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("t", [1, 5])
+def test_paged_kernel_reads_only_the_valid_pages(cuda, t):
+    """Table entries past the last valid page never reach the output: a
+    tail retargeted at the null block, whose contents are poisoned, gives
+    the same result.  A free slot (null row, kv_len 0) writes 0."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    case = (3, t, 9, 3, 64, 64, 8, 6, 24, None)
+    q, kp, vp, _, _ = _paged_inputs(gen, case, torch.float32)
+    bt = (1 + torch.randperm(23, generator=gen, device=cuda)[:18]).reshape(
+        3, 6).to(torch.int32)
+    bt[2] = 0
+    base = torch.tensor([8 + 3 - t, 2 * 8 - t, 0], dtype=torch.int32,
+                        device=cuda)
+    out1 = paged_window_attention(q, kp, vp, bt, base)
+    bt2, kp2, vp2 = bt.clone(), kp.clone(), vp.clone()
+    bt2[:2, 2:] = 0
+    kp2[0], vp2[0] = 1e3, -1e3
+    out2 = paged_window_attention(q, kp2, vp2, bt2, base)
+    empty = paged_decode_attention(q[:, 0].contiguous(), kp, vp, bt,
+                                   torch.zeros_like(base))
+    torch.cuda.synchronize()
+    assert torch.equal(out1[:2], out2[:2])
+    want = paged_window_attention_reference(q, kp, vp, bt, base)
+    assert (out1 - want).abs().max().item() <= 1e-4
+    assert (empty == 0).all()
+
+
+def test_paged_window_rows_do_not_depend_on_t(cuda):
+    """Row t of a window equals, bit for bit, the decode entry at the same
+    limit: the kernel's result for a row depends on its own limit only."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    case = (4, 5, 9, 3, 64, 64, 16, 8, 40, None)
+    q, kp, vp, bt, base = _paged_inputs(gen, case, torch.float32)
+    win = paged_window_attention(q, kp, vp, bt, base)
+    for t in range(5):
+        one = paged_decode_attention(q[:, t].contiguous(), kp, vp, bt,
+                                     base + t + 1)
+        assert torch.equal(win[:, t], one)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 8, 4, 16, device=cuda)
     k = torch.zeros(1, 8, 2, 16, device=cuda)
@@ -105,6 +199,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(TypeError, match="int32"):
         decode_attention(q[:, 0], k, k, torch.ones(1, dtype=torch.long,
                                                    device=cuda))
+    with pytest.raises(TypeError, match="int32"):
+        paged_decode_attention(q[:, 0], k, k, torch.zeros(1, 2, dtype=torch.long,
+                                                          device=cuda),
+                               torch.ones(1, dtype=torch.int32, device=cuda))
 
 
 def test_engine_on_card_matches_cpu(cuda):
@@ -129,4 +227,34 @@ def test_engine_on_card_matches_cpu(cuda):
         if dev != "cpu":
             assert flash_attention.launches - n_fa == cfg.n_layers
             assert decode_attention.launches - n_dec == cfg.n_layers * res.steps
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+@pytest.mark.parametrize("spec_tokens", [0, 3])
+def test_paged_engine_on_card_matches_cpu(cuda, spec_tokens):
+    """The paged engine's greedy outputs on the card (K1, K2) equal the
+    CPU's, with chunked prefill and the prefix cache on, and K1 ran once
+    per layer and decode or verify step, K2 once per layer and chunk."""
+    cfg = get_config("smollm-135m").reduced()
+    g = torch.Generator().manual_seed(1)
+    shared = torch.randint(2, cfg.vocab_size, (16,), generator=g).tolist()
+    reqs = lambda: [Request(rid=i, tokens=shared + torch.randint(
+        2, cfg.vocab_size, (n,), generator=torch.Generator().manual_seed(i)
+    ).tolist(), input_len=16 + n, slo=10.0, arrival=float(i),
+        true_output_len=7) for i, n in enumerate((3, 9, 5, 12, 2))]
+    pcfg = PagedEngineConfig(max_batch=3, block_size=8, n_blocks=40,
+                             max_seq_len=48, max_new_tokens=8, chunk_tokens=8,
+                             prefix_cache=True, spec_tokens=spec_tokens)
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = PagedEngine(cfg, api.init_params(cfg, seed=0, device=dev), pcfg)
+        n_fa, n_pa = flash_attention.launches, paged_window_attention.launches
+        res = eng.run_continuous(reqs())
+        outs[str(dev)] = res.outputs
+        if dev != "cpu":
+            assert flash_attention.launches - n_fa == \
+                cfg.n_layers * res.prefill_chunks
+            assert paged_window_attention.launches - n_pa == \
+                cfg.n_layers * res.steps
+            assert res.prefix_hits > 0
     assert outs["cpu"] == outs[str(cuda)]

@@ -243,8 +243,10 @@ def test_unported_branches_raise(models, what):
         cfg = dataclasses.replace(cfg, sliding_window=2)
     elif what == "mrope":
         cfg = dataclasses.replace(cfg, rope="mrope")
-    else:
-        prefix = {}
+    else:           # continuation prefill over a ring cache, as the reference
+        cfg = dataclasses.replace(cfg, sliding_window=2)
+        kv = torch.zeros(1, 3, cfg.n_kv_heads, cfg.head_dim_eff)
+        prefix = [{"k": kv, "v": kv}] * cfg.n_layers
     model = api.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         api.prefill(cfg, model, toks, cache_len=8, prefix_kv=prefix)

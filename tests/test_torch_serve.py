@@ -254,8 +254,8 @@ def test_serve_cli_flags():
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args([]).device == "cuda"
-    for argv in (["--paged"], ["--replicas", "2"], ["--trace", "t.json"],
-                 ["--workload", "shared-prefix"]):
+    for argv in (["--replicas", "2"], ["--paged", "--replicas", "2"],
+                 ["--trace", "t.json"], ["--profile-in", "p.json"]):
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError):
