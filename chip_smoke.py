@@ -7,15 +7,18 @@ Phases, in order; any failed check exits non-zero:
 1. device: a CUDA device must be present; prints its name and power limit;
    TF32 off for matmuls and convolutions (full fp32).
 2. build: compiles every CUDA kernel of the serve paths from
-   ``src/repro_torch/kernels/csrc`` with nvcc, all at once.
+   ``src/repro_torch/kernels/csrc`` with nvcc, all at once (four).
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    tensors, f32 and bf16, at the serve paths' shapes and the edge cases
    (q_offset, window, softcap, non-causal, D != Dv, ragged lengths; for
    paged attention both entry points, windows T = 1..5, a null-block free
-   slot, permuted tables and a poisoned table tail).
+   slot, permuted tables and a poisoned table tail; for WKV6 ragged T,
+   T < chunk, chunk 16, strong decay down to w = 1e-6 with finite outputs,
+   and a given initial state, out and final state both).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
-   timed only as a yardstick; none reads K/V through a block table).
+   timed only as a yardstick; none reads K/V through a block table, none
+   computes WKV6).
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
@@ -29,6 +32,13 @@ Phases, in order; any failed check exits non-zero:
    verify step and flash attention once per layer on every prefill chunk,
    that every run passed the engine's leak audit, and that the paged
    engine's first prefill and decode logits on the card match the CPU.
+7. rwkv serve: ``serve --arch rwkv6-3b`` at full width (32 layers,
+   d_model 2560, 40 heads of 64), padded and ``--continuous``, then one
+   long padded batch (4 x 1024-token prompts, 32 new tokens); checks that
+   WKV6 ran once per layer on every prefill (and no attention kernel ran),
+   profiles one decode step and the long prefill, and checks the first
+   batch's logits on the card against the CPU at full width and the first
+   4 of the 32 layers (so the host holds no second full copy).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  The last three lines are a JSON object of per-kernel numbers
@@ -45,6 +55,7 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -64,6 +75,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_reference,
     paged_window_attention, paged_window_attention_reference)
+from repro_torch.kernels.wkv6 import (  # noqa: E402
+    wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
@@ -122,8 +135,19 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
      4 * LONG_PAGES + 1, None, [LONG_PROMPT + 12] * 4),
 ]
 PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window")
+WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
+    ("rwkv_serve_prefill", 4, 16, 40, 64, 64, 32, 2.0, None, False),
+    ("rwkv_long_prefill", 4, LONG_PROMPT, 40, 64, 64, 32, 2.0, None, False),
+    ("ragged33", 4, 33, 40, 64, 64, 32, 2.0, None, False),
+    ("ragged50_chunk16", 2, 50, 40, 64, 64, 16, 2.0, None, False),
+    ("t7_lt_chunk", 4, 7, 40, 64, 64, 32, 2.0, None, False),
+    ("strong_decay", 2, 48, 40, 64, 64, 16, 4.0, 1e-6, False),
+    ("given_s0", 4, 64, 40, 64, 64, 32, 2.0, None, True),
+]
 TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
-         "paged_attention": "paged_long_decode"}
+         "paged_attention": "paged_long_decode", "wkv6": "rwkv_long_prefill"}
+RWKV_ARGS = ["--arch", "rwkv6-3b", "--no-reduced", "--device", "cuda"]
+RWKV_PARITY_LAYERS = 4                # card vs CPU logits: the first 4 of 32
 PAGED_BUDGET, PREEMPT_BUDGET = "2e7", "3e6"
 PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
     "a_paged": ["--paged", "--kv-budget", PAGED_BUDGET],
@@ -276,6 +300,40 @@ def decode_cost(case, dtype):
     return nbytes, 2.0 * (d + dv) * rows * h
 
 
+def wkv6_inputs(case, dtype, gen):
+    """r, k, v in ``dtype``; w = exp(-exp(N * decay_scale)) (clipped to
+    ``w_max``), u and s0 in f32, as the JAX package's wkv6 tests draw them."""
+    _, b, t, h, d, dv, chunk, scale, w_max, with_s0 = case
+    r = randn(gen, b, t, h, d, dtype=torch.float32) * 0.5
+    k = randn(gen, b, t, h, d, dtype=torch.float32) * 0.5
+    v = randn(gen, b, t, h, dv, dtype=torch.float32)
+    w = torch.exp(-torch.exp(randn(gen, b, t, h, d, dtype=torch.float32) * scale))
+    if w_max is not None:
+        w = w.clamp_max(w_max)
+    u = randn(gen, h, d, dtype=torch.float32) * 0.3
+    s0 = randn(gen, b, h, d, dv, dtype=torch.float32) if with_s0 else None
+    return (r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0), dict(chunk=chunk)
+
+
+def wkv6_cost(case, dtype):
+    """(bytes, operations) of the chunked WKV6 for this case: r, k, v, w
+    (f32), u and s0 read once, out and the f32 state written once; 2
+    operations per multiply-add of the chunk form (for n valid rows of a
+    chunk: n D Dv for the state read, n(n+1)/2 (D + Dv) for the
+    intra-chunk matrix and its product, D Dv (n + 1) for the state update),
+    the exponentials not counted."""
+    _, b, t, h, d, dv, chunk, _, _, with_s0 = case
+    size = torch.finfo(dtype).bits // 8
+    nbytes = size * b * t * h * (2 * d + 2 * dv) + 4 * b * t * h * d \
+        + 4 * h * d + 4 * b * h * d * dv * (2 if with_s0 else 1)
+    c = min(chunk, t)
+    fma = 0
+    for t0 in range(0, t, c):
+        n = min(c, t - t0)
+        fma += n * d * dv + n * (n + 1) // 2 * (d + dv) + d * dv * (n + 1)
+    return nbytes, 2.0 * fma * b * h
+
+
 def bound(nbytes, ops, dtype):
     t_bytes, t_ops = nbytes / H100.hbm_bw * 1e3, ops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
@@ -337,9 +395,62 @@ def phase_parity() -> dict:
                       f"{'ok' if ok else 'FAIL'}", flush=True)
                 if not ok:
                     bad.append(tag)
+    for case in WKV6_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = f"wkv6/{case[0]}/{str(dtype)[6:]}"
+            out[tag] = wkv6_parity(case, dtype, gen)
+            if not out[tag]["ok"]:
+                bad.append(tag)
     if bad:
         fail(f"kernel parity: {bad}")
+    out["wkv6/f64_oracle"] = wkv6_against_f64(WKV6_CASES[1], gen)
     return out
+
+
+def wkv6_against_f64(case, gen) -> dict:
+    """Max abs error of K4 and of the plain version (f32) against the
+    sequential recurrence in float64 on the same inputs: which of the two
+    sits closer to the exact result (recorded, not checked)."""
+    args, kw = wkv6_inputs(case, torch.float32, gen)
+    got, got_s = wkv6(*args, **kw)
+    plain, plain_s = wkv6_chunked(*args, **kw)
+    r, k, v, w, u, s0 = args
+    exact, exact_s = wkv6_sequential(r.double(), k.double(), v.double(),
+                                     w.double().clip(1e-12, 1.0), u.double())
+    errs = {name: (a.double() - b).abs().max().item() for name, a, b in (
+        ("kernel_out", got, exact), ("kernel_state", got_s, exact_s),
+        ("plain_out", plain, exact), ("plain_state", plain_s, exact_s))}
+    print(f"[parity] wkv6/{case[0]} against float64: kernel out "
+          f"{errs['kernel_out']:.3e} state {errs['kernel_state']:.3e}; plain "
+          f"out {errs['plain_out']:.3e} state {errs['plain_state']:.3e}",
+          flush=True)
+    return errs
+
+
+def wkv6_parity(case, dtype, gen) -> dict:
+    """K4 against ``wkv6_chunked`` on the same CUDA tensors: out within
+    TOL_F32 (f32) or TOL_BF16 x max|out| (bf16: both round out to bf16),
+    the f32 final state within TOL_F32 in both (both read the same rounded
+    inputs), and everything finite."""
+    args, kw = wkv6_inputs(case, dtype, gen)
+    got, got_s = wkv6(*args, **kw)
+    torch.cuda.synchronize()
+    want, want_s = wkv6_chunked(*args, **kw)
+    if got.shape != want.shape or got.dtype != want.dtype \
+            or got_s.shape != want_s.shape or got_s.dtype != torch.float32:
+        fail(f"wkv6 {case[0]}: {got.shape}/{got.dtype}, {got_s.shape}/"
+             f"{got_s.dtype} vs {want.shape}/{want.dtype}, {want_s.shape}")
+    err = (got.float() - want.float()).abs().max().item()
+    err_s = (got_s - want_s).abs().max().item()
+    tol = TOL_F32 if dtype == torch.float32 else \
+        TOL_BF16 * want.float().abs().max().item()
+    finite = bool(torch.isfinite(got.float()).all() and torch.isfinite(got_s).all())
+    ok = finite and err <= tol and err_s <= TOL_F32
+    print(f"[parity] wkv6/{case[0]}/{str(dtype)[6:]}: max_abs_err out "
+          f"{err:.3e} (tol {tol:.3e}), state {err_s:.3e} (tol {TOL_F32:.0e}), "
+          f"finite {finite} {'ok' if ok else 'FAIL'}", flush=True)
+    return {"max_abs_err": err, "tol": tol, "state_max_abs_err": err_s,
+            "finite": finite, "ok": ok}
 
 
 def phase_times() -> dict:
@@ -375,6 +486,12 @@ def phase_times() -> dict:
         out[f"paged_attention/{case[0]}"] = time_three(
             lambda: fn(*args, **kw), lambda: ref(*args, **kw), None,
             paged_cost(case, torch.float32))
+    for case in WKV6_CASES[:2]:
+        args, kw = wkv6_inputs(case, torch.float32, gen)
+        # no PyTorch call computes WKV6: library_ms null
+        out[f"wkv6/{case[0]}"] = time_three(
+            lambda: wkv6(*args, **kw), lambda: wkv6_chunked(*args, **kw), None,
+            wkv6_cost(case, torch.float32))
     for tag, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f})"
@@ -435,27 +552,34 @@ def reset_launches() -> None:
     flash_attention.launches = 0
     decode_attention.launches = 0
     paged_window_attention.launches = 0
+    wkv6.launches = 0
 
 
 def check_launches(what: str, prefills: int, steps: int, n_layers: int,
-                   paged: bool = False) -> dict:
+                   paged: bool = False, rwkv: bool = False) -> dict:
     """Launches of the path just run: flash attention once per layer and
     prefill call, the decode kernel (paged attention on a paged path) once
-    per layer and decode or verify step, the other decode kernel never."""
+    per layer and decode or verify step, the other decode kernel and WKV6
+    never; on an rwkv path WKV6 once per layer and prefill call and no
+    attention kernel."""
     got = {"flash_attention": flash_attention.launches,
            "decode_attention": decode_attention.launches,
-           "paged_attention": paged_window_attention.launches}
+           "paged_attention": paged_window_attention.launches,
+           "wkv6": wkv6.launches}
     want = {"flash_attention": n_layers * prefills,
             "decode_attention": 0 if paged else n_layers * steps,
-            "paged_attention": n_layers * steps if paged else 0}
-    print(f"[serve] {what} launches {got} (expected {want})", flush=True)
+            "paged_attention": n_layers * steps if paged else 0, "wkv6": 0}
     used = ("flash_attention", "paged_attention" if paged else "decode_attention")
+    if rwkv:
+        want = {k: 0 for k in want} | {"wkv6": n_layers * prefills}
+        used = ("wkv6",)
+    print(f"[serve] {what} launches {got} (expected {want})", flush=True)
     if got != want or min(got[k] for k in used) <= 0:
         fail(f"{what}: kernel launches {got}, expected {want}")
     return got
 
 
-def logits_parity(cfg, prompts) -> dict:
+def logits_parity(cfg, prompts, what: str = "serve") -> dict:
     """Prefill and first decode-step logits of one batch on the card vs the
     same engine on the CPU (plain kernel versions, same seeded weights)."""
     got = {}
@@ -472,7 +596,7 @@ def logits_parity(cfg, prompts) -> dict:
     errs = {name: (got["cuda"][i] - got["cpu"][i]).abs().max().item()
             for i, name in enumerate(("prefill", "decode"))}
     for name, err in errs.items():
-        print(f"[serve] card vs CPU {name} logits: max_abs_err {err:.3e} "
+        print(f"[{what}] card vs CPU {name} logits: max_abs_err {err:.3e} "
               f"(tol {TOL_LOGITS})", flush=True)
         if not err <= TOL_LOGITS:
             fail(f"card vs CPU {name} logits differ by {err}")
@@ -704,6 +828,106 @@ def phase_paged(padded: dict) -> dict:
             "launches": launches}
 
 
+def count_prefills(fn):
+    """(fn(), the number of ``api.prefill`` calls it made): the engines call
+    the model through the ``api`` module, so a wrapper there sees each."""
+    prefill, calls = api.prefill, []
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return prefill(*a, **kw)
+    api.prefill = counted
+    try:
+        return fn(), len(calls)
+    finally:
+        api.prefill = prefill
+
+
+def phase_rwkv() -> dict:
+    cfg = get_config("rwkv6-3b")
+    runs, launches = {}, 0
+    for name, flags in (("padded", []), ("continuous", ["--continuous"])):
+        reset_launches()
+        t0 = time.perf_counter()
+        out, prefills = count_prefills(lambda: serve.main(RWKV_ARGS + flags))
+        wall = time.perf_counter() - t0
+        results = out["results"]
+        steps = sum(r.steps for r in results)
+        if name == "padded" and prefills != len(results):
+            fail(f"rwkv padded: {prefills} prefills for {len(results)} batches")
+        got = check_launches(f"rwkv {name}", prefills, steps, cfg.n_layers,
+                             rwkv=True)
+        launches += got["wkv6"]
+        check_outputs(f"rwkv {name}", cfg, out["outputs"])
+        runs[name] = {"digest": out["digest"], "tokens": out["tokens"],
+                      "seconds": out["seconds"], "wall_s": wall,
+                      "tok_per_s": out["tokens"] / out["seconds"],
+                      "prefills": prefills, "decode_steps": steps,
+                      "outputs": out["outputs"], "launches": got}
+        print(f"[rwkv] {name}: {out['tokens']} tokens in {out['seconds']:.2f}s "
+              f"({runs[name]['tok_per_s']:.1f} tok/s), {prefills} prefills, "
+              f"{steps} decode steps, digest {out['digest']}", flush=True)
+        if name == "padded":
+            first = sorted(results[0].outputs)
+    # the recurrence runs over the padding, so the continuous engine's
+    # re-prefilled waves need not agree with the padded batches (printed)
+    same, total = agreement(runs["continuous"].pop("outputs"),
+                            runs["padded"].pop("outputs"))
+    print(f"[rwkv] continuous vs padded: {same}/{total} tokens agree", flush=True)
+    reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
+    first_prompts = [reqs[rid].tokens for rid in first]
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size, (4, LONG_PROMPT)).tolist()
+    batch = Batch(requests=[Request(rid=i, tokens=p, input_len=len(p), slo=1e9,
+                                    arrival=0.0, true_output_len=LONG_NEW)
+                            for i, p in enumerate(prompts)])
+    true_lens = {r.rid: LONG_NEW for r in batch.requests}
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    init_s = time.perf_counter() - t0
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_batch=4, cache_len=LONG_CACHE, max_new_tokens=LONG_NEW))
+    eng.run_batch(batch, true_lens=true_lens)             # warm-up
+    reset_launches()
+    long = eng.run_batch(batch, true_lens=true_lens)
+    got = check_launches("rwkv long batch", 1, long.steps, cfg.n_layers,
+                         rwkv=True)
+    launches += got["wkv6"]
+    check_outputs("rwkv long batch", cfg, long.outputs, n=4)
+    long_tokens = sum(len(v) for v in long.outputs.values())
+    if long_tokens != 4 * LONG_NEW:
+        fail(f"rwkv long batch: {long_tokens} tokens, expected {4 * LONG_NEW}")
+    print(f"[rwkv] long batch: prefill {long.prefill_s * 1e3:.2f} ms "
+          f"({4 * LONG_PROMPT / long.prefill_s:.0f} prompt tok/s), decode "
+          f"{long.steps} steps in {long.decode_s * 1e3:.2f} ms "
+          f"({long_tokens / long.decode_s:.1f} tok/s); weights drawn and "
+          f"moved in {init_s:.1f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    toks, kv_len = eng._pad_prompts(prompts)
+    profile = {"rwkv long prefill": step_breakdown(
+        f"rwkv long prefill {tuple(toks.shape)}",
+        lambda: eng._prefill(toks, kv_len))}
+    lg, cache = eng._prefill(toks, kv_len)
+    nxt = greedy(lg, cfg.vocab_size)[:, None].long()
+    profile["rwkv long decode step"] = step_breakdown(
+        "rwkv long decode step", lambda: eng._decode(nxt, cache, kv_len))
+    del params, eng, cache, lg
+    torch.cuda.empty_cache()
+    print(f"[rwkv] card vs CPU logits at full width, first "
+          f"{RWKV_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
+    errs = logits_parity(replace(cfg, n_layers=RWKV_PARITY_LAYERS),
+                         first_prompts, "rwkv")
+    return {"runs": runs,
+            "continuous_agree_with_padded": [same, total],
+            "long_batch": {"prefill_ms": long.prefill_s * 1e3,
+                           "decode_ms": long.decode_s * 1e3, "steps": long.steps,
+                           "decode_tok_per_s": long_tokens / long.decode_s,
+                           "init_s": init_s, "launches": got},
+            "profile": profile, "logits_layers": RWKV_PARITY_LAYERS,
+            "logits_max_abs_err": errs, "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev = phase_device()
@@ -712,11 +936,13 @@ def main() -> None:
     times = phase_times()
     served = phase_serve()
     paged = phase_paged(served)
+    rwkv = phase_rwkv()
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
                 for k in TIMED}
+    launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
             ("flash_attention", TIMED["flash_attention"],
@@ -727,7 +953,9 @@ def main() -> None:
              "src/repro/kernels/decode_attention/decode_attention.py:75"),
             ("paged_attention", TIMED["paged_attention"],
              "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention/paged_attention.py:137")):
+             "src/repro/kernels/paged_attention/paged_attention.py:137"),
+            ("wkv6", TIMED["wkv6"], "src/repro_torch/kernels/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6/wkv6.py:70")):
         t = times[f"{name}/{case}"]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -736,7 +964,7 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     record = {"device": dev, "build": built, "parity": parity, "times": times,
-              **served, "paged": paged, "kernels": kernels,
+              **served, "paged": paged, "rwkv": rwkv, "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,10 +4,12 @@ archs this slice serves; every other arch of the reference registry raises
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401
-    H100, HWSpec, LayerSpec, ModelConfig, pad_to)
+    H100, HWSpec, LayerSpec, ModelConfig, RWKVConfig, pad_to)
+from repro_torch.configs.rwkv6_3b import CONFIG as _RWKV6_3B
 from repro_torch.configs.smollm_135m import CONFIG as _SMOLLM_135M
 
-_PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M}
+_PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M,
+                                   "rwkv6-3b": _RWKV6_3B}
 
 # arch id -> the ROADMAP queue-1 item that ports it
 _LATER: dict[str, str] = {
@@ -18,7 +20,6 @@ _LATER: dict[str, str] = {
     "llama4-maverick-400b-a17b": "item 3 (model-family breadth: MoE)",
     "qwen2-vl-7b": "item 3 (model-family breadth: M-RoPE)",
     "jamba-1.5-large-398b": "item 3 (model-family breadth: Mamba)",
-    "rwkv6-3b": "item 3 (model-family breadth: RWKV-6 with kernel K4)",
     "whisper-medium": "item 3 (model-family breadth: encoder-decoder)",
     "chatglm2-6b": "item 3 (model-family breadth)",
 }

@@ -1,12 +1,12 @@
 """Config system of the PyTorch port: model architecture and hardware
 constants.
 
-Own copy of ``repro/configs/base.py``, trimmed to the dense decoder-only
-family this slice serves: its per-block options (qkv bias, softcaps, norm
-kind, activation, gating, tied or scaled embeddings, post-block norms) run
-as in the reference, while a sliding window or M-RoPE raises until its
-slice lands.  The MoE, MLA, Mamba, RWKV and encoder-decoder extensions come
-with their slices.
+Own copy of ``repro/configs/base.py``, trimmed to the families the port
+serves: the dense decoder-only family, whose per-block options (qkv bias,
+softcaps, norm kind, activation, gating, tied or scaled embeddings,
+post-block norms) run as in the reference while a sliding window or M-RoPE
+raises until its slice lands, and RWKV-6 (``rwkv``).  The MoE, MLA, Mamba
+and encoder-decoder extensions come with their slices.
 """
 from __future__ import annotations
 
@@ -21,9 +21,16 @@ def pad_to(x: int, mult: int) -> int:
 
 
 @dataclass(frozen=True)
+class RWKVConfig:
+    head_size: int = 64
+    decay_lora: int = 64
+    token_shift: bool = True
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """Structural plan for one transformer block."""
-    mixer: str = "attn"
+    mixer: str = "attn"                    # "attn" or "rwkv6"
     attn: AttnKind = "full"
     mlp: str = "dense"
 
@@ -47,6 +54,8 @@ class ModelConfig:
     final_softcap: Optional[float] = None
     sliding_window: Optional[int] = None   # window size for "window" layers
     window_pattern: int = 0                # >0: layer i is full iff i % pattern == pattern-1
+    # --- family extensions ---
+    rwkv: Optional[RWKVConfig] = None
     # --- misc ---
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     norm_eps: float = 1e-5
@@ -73,6 +82,7 @@ class ModelConfig:
 
     def layer_plan(self) -> tuple[LayerSpec, ...]:
         specs = []
+        mixer = "rwkv6" if self.rwkv is not None else "attn"
         for i in range(self.n_layers):
             if self.window_pattern > 0 and self.sliding_window:
                 attn: AttnKind = ("full" if i % self.window_pattern
@@ -81,11 +91,16 @@ class ModelConfig:
                 attn = "window"
             else:
                 attn = "full"
-            specs.append(LayerSpec(attn=attn))
+            specs.append(LayerSpec(mixer=mixer, attn=attn))
         return tuple(specs)
 
     def kv_cache_bytes(self, batch: int, seq: int, bytes_per: int = 2) -> int:
-        """Paper §1 cost model: K and V of every attention layer."""
+        """Paper §1 cost model: K and V of every attention layer; for RWKV
+        the recurrent state and the two token-shift rows of every layer,
+        whatever the sequence length."""
+        if self.rwkv is not None:
+            per_layer = self.n_heads * self.rwkv.head_size ** 2 + 2 * self.d_model
+            return int(self.n_layers * batch * per_layer * bytes_per)
         total = 0
         for spec in self.layer_plan():
             eff_seq = seq
@@ -98,12 +113,15 @@ class ModelConfig:
         """Smoke-test-scale config of the same structural family."""
         kv_ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
         n_heads = 4
+        kw = {}
+        if self.rwkv is not None:
+            kw["rwkv"] = replace(self.rwkv, head_size=16, decay_lora=8)
         return replace(
             self, name=self.name + "-reduced", n_layers=n_layers or 2,
             d_model=64, n_heads=n_heads,
             n_kv_heads=max(1, n_heads // min(kv_ratio, n_heads)),
             head_dim=16, d_ff=128, vocab_size=512, vocab_pad_mult=64,
-            sliding_window=8 if self.sliding_window else None)
+            sliding_window=8 if self.sliding_window else None, **kw)
 
 
 @dataclass(frozen=True)

@@ -18,6 +18,10 @@ derives N from the scheduler threshold), ``--preempt`` evicts the slack-most
 resident for recompute under block pressure, and ``--speculate`` verifies
 ``--spec-tokens`` drafts of ``--drafter`` per iteration in one window pass.
 
+``--arch`` picks smollm-135m (the default) or rwkv6-3b, whose prefill runs
+through the WKV6 kernel; ``--paged`` refuses rwkv6-3b, its state being
+recurrent, as the reference does.
+
 Same flags and defaults as the reference; ``--reduced`` is on by default and
 ``--no-reduced`` serves the full-width model.  The cluster, fault and
 profile flags exit with "not ported yet".

@@ -58,9 +58,11 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
 
 def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the architecture's decode cache can live in paged KV blocks:
-    every layer a full-attention GQA layer (no sliding-window ring
-    buffers)."""
+    every mixer a full-attention GQA layer (no sliding-window ring buffers,
+    no rwkv recurrent state)."""
     for spec in cfg.layer_plan():
+        if spec.mixer != "attn":
+            return False, f"{spec.mixer} state is recurrent, not a KV cache"
         if spec.attn == "window" and cfg.sliding_window:
             return False, "sliding-window layers use the ring cache"
     return True, ""

@@ -1,5 +1,5 @@
-"""Shared model primitives: dense and norm modules, activations, RoPE,
-softcap.  Port of ``repro/models/common.py``.
+"""Shared model primitives: dense and norm modules, the RWKV group norm,
+activations, RoPE, softcap.  Port of ``repro/models/common.py``.
 
 Parameters keep the JAX package's layouts (a dense weight is [d_in, d_out]
 and applies as ``x @ w``), so a converted JAX tree loads without transposes.
@@ -57,6 +57,26 @@ def apply_norm(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:
     var = ((xf - mean) ** 2).mean(-1, keepdim=True)
     xf = (xf - mean) * torch.rsqrt(var + cfg.norm_eps)
     return (xf * p.scale.float() + p.bias.float()).to(x.dtype)
+
+
+def last_valid(x: torch.Tensor, kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """Row ``kv_len - 1`` (at least 0) of each sequence of the right-padded
+    x [B, S, ...]; the last row when ``kv_len`` is None."""
+    if kv_len is None:
+        return x[:, -1]
+    return x[torch.arange(x.shape[0], device=x.device), (kv_len - 1).clamp_min(0)]
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               n_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim split into ``n_groups`` (the RWKV head
+    norm); statistics in fp32, result in x's dtype."""
+    *lead, d = x.shape
+    xf = x.float().reshape(*lead, n_groups, d // n_groups)
+    mean = xf.mean(-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(-1, keepdim=True)
+    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (xf * scale.float() + bias.float()).to(x.dtype)
 
 
 def activation(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Feed-forward block: gated (SwiGLU/GeGLU) or plain MLP.  Port of
-``repro/models/mlp.py`` (the RWKV channel mix comes with its slice)."""
+"""Feed-forward blocks: gated (SwiGLU/GeGLU) and plain MLPs, plus the RWKV
+channel mix (squared ReLU, token-shifted).  Port of ``repro/models/mlp.py``."""
 from __future__ import annotations
 
 import torch
@@ -26,3 +26,29 @@ def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:
         up = activation(cfg, up)
     return apply_dense(p.down, up)
+
+
+# ------------------------------------------------------------ rwkv channel mix
+
+class ChannelMix(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype=torch.float32):
+        super().__init__()
+        kw = dict(generator=generator, dtype=dtype)
+        self.key = Dense(cfg.d_model, cfg.d_ff, **kw)
+        self.value = Dense(cfg.d_ff, cfg.d_model, **kw)
+        self.mix_k = nn.Parameter(torch.full((cfg.d_model,), 0.5, dtype=dtype),
+                                  requires_grad=False)
+
+
+def channel_mix_apply(cfg: ModelConfig, p: ChannelMix, x: torch.Tensor,
+                      shifted: torch.Tensor) -> torch.Tensor:
+    """x, shifted: [B, S, d]; shifted = x delayed by one token."""
+    xk = x + (shifted - x) * p.mix_k
+    k = torch.square(torch.relu(apply_dense(p.key, xk)))
+    return apply_dense(p.value, k)
+
+
+def token_shift(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, d] -> the previous token's features; position 0 sees zeros."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)

@@ -1,10 +1,12 @@
 """Decoder-only LM assembly.  Port of ``repro/models/transformer.py`` for
-the attention + dense-MLP block.
+the attention + dense-MLP block and the RWKV-6 time-mix + channel-mix
+block.
 
 The reference stacks layer groups and runs one ``lax.scan``; here the stack
 is an ``nn.ModuleList`` of ``n_layers`` blocks run by a Python loop.  The
 decode cache, the paged pools and a continuation prefill's prefix K/V are
-each a list with one {"k", "v"} entry per layer.
+each a list with one entry per layer: {"k", "v"} for attention, {"shift",
+"state", "cm_shift"} for RWKV-6.
 """
 from __future__ import annotations
 
@@ -17,18 +19,24 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
-from repro_torch.models.common import Norm, apply_norm, softcap
-from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models.common import Norm, apply_norm, last_valid, softcap
+from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
+                                    mlp_apply, token_shift)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 dtype=torch.float32):
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec,
+                 generator: torch.Generator, dtype=torch.float32):
         super().__init__()
         self.norm1 = Norm(cfg, dtype)
         self.norm2 = Norm(cfg, dtype)
-        self.mixer = attn.Attention(cfg, generator, dtype)
-        self.mlp = MLP(cfg, generator, dtype)
+        if spec.mixer == "rwkv6":
+            self.mixer = rwkv_mod.RWKV(cfg, generator, dtype)
+            self.mlp = ChannelMix(cfg, generator, dtype)
+        else:
+            self.mixer = attn.Attention(cfg, generator, dtype)
+            self.mlp = MLP(cfg, generator, dtype)
         if cfg.post_block_norms:
             self.norm1_post = Norm(cfg, dtype)
             self.norm2_post = Norm(cfg, dtype)
@@ -36,26 +44,29 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Parameters of the LM: ``embed.w`` [Vp, d], ``blocks.{i}.*``,
-    ``final_norm``, and ``head.w`` [d, Vp] when embeddings are untied."""
+    ``final_norm``, and ``head.w`` [d, Vp] when embeddings are untied.
+    Each part is drawn from ``generator`` on the CPU and moved to
+    ``device`` before the next is drawn, so the host holds one block at a
+    time."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 dtype=torch.float32):
+                 dtype=torch.float32, device: torch.device = torch.device("cpu")):
         super().__init__()
         self.cfg = cfg
         g = generator
         self.embed = nn.Module()
         self.embed.w = nn.Parameter(
             (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g)
-             * 0.02).to(dtype), requires_grad=False)
-        self.final_norm = Norm(cfg, dtype)
-        self.blocks = nn.ModuleList(Block(cfg, g, dtype)
-                                    for _ in range(cfg.n_layers))
+             * 0.02).to(dtype).to(device), requires_grad=False)
+        self.final_norm = Norm(cfg, dtype).to(device)
+        self.blocks = nn.ModuleList(Block(cfg, spec, g, dtype).to(device)
+                                    for spec in cfg.layer_plan())
         self.head = None
         if not cfg.tie_embeddings:
             self.head = nn.Module()
             self.head.w = nn.Parameter(
                 (torch.randn(cfg.d_model, cfg.padded_vocab, generator=g)
-                 * cfg.d_model ** -0.5).to(dtype), requires_grad=False)
+                 * cfg.d_model ** -0.5).to(dtype).to(device), requires_grad=False)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
@@ -65,7 +76,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     then moved, so a seed gives the same weights on every device."""
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    return Transformer(cfg, gen, dtype).to(device)
+    return Transformer(cfg, gen, dtype, device)
 
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
@@ -77,7 +88,19 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     window.  In prefill mode a ``cache`` entry is a prefix K/V to continue
     from."""
     h = apply_norm(cfg, p.norm1, x)
-    if mode == "decode" and block_tables is not None \
+    if block_tables is not None and spec.mixer != "attn":
+        raise NotImplementedError(
+            f"paged decode only supports attention mixers, got {spec.mixer}")
+    if spec.mixer == "rwkv6":
+        if mode != "decode" and cache is not None:
+            raise NotImplementedError(
+                "prefix-continuation prefill: rwkv6 state is recurrent")
+        if mode == "decode":
+            mx, c = rwkv_mod.rwkv_decode(cfg, p.mixer, h, cache)
+        else:
+            mx, c = rwkv_mod.rwkv_prefill(cfg, p.mixer, h, cache_len=cache_len,
+                                          kv_len=kv_len)
+    elif mode == "decode" and block_tables is not None \
             and spec_scatter is not None:
         mx, c = attn.attn_paged_spec(cfg, spec, p.mixer, h, cache,
                                      block_tables, kv_len, *spec_scatter)
@@ -93,7 +116,17 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     if cfg.post_block_norms:
         mx = apply_norm(cfg, p.norm1_post, mx)
     x = x + mx
-    my = mlp_apply(cfg, p.mlp, apply_norm(cfg, p.norm2, x))
+    h2 = apply_norm(cfg, p.norm2, x)
+    if spec.mixer == "rwkv6":
+        if mode == "decode":
+            my = channel_mix_apply(cfg, p.mlp, h2, cache["cm_shift"][:, None])
+            c["cm_shift"] = h2[:, 0]
+        else:
+            my = channel_mix_apply(cfg, p.mlp, h2, token_shift(h2))
+            if c is not None:
+                c["cm_shift"] = last_valid(h2, kv_len)
+    else:
+        my = mlp_apply(cfg, p.mlp, h2)
     if cfg.post_block_norms:
         my = apply_norm(cfg, p.norm2_post, my)
     return x + my, c
@@ -147,11 +180,7 @@ def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     x, cache = apply_stack(cfg, params, x, positions=positions, mode="prefill",
                            kv_len=kv_len, cache_len=cache_len, cache=prefix_kv)
     x = apply_norm(cfg, params.final_norm, x)
-    if kv_len is not None:
-        last = x[torch.arange(b, device=x.device), (kv_len - 1).clamp_min(0)]
-    else:
-        last = x[:, -1]
-    return lm_head(cfg, params, last), cache
+    return lm_head(cfg, params, last_valid(x, kv_len)), cache
 
 
 def lm_decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,

@@ -9,8 +9,10 @@ Two batching modes:
   sequences free their slot, which is refilled from the queue between steps
   (per-slot kv_len, right-padded prefill per admission wave).
 
-Both drive the same prefill and decode ops, so both run the same two
-attention kernels.  The decode step writes the KV cache in place.
+Both drive the same prefill and decode ops, so both run the same kernels
+(the two attention kernels, or WKV6 on every rwkv6 prefill), and treat the
+cache as opaque: an attention decode step writes its KV cache in place, an
+rwkv6 one returns the new state.
 """
 from __future__ import annotations
 

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference,
     paged_window_attention, paged_window_attention_reference)
+from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
 from repro_torch.models import api
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
                                  PagedEngineConfig)
@@ -57,6 +58,18 @@ PAGED_CASES = [
     (4, 5, 9, 3, 64, 64, 8, 4, 40, 30.0),       # serve verify window
     (2, 3, 4, 2, 96, 64, 8, 4, 16, None),       # D != Dv
     (2, 2, 16, 2, 256, 256, 4, 5, 16, None),    # widest head, group 8
+]
+
+WKV6_CASES = [
+    # b, t, h, d, dv, chunk, decay_scale, w_max, s0
+    (4, 16, 40, 64, 64, 32, 2.0, None, False),     # serve prefill
+    (4, 1024, 40, 64, 64, 32, 2.0, None, False),   # long prefill
+    (2, 33, 4, 32, 32, 32, 2.0, None, False),      # ragged T
+    (1, 50, 2, 8, 8, 16, 2.0, None, False),        # ragged T, chunk 16
+    (2, 7, 3, 16, 16, 32, 2.0, None, False),       # T < chunk
+    (1, 48, 2, 16, 16, 16, 4.0, 1e-6, False),      # strong decay
+    (2, 64, 3, 16, 16, 16, 2.0, None, True),       # a given s0
+    (2, 40, 2, 128, 96, 32, 2.0, None, True),      # widest head, D != Dv
 ]
 
 
@@ -257,4 +270,77 @@ def test_paged_engine_on_card_matches_cpu(cuda, spec_tokens):
             assert paged_window_attention.launches - n_pa == \
                 cfg.n_layers * res.steps
             assert res.prefix_hits > 0
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+def wkv6_inputs(gen, case, dtype):
+    """r, k, v in ``dtype``; w = exp(-exp(N * decay_scale)) (clipped to
+    ``w_max``) and u in f32, as the JAX package's wkv6 tests draw them."""
+    b, t, h, d, dv, _, scale, w_max, with_s0 = case
+    r = _randn(gen, b, t, h, d, dtype=torch.float32) * 0.5
+    k = _randn(gen, b, t, h, d, dtype=torch.float32) * 0.5
+    v = _randn(gen, b, t, h, dv, dtype=torch.float32)
+    w = torch.exp(-torch.exp(_randn(gen, b, t, h, d, dtype=torch.float32) * scale))
+    if w_max is not None:
+        w = w.clamp_max(w_max)
+    u = _randn(gen, h, d, dtype=torch.float32) * 0.3
+    s0 = _randn(gen, b, h, d, dv, dtype=torch.float32) if with_s0 else None
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WKV6_CASES)
+def test_wkv6_kernel_matches_plain(cuda, case, dtype):
+    """K4 against the chunked plain version: out within the usual
+    tolerance, the f32 state within 1e-4 in both dtypes (both read the same
+    rounded inputs), everything finite."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    r, k, v, w, u, s0 = wkv6_inputs(gen, case, dtype)
+    chunk = case[5]
+    n = wkv6.launches
+    out, state = wkv6(r, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert wkv6.launches == n + 1
+    want, want_s = wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
+    assert out.dtype == dtype and out.shape == want.shape
+    assert state.dtype == torch.float32 and state.shape == want_s.shape
+    assert torch.isfinite(out.float()).all() and torch.isfinite(state).all()
+    assert (out.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+    assert (state - want_s).abs().max().item() <= 1e-4
+
+
+def test_wkv6_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 8, 2, 16, device=cuda)
+    u = torch.zeros(2, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        wkv6(x.transpose(1, 2).contiguous().transpose(1, 2), x, x, x, u)
+    with pytest.raises(ValueError, match="chunk"):
+        wkv6(x, x, x, x, u, chunk=64)
+    with pytest.raises(TypeError):
+        wkv6(x.half(), x.half(), x.half(), x, u)
+
+
+def test_rwkv_engine_on_card_matches_cpu(cuda):
+    """Greedy outputs of the reduced rwkv6-3b on the card (K4 on every
+    prefill) equal the CPU's (plain versions), on a mixed-length batch and
+    through the continuous engine; K4 ran once per layer and prefill."""
+    cfg = get_config("rwkv6-3b").reduced()
+    g = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, tokens=torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=g).tolist(),
+                    input_len=n, slo=1.0, arrival=float(i), true_output_len=6)
+            for i, n in enumerate((5, 40, 9, 3, 17))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, api.init_params(cfg, seed=0, device=dev),
+                              EngineConfig(max_batch=2, cache_len=64,
+                                           max_new_tokens=6))
+        n_wkv = wkv6.launches
+        res = eng.run_batch(Batch(requests=reqs[:3]),
+                            true_lens={r.rid: 6 for r in reqs})
+        cont = eng.run_continuous(reqs)
+        outs[str(dev)] = (res.outputs, cont.outputs)
+        if dev != "cpu":
+            assert wkv6.launches - n_wkv >= 2 * cfg.n_layers
+            assert (wkv6.launches - n_wkv) % cfg.n_layers == 0
     assert outs["cpu"] == outs[str(cuda)]

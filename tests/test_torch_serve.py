@@ -264,7 +264,7 @@ def test_serve_cli_flags():
 
 def test_get_config_names_the_later_slice():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("rwkv6-3b")
+        get_config("gemma2-27b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
