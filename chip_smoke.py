@@ -10,15 +10,18 @@ Phases, in order; any failed check exits non-zero:
    ``src/repro_torch/kernels/csrc`` with nvcc, all at once (four).
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    tensors, f32 and bf16, at the serve paths' shapes and the edge cases
-   (q_offset, window, softcap, non-causal, D != Dv, ragged lengths; for
-   paged attention both entry points, windows T = 1..5, a null-block free
-   slot, permuted tables and a poisoned table tail; for WKV6 ragged T,
-   T < chunk, chunk 16, strong decay down to w = 1e-6 with finite outputs,
-   and a given initial state, out and final state both).
+   (q_offset, window, softcap, non-causal, D != Dv, ragged lengths, the
+   edges of the decode kernels' splits; for paged attention both entry
+   points, windows T = 1..5, a null-block free slot, permuted tables, a
+   poisoned table tail and limits on page and split boundaries; for WKV6
+   ragged T, T < chunk, chunk 16, strong decay down to w = 1e-6 with finite
+   outputs, and a given initial state, out and final state both).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
-   computes WKV6).
+   computes WKV6); the profiler must see one device activity per kernel
+   call; the two decode kernels also with a cold L2 (64 MB written between
+   launches, only the kernel's own activities summed).
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
@@ -70,11 +73,13 @@ from repro_torch.core.types import Batch, Request  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference)
+from repro_torch.kernels.decode_attention.ops import decode_splits  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_reference)
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_reference,
     paged_window_attention, paged_window_attention_reference)
+from repro_torch.kernels.paged_attention.ops import paged_splits  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve  # noqa: E402
@@ -109,6 +114,13 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("window", 2, 128, 8, 8, 16, 16, None, 40, [128, 77]),
     ("softcap", 3, 64, 6, 3, 8, 8, 50.0, None, [64, 33, 2]),
     ("kv_len_1", 4, 256, 9, 3, 64, 64, None, None, [1, 1, 1, 1]),
+    # the edges of the 16-way split at S = 1088: one position, exactly one
+    # split (32) and one past, one tile in each split (512) and one past
+    ("split_edges", 6, LONG_CACHE, 9, 3, 64, 64, None, None,
+     [1, 32, 33, 512, 513, 1041]),
+    # window starts 841 and 500 inside a tile; 150 and 33 shorter than it
+    ("window_in_split", 4, LONG_CACHE, 9, 3, 64, 64, None, 200,
+     [1041, 700, 150, 33]),
 ]
 LONG_PAGE, LONG_PAGES = 16, 66        # ceil((1024 + 32) / 16) pages a sequence
 PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
@@ -133,6 +145,13 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
      4 * LONG_PAGES + 1, None, [LONG_PROMPT + 17] * 4),
     ("paged_long_window", "window", 4, 5, 9, 3, 64, 64, LONG_PAGE, LONG_PAGES,
      4 * LONG_PAGES + 1, None, [LONG_PROMPT + 12] * 4),
+    # 66 16-token pages split 14 ways (5 pages, 80 positions each): limits
+    # on a page boundary (16) and one past, on a split boundary (80) and
+    # one past, the whole table (1056)
+    ("page_edges", "decode", 6, 1, 9, 3, 64, 64, LONG_PAGE, LONG_PAGES,
+     6 * LONG_PAGES + 1, None, [1, 16, 17, 80, 81, 1056]),
+    ("page_edges_t5", "window", 6, 5, 9, 3, 64, 64, LONG_PAGE, LONG_PAGES,
+     6 * LONG_PAGES + 1, None, [75, 76, 11, 12, 0, 1051]),
 ]
 PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window")
 WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
@@ -146,6 +165,8 @@ WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
 ]
 TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
          "paged_attention": "paged_long_decode", "wkv6": "rwkv_long_prefill"}
+COLD = {"decode_attention": "dec_fwd", "paged_attention": "paged_fwd"}
+FLUSH_BYTES = 64 * 2**20              # written between launches: > the 50 MB L2
 RWKV_ARGS = ["--arch", "rwkv6-3b", "--no-reduced", "--device", "cuda"]
 RWKV_PARITY_LAYERS = 4                # card vs CPU logits: the first 4 of 32
 PAGED_BUDGET, PREEMPT_BUDGET = "2e7", "3e6"
@@ -196,15 +217,37 @@ def device_kernels(fn, n: int = 1):
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def timed(fn) -> dict:
-    """Device ms per call (sum of its kernels' durations, profiler) and the
-    event-timed ms per call; ``ms`` is the device time where the profiler
-    saw the device, else the event time."""
+def timed(fn, per_call: int | None = None) -> dict:
+    """Device ms per call and the event-timed ms per call; ``ms`` is the
+    device time where the profiler saw the device, else the event time.
+    The profiler can miss some of a window's activities (24 of 25 launches
+    once), so the device time is the mean over the activities it saw times
+    the activities of one call: ``per_call`` where the caller knows it,
+    else the most that three profiles of one call saw."""
+    if per_call is None:
+        per_call = max(len(device_kernels(fn)) for _ in range(3))
     kern = device_kernels(fn, N_TIMED)
-    dev = sum(us for _, us in kern) / 1e3 / N_TIMED if kern else None
+    dev = sum(us for _, us in kern) / len(kern) * per_call / 1e3 \
+        if kern else None
     ev = call_ms(fn)
     return {"ms": dev if dev is not None else ev, "device_ms": dev,
-            "call_ms": ev, "launches_per_call": len(kern) / N_TIMED}
+            "call_ms": ev, "launches_per_call": per_call,
+            "launches_seen_per_call": len(kern) / N_TIMED}
+
+
+def cold_ms(fn, symbol: str) -> float:
+    """Mean device ms of the kernel whose name holds ``symbol`` with
+    FLUSH_BYTES written between launches, so its inputs come from HBM as
+    the serve step finds them; only the kernel's own activities count."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+
+    def step():
+        flush.fill_(1.0)
+        fn()
+    kern = [us for name, us in device_kernels(step, N_TIMED) if symbol in name]
+    if not kern:
+        fail(f"cold timing: the profiler saw no {symbol} kernel")
+    return sum(kern) / len(kern) / 1e3
 
 
 def randn(gen, *shape, dtype):
@@ -476,7 +519,8 @@ def phase_times() -> dict:
             lambda: decode_attention_reference(q, k, v, kl, **kw),
             lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                                    enable_gqa=True),
-            decode_cost(case, torch.float32))
+            decode_cost(case, torch.float32), COLD["decode_attention"])
+        out[f"decode_attention/{case[0]}"]["splits"] = decode_splits(case[2])
     for case in PAGED_CASES:
         if case[0] not in PAGED_TIMED:
             continue
@@ -485,7 +529,8 @@ def phase_times() -> dict:
         # no PyTorch call reads K/V through a block table: library_ms null
         out[f"paged_attention/{case[0]}"] = time_three(
             lambda: fn(*args, **kw), lambda: ref(*args, **kw), None,
-            paged_cost(case, torch.float32))
+            paged_cost(case, torch.float32), COLD["paged_attention"])
+        out[f"paged_attention/{case[0]}"]["splits"] = paged_splits(case[9], case[8])[0]
     for case in WKV6_CASES[:2]:
         args, kw = wkv6_inputs(case, torch.float32, gen)
         # no PyTorch call computes WKV6: library_ms null
@@ -495,22 +540,31 @@ def phase_times() -> dict:
     for tag, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f})"
-        print(f"[times] {tag}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f}), "
+        cold = "" if r["cold_ms"] is None else f", cold L2 {r['cold_ms']:.4f} ms"
+        print(f"[times] {tag}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f}"
+              f"{cold}), "
               f"plain {r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f}), "
               f"library {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device time "
-              f"{'from torch.profiler' if r['device_ms'] is not None else 'not seen: event times'}",
-              flush=True)
+              f"{'from torch.profiler' if r['device_ms'] is not None else 'not seen: event times'}"
+              f" ({r['launches_seen_per_call']:.2f} of {r['launches_per_call']} "
+              "activities a call seen)", flush=True)
     return out
 
 
-def time_three(kernel, plain, library, cost) -> dict:
+def time_three(kernel, plain, library, cost, cold: str | None = None) -> dict:
     """Kernel, plain version and library call (None: there is none) on the
     same inputs, with the bound of the function from its bytes and
-    operations."""
+    operations.  Each wrapper launches its kernel once a call: the profiler
+    must see one device activity for one call.  ``cold``: the kernel's
+    symbol, to time it with a cold L2 as well."""
     nbytes, ops = cost
     b_ms, b_by = bound(nbytes, ops, torch.float32)
-    k, p = timed(kernel), timed(plain)
+    seen = max(len(device_kernels(kernel)) for _ in range(3))
+    if seen != 1:
+        fail(f"the profiler saw {seen} device activities for one kernel call")
+    k, p = timed(kernel, per_call=1), timed(plain)
+    k["cold_ms"] = cold_ms(kernel, cold) if cold else None
     lib = timed(library) if library is not None else {"ms": None,
                                                       "call_ms": None}
     return {**k, "plain_ms": p["ms"], "plain_call_ms": p["call_ms"],

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 into its own shared library for Hopper (``sm_90a``), loaded with ``ctypes``.
 Libraries go to ``build/kernels/`` at the root of the checkout, at first use,
-named by a hash of the source and the flags, so an edited source rebuilds.
+named by a hash of the source, the ``csrc/`` headers it includes and the
+flags, so an edited source or header rebuilds.
 ``build_all`` starts one ``nvcc`` per source at once and waits for all.
 Nothing here runs at import time: the CPU tests import every module.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -37,6 +39,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    for header in re.findall(rb'#include "([^"]+)"', src):
+        src += (CSRC / header.decode()).read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 

@@ -1,4 +1,4 @@
-// Flash-decoding for Hopper (sm_90a), plain CUDA C++ with fp32 FMA.
+// Flash-decoding for Hopper (sm_90a), CUDA C++ with fp32 FMA.
 //
 // Replaces the TPU kernel decode_attention_pallas
 // (src/repro/kernels/decode_attention/decode_attention.py:75, body _dec_kernel
@@ -8,218 +8,155 @@
 // read; online softmax in fp32, output in q's dtype.
 //
 // Layouts are the JAX package's: q [B, H, D], k [B, S, KV, D],
-// v [B, S, KV, Dv], kv_len [B] int32, o [B, H, Dv], all contiguous; f32/bf16.
+// v [B, S, KV, Dv], kv_len [B] int32, o [B, H, Dv], all contiguous; f32/bf16;
+// D and Dv a multiple of 16 bytes, K and V 16-byte aligned.
 //
 // What bounds it on the H100: every valid K/V row is read once for only
-// 2*G*(D+Dv) operations (G = query heads per KV head), so it is bound by the
-// bytes of K/V.  This first design gives one block of 8 warps to each
-// (batch, KV head, chunk of <= 8 query heads of the group): the G heads are
-// the rows; the warps stride over 32-position tiles of the valid range
-// [max(0, kv_len - window), kv_len), one position per lane for the scores
-// and one output column per lane for P.V; each warp keeps its own fp32
-// (m, l, acc) and the block merges them at the end.  At the serve shapes
-// (B <= 4, KV = 3) that is 12 blocks on 132 SMs; splitting the sequence
-// across blocks with a (acc, m, l) combine pass is the next design.
+// 2*G*(D+Dv) operations (G = query heads per KV head): 1.5 operations a
+// byte at G = 3 in f32, two orders of magnitude under the card's ridge, so
+// it is bound by the bytes of K/V and, at decode sizes (a few MB), by how
+// many of them are in flight.  The design (shared with K1,
+// decode_common.cuh):
+//
+// - Split-K.  The grid is (splits x row chunks, KV, B).  The splits of one
+//   (batch, KV head, chunk of <= 16 of the G heads) are the blocks of one
+//   thread-block cluster.  The host picks their number from the cache's
+//   capacity S alone (ceil(S / 64), clamped to [1, 16]) and never reads
+//   kv_len.  Each block computes its own slice of [lo, len), len =
+//   min(kv_len, S), lo = len - window with a window, in whole 32-position
+//   tiles: ceil((len - lo) / splits) rounded up to a tile.  At B = 4,
+//   KV = 3 and S = 1088 that is 192 blocks on 132 SMs, where one block per
+//   (batch, KV head) gave 12.  Blocks are short, so a call costs a fixed
+//   part (launch, the first loads, the combine) plus the per-tile time of
+//   its longest split.
+// - cp.async.  K and V rows are copied to shared memory in 16-byte pieces,
+//   eight threads to a position, neighbouring threads on neighbouring
+//   addresses of a row, into a ring of 3 tiles (2 for the general head
+//   widths), so two tiles are in flight while one is computed.  No TMA: a tensor map needs the
+//   driver API's cuTensorMapEncodeTiled, which this ctypes-loaded library
+//   does not link, and 16-byte cp.async already coalesces each row.
+// - Compute from shared memory.  8 warps; warp w owns query rows w and
+//   w + 8 of the chunk, and a warp without a row skips the arithmetic.
+//   Scores take one position per lane (staged rows padded by 16 bytes, so
+//   the lanes' 16-byte reads do not collide in a bank) in four interleaved
+//   partial sums; for P.V the lanes own output columns and walk the tile's
+//   positions with p from shared memory; l is summed per lane and across
+//   the warp once.  No tensor cores: at 1.5 operations a byte fp32 FMA is
+//   far from binding.
+// - Combine in the same launch.  Each block leaves (m, l, acc) of its rows
+//   in shared memory; after a cluster barrier rank 0 reads its peers'
+//   partials through distributed shared memory, every load of a step in
+//   flight at once, and merges them in rank order as combine_partials does
+//   (src/repro/kernels/decode_attention/xla.py:58-73).  No scratch in
+//   device memory, no second launch.
+//
+// Instances: D = Dv = 64 (the main path's width) and a general one for
+// D, Dv <= 256.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "decode_common.cuh"
 
 namespace {
 
-constexpr int NW = 8;            // warps per block
-constexpr int NT = NW * 32;
-constexpr int MAXD = 256;        // D, Dv <= 256
-constexpr int NDV = MAXD / 32;   // output columns per lane
-constexpr float NEG_INF = -1e30f;
-constexpr unsigned FULL = 0xffffffffu;
+using namespace decode_common;
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-  return x;
-}
-
-// GR: query rows per block (a power of two >= the rows it serves, <= 8).
-template <typename T, int GR>
-__global__ void __launch_bounds__(NT)
+template <typename T, int DK, int RPW, int NS>
+__global__ void __launch_bounds__(NT, MIN_BLOCKS)
 dec_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
         const int* __restrict__ kv_len, T* __restrict__ o, int s, int h, int kvh,
-        int d, int dv, int window, float softcap, float scale) {
-  __shared__ float qs[GR][MAXD];
-  __shared__ float os[GR][MAXD];
-  __shared__ float ms[NW][GR];
-  __shared__ float ls[NW][GR];
-
+        int d_arg, int dv_arg, int window, float softcap, float scale, int splits) {
+  constexpr int RC = RPW * NW;
+  constexpr int NDV = (DK ? DK : MAXD) / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int d = DK ? DK : d_arg, dv = DK ? DK : dv_arg;
+  const Layout L = make_layout(sizeof(T), NS, RC, d, dv, splits, 0);
+  const int rank = (int)cg::this_cluster().block_rank();
   const int group = h / kvh;
-  const int g0 = blockIdx.x * GR;
-  const int ng = min(GR, group - g0);
+  const int g0 = (blockIdx.x / splits) * RC;
+  const int nr = min(RC, group - g0);
   const int kh = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int head0 = kh * group + g0;
+  const int warp = threadIdx.x >> 5;
   // The cache has s slots: a length past them reads no further, as the
   // reference's mask over the s slots does.
   const int len = max(0, min(kv_len[b], s));
   const int lo = window > 0 ? max(0, len - window) : 0;
+  const int per = ((len - lo + splits - 1) / splits + TILE - 1) / TILE * TILE;
+  const int start = lo + rank * per;
+  const int end = min(start + per, len);
 
-  for (int i = threadIdx.x; i < GR * d; i += NT) {
-    const int r = i / d, c = i - r * d;
-    qs[r][c] = r < ng ? to_f(q[((size_t)b * h + head0 + r) * d + c]) * scale : 0.f;
-  }
-  for (int i = threadIdx.x; i < GR * dv; i += NT) os[i / dv][i % dv] = 0.f;
-  __syncthreads();
+  load_q<T, RC, DK>(reinterpret_cast<float*>(smem + L.q), d, nr, scale,
+                    [=](int r) { return q + ((size_t)b * h + kh * group + g0 + r) * d; });
 
-  const size_t k_row = (size_t)kvh * d, v_row = (size_t)kvh * dv;
-  const T* kb = k + (size_t)b * s * k_row + (size_t)kh * d;
-  const T* vb = v + (size_t)b * s * v_row + (size_t)kh * dv;
-
-  float m[GR], l[GR], acc[GR][NDV];
+  int rend[RPW];
+  float m[RPW], l[RPW], acc[RPW][NDV];
 #pragma unroll
-  for (int g = 0; g < GR; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.f;
+  for (int i = 0; i < RPW; ++i) {
+    rend[i] = warp + NW * i < nr ? end : 0;
+    m[i] = NEG_INF;
+    l[i] = 0.f;
 #pragma unroll
-    for (int jj = 0; jj < NDV; ++jj) acc[g][jj] = 0.f;
+    for (int jj = 0; jj < NDV; ++jj) acc[i][jj] = 0.f;
   }
-
-  for (int t0 = lo + warp * 32; t0 < len; t0 += NW * 32) {
-    const int pos = t0 + lane;
-    const bool ok = pos < len;
-    float sc[GR];
-#pragma unroll
-    for (int g = 0; g < GR; ++g) sc[g] = 0.f;
-    if (ok) {
-      const T* kr = kb + (size_t)pos * k_row;
-      for (int c = 0; c < d; ++c) {
-        const float kv = to_f(kr[c]);
-#pragma unroll
-        for (int g = 0; g < GR; ++g) sc[g] = fmaf(qs[g][c], kv, sc[g]);
-      }
-    }
-    float p[GR];
-#pragma unroll
-    for (int g = 0; g < GR; ++g) {
-      float x = sc[g];
-      if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-      x = ok ? x : NEG_INF;
-      const float m_new = fmaxf(m[g], warp_max(x));
-      const float corr = expf(m[g] - m_new);
-      p[g] = ok ? expf(x - m_new) : 0.f;
-      l[g] = l[g] * corr + warp_sum(p[g]);
-      m[g] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < NDV; ++jj) acc[g][jj] *= corr;
-    }
-    const int n_valid = min(32, len - t0);
-    for (int j = 0; j < n_valid; ++j) {
-      const T* vr = vb + (size_t)(t0 + j) * v_row;
-      float vv[NDV];
-#pragma unroll
-      for (int jj = 0; jj < NDV; ++jj) {
-        const int col = lane + 32 * jj;
-        vv[jj] = col < dv ? to_f(vr[col]) : 0.f;
-      }
-#pragma unroll
-      for (int g = 0; g < GR; ++g) {
-        const float pj = __shfl_sync(FULL, p[g], j);
-#pragma unroll
-        for (int jj = 0; jj < NDV; ++jj) acc[g][jj] = fmaf(pj, vv[jj], acc[g][jj]);
-      }
-    }
-  }
-
-  // Merge the warps' partials: weights exp(m_w - max_w m_w), in warp order.
-  if (lane == 0) {
-#pragma unroll
-    for (int g = 0; g < GR; ++g) {
-      ms[warp][g] = m[g];
-      ls[warp][g] = l[g];
-    }
-  }
-  __syncthreads();
-  for (int w = 0; w < NW; ++w) {
-    if (warp == w) {
-#pragma unroll
-      for (int g = 0; g < GR; ++g) {
-        float mx = NEG_INF;
-        for (int u = 0; u < NW; ++u) mx = fmaxf(mx, ms[u][g]);
-        const float wgt = expf(m[g] - mx);
-#pragma unroll
-        for (int jj = 0; jj < NDV; ++jj) {
-          const int col = lane + 32 * jj;
-          if (col < dv) os[g][col] += acc[g][jj] * wgt;
-        }
-      }
-    }
-    __syncthreads();
-  }
-  for (int i = threadIdx.x; i < ng * dv; i += NT) {
-    const int r = i / dv, c = i - r * dv;
-    float mx = NEG_INF;
-    for (int u = 0; u < NW; ++u) mx = fmaxf(mx, ms[u][r]);
-    float den = 0.f;
-    for (int u = 0; u < NW; ++u) den += ls[u][r] * expf(ms[u][r] - mx);
-    o[((size_t)b * h + head0 + r) * dv + c] = from_f<T>(os[r][c] / fmaxf(den, 1e-30f));
-  }
+  kv_loop<T, DK, RPW, NS>(smem, L, d, dv, k + (size_t)kh * d, v + (size_t)kh * dv,
+                          (size_t)kvh * d, (size_t)kvh * dv, start, end,
+                          [=](int pos) { return (size_t)b * s + pos; }, warp < nr, rend,
+                          softcap, m, l, acc);
+  combine<T, DK, RPW>(smem, L, dv, nr, splits, m, l, acc, [=](int r) {
+    return o + ((size_t)b * h + kh * group + g0 + r) * dv;
+  });
 }
 
-template <typename T, int GR>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_len,
-                   void* o, int b, int s, int h, int kvh, int d, int dv,
-                   int window, float softcap, float scale, cudaStream_t stream) {
-  const int group = h / kvh;
-  const dim3 grid((group + GR - 1) / GR, kvh, b);
-  dec_fwd<T, GR><<<grid, NT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(kv_len), static_cast<T*>(o), s, h, kvh, d, dv,
-      window, softcap, scale);
-  return cudaGetLastError();
+struct Call {
+  const void *q, *k, *v, *kv_len;
+  void* o;
+  int b, s, h, kvh, d, dv, window;
+  float softcap, scale;
+  int splits;
+  cudaStream_t stream;
+};
+
+template <typename T, int DK, int RPW, int NS>
+cudaError_t launch(const Call& a) {
+  constexpr int RC = RPW * NW;
+  const int chunks = (a.h / a.kvh + RC - 1) / RC;
+  const size_t smem =
+      make_layout(sizeof(T), NS, RC, DK ? DK : a.d, DK ? DK : a.dv, a.splits, 0).total;
+  return launch_clustered(dec_fwd<T, DK, RPW, NS>, dim3(a.splits * chunks, a.kvh, a.b),
+                          a.splits, smem, a.stream, static_cast<const T*>(a.q),
+                          static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+                          static_cast<const int*>(a.kv_len), static_cast<T*>(a.o), a.s, a.h,
+                          a.kvh, a.d, a.dv, a.window, a.softcap, a.scale, a.splits);
+}
+
+template <typename T, int DK, int NS>
+cudaError_t by_rows(const Call& a) {
+  const int group = a.h / a.kvh;
+  if (group <= NW) return launch<T, DK, 1, NS>(a);
+  return launch<T, DK, 2, NS>(a);
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, const void* kv_len,
-                     void* o, int b, int s, int h, int kvh, int d, int dv,
-                     int window, float softcap, float scale, cudaStream_t stream) {
-  const int group = h / kvh;
-  if (group <= 1)
-    return launch<T, 1>(q, k, v, kv_len, o, b, s, h, kvh, d, dv, window, softcap, scale, stream);
-  if (group <= 2)
-    return launch<T, 2>(q, k, v, kv_len, o, b, s, h, kvh, d, dv, window, softcap, scale, stream);
-  if (group <= 4)
-    return launch<T, 4>(q, k, v, kv_len, o, b, s, h, kvh, d, dv, window, softcap, scale, stream);
-  return launch<T, 8>(q, k, v, kv_len, o, b, s, h, kvh, d, dv, window, softcap, scale, stream);
+cudaError_t dispatch(const Call& a) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (a.d % VEC || a.dv % VEC || a.d > MAXD || a.dv > MAXD) return cudaErrorInvalidValue;
+  if (a.d == 64 && a.dv == 64) return by_rows<T, 64, 3>(a);
+  return by_rows<T, 0, 2>(a);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  window <= 0: no window; softcap <= 0: no
-// softcap.  Returns the cudaError_t of the launch (0 on success).
+// softcap; splits: blocks per (batch, KV head, row chunk), 1..16.  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int decode_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* kv_len, void* o, int dtype, int b,
                                     int s, int h, int kvh, int d, int dv,
-                                    int window, float softcap, float scale,
+                                    int window, float softcap, float scale, int splits,
                                     void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, kv_len, o, b, s, h, kvh, d, dv, window,
-                                softcap, scale, st);
-  if (dtype == 1)
-    return (int)dispatch<__nv_bfloat16>(q, k, v, kv_len, o, b, s, h, kvh, d, dv,
-                                        window, softcap, scale, st);
+  if (splits < 1 || splits > decode_common::MAX_SPLITS || kvh <= 0 || h % kvh)
+    return (int)cudaErrorInvalidValue;
+  const Call a{q, k, v, kv_len, o, b, s, h, kvh, d, dv, window, softcap, scale, splits,
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)dispatch<float>(a);
+  if (dtype == 1) return (int)dispatch<__nv_bfloat16>(a);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,11 +4,14 @@ model layers call.
 
 Replaces the TPU kernel ``decode_attention_pallas``
 (``src/repro/kernels/decode_attention/decode_attention.py:75``).  On the
-H100 one-token decode is bound by the bytes of the valid K/V rows; the
-kernel (``csrc/decode_attention.cu``) reads each valid row once, with one
-block per (batch, KV head) whose rows are the query heads of the group and
-whose warps split the valid range — see the source for the design and what
-comes next.
+H100 one-token decode is bound by the bytes of the valid K/V rows and, at
+decode sizes, by how many of them are in flight.  The kernel
+(``csrc/decode_attention.cu``) splits each sequence's valid range across
+the blocks of a thread-block cluster (``decode_splits`` of them, from the
+cache's capacity alone, so the host never reads ``kv_len``), stages K/V
+tiles in shared memory with ``cp.async``, and merges the blocks' (m, l,
+acc) partials through distributed shared memory in the same launch — see
+the source for the design.
 """
 from __future__ import annotations
 
@@ -23,13 +26,33 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+SPLIT_POSITIONS = 64    # cache positions a split is sized for
+MAX_SPLITS = 16         # blocks of one cluster (above 8: non-portable size)
+
+
+def decode_splits(s: int) -> int:
+    """Blocks that share one (batch, KV head, row chunk): ceil(S / 64)
+    clamped to [1, 16].  A function of the cache's capacity S only: the
+    valid lengths live on the card and reading them would synchronise."""
+    return max(1, min(MAX_SPLITS, -(-s // SPLIT_POSITIONS)))
+
+
+def check_vector_rows(name: str, d: int, dv: int, *pools: torch.Tensor) -> None:
+    """The kernels copy K/V rows in 16-byte pieces: rows of D and Dv
+    elements must be whole pieces and the K/V tensors 16-byte aligned."""
+    size = pools[0].element_size()
+    if (d * size) % 16 or (dv * size) % 16:
+        raise ValueError(f"{name}: head dims {d}/{dv} of {pools[0].dtype} are "
+                         "not a multiple of 16 bytes")
+    if any(t.data_ptr() % 16 for t in pools):
+        raise ValueError(f"{name}: K/V must be 16-byte aligned")
 
 
 @functools.cache
 def _kernel():
     fn = build.load("decode_attention").decode_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -80,6 +103,7 @@ def decode_attention(
     if kv > 65535 or b > 65535:
         raise ValueError(f"decode_attention: grid of {kv} KV heads x {b} "
                          "batch too large")
+    check_vector_rows("decode_attention", d, dv, k, v)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -89,7 +113,7 @@ def decode_attention(
         err = _kernel()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                         kv_len.data_ptr(), out.data_ptr(), _DTYPES[q.dtype],
                         b, s, h, kv, d, dv, window or 0, float(softcap or 0.0),
-                        float(scale), stream)
+                        float(scale), decode_splits(s), stream)
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA error {err}")
     decode_attention.launches += 1

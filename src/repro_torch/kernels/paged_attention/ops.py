@@ -9,8 +9,13 @@ continuous-batching decode step) and ``paged_window_attention`` (a window of
 T query positions per sequence, the speculative verify step).  Both launch
 the same kernel (``csrc/paged_attention.cu``); ``paged_window_attention.launches``
 counts the launches of either.  On the H100 it is bound by the bytes of the
-valid K/V rows, read through the block table — see the source for the
-design and what comes next.
+valid K/V rows, read through the block table.  The kernel splits each
+sequence's logical pages across the blocks of a thread-block cluster
+(``paged_splits``: a function of the table width and page size only, so a
+row's result never depends on T), stages the pages' rows in shared memory
+with ``cp.async``, and merges the blocks' (m, l, acc) partials through
+distributed shared memory in the same launch — see the source for the
+design.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.decode_attention.ops import (
+    MAX_SPLITS, SPLIT_POSITIONS, check_vector_rows)
 from repro_torch.kernels.paged_attention.ref import (
     paged_decode_attention_reference, paged_window_attention_reference)
 
@@ -28,11 +35,23 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
 
 
+def paged_splits(nb: int, bs: int) -> tuple[int, int]:
+    """(splits, pages per split P) for a table of ``nb`` pages of ``bs``
+    positions: ceil(nb * bs / 64) splits clamped to [1, 16], then as many
+    as P = ceil(nb / splits) needs, so none is empty; split i covers the
+    logical pages [i * P, min((i + 1) * P, nb)).  A function of nb and bs
+    only."""
+    want = max(1, min(MAX_SPLITS, -(-(nb * bs) // SPLIT_POSITIONS)))
+    per = max(1, -(-nb // want))
+    return max(1, -(-nb // per)), per
+
+
 @functools.cache
 def _kernel():
     fn = build.load("paged_attention").paged_attention_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -82,6 +101,7 @@ def _launch(name: str, q, k_pool, v_pool, block_tables, kv_len, offset: int,
     nb = block_tables.shape[1]
     if kv > 65535 or b > 65535:
         raise ValueError(f"{name}: grid of {kv} KV heads x {b} batch too large")
+    check_vector_rows(name, d, dv, k_pool, v_pool)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, t, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
@@ -92,7 +112,7 @@ def _launch(name: str, q, k_pool, v_pool, block_tables, kv_len, offset: int,
                         block_tables.data_ptr(), kv_len.data_ptr(),
                         out.data_ptr(), _DTYPES[q.dtype], b, t, h, kv, d, dv,
                         bs, nb, offset, float(softcap or 0.0), float(scale),
-                        stream)
+                        *paged_splits(nb, bs), stream)
     if err:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     paged_window_attention.launches += 1

@@ -18,6 +18,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.paged_attention import (
     paged_decode_attention, paged_decode_attention_reference,
     paged_window_attention, paged_window_attention_reference)
+from repro_torch.kernels.paged_attention.ops import paged_splits
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
 from repro_torch.models import api
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
@@ -44,6 +45,16 @@ DECODE_CASES = [
     (2, 128, 8, 8, 16, 16, None, 40, [128, 77]),
     (2, 300, 12, 1, 128, 96, None, None, [300, 299]),      # D != Dv, G = 12
     (2, 80, 4, 2, 64, 64, None, None, [90, 0]),            # past the slots; empty
+    # the edges of the split of [lo, len) across a cluster: decode_splits(1088)
+    # = 16 blocks, each a whole number of 32-position tiles: one position;
+    # exactly one split (32) and one past; one tile in each split (512) and
+    # one past
+    (6, 1088, 9, 3, 64, 64, None, None, [1, 32, 33, 512, 513, 1041]),
+    (4, 4096, 9, 3, 64, 64, None, None, [4096, 3001, 1500, 7]),  # 16 splits
+    # window starts 841 and 500 fall inside a tile; 150 and 33 fit in it
+    (4, 1088, 9, 3, 64, 64, None, 200, [1041, 700, 150, 33]),
+    (2, 1088, 12, 1, 128, 96, None, 300, [1088, 1000]),    # general instance
+    (2, 2048, 8, 1, 256, 256, None, None, [2048, 1500]),    # widest, 16 splits
 ]
 
 PAGED_CASES = [
@@ -58,6 +69,20 @@ PAGED_CASES = [
     (4, 5, 9, 3, 64, 64, 8, 4, 40, 30.0),       # serve verify window
     (2, 3, 4, 2, 96, 64, 8, 4, 16, None),       # D != Dv
     (2, 2, 16, 2, 256, 256, 4, 5, 16, None),    # widest head, group 8
+]
+
+# K1's page splits: 66 16-token pages give paged_splits(66, 16) = (14, 5),
+# splits ending on positions 80, 160, ...; bases are the window entry's.
+PAGED_SPLIT_CASES = [
+    # b, t, h, kv, d, dv, block_size, logical_blocks, phys_blocks, base
+    (6, 1, 9, 3, 64, 64, 16, 66, 400, [0, 15, 16, 79, 80, 1055]),
+    # limits 1, 16 (on a page boundary), 17 (one past), 80 (on a split
+    # boundary), 81 (one past), 1056 (the whole table)
+    (6, 5, 9, 3, 64, 64, 16, 66, 400, [75, 76, 11, 12, 0, 1051]),
+    # last rows' limits 80, 81, 16, 17, 5, 1056
+    (3, 5, 4, 2, 96, 64, 16, 66, 200, [300, 1040, 3]),     # general instance
+    # widest head, 16 splits of 8 pages, 40 rows in three chunks
+    (2, 5, 8, 1, 256, 256, 16, 128, 260, [2000, 700]),
 ]
 
 WKV6_CASES = [
@@ -202,6 +227,71 @@ def test_paged_window_rows_do_not_depend_on_t(cuda):
         one = paged_decode_attention(q[:, t].contiguous(), kp, vp, bt,
                                      base + t + 1)
         assert torch.equal(win[:, t], one)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", PAGED_SPLIT_CASES)
+def test_paged_kernel_split_edges(cuda, case, dtype):
+    """Both entry points of K1 against their plain versions where row limits
+    end on, or one past, a page or a split boundary of a 66-page table; the
+    window's rows equal the decode entry at the same limits bit for bit."""
+    b, t, h, kv, d, dv, bs, nb, n, bases = case
+    assert paged_splits(nb, bs)[0] > 1
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, b, t, h, d, dtype=dtype)
+    kp = _randn(gen, n, bs, kv, d, dtype=dtype)
+    vp = _randn(gen, n, bs, kv, dv, dtype=dtype)
+    bt = torch.randperm(n, generator=gen, device=cuda)[:b * nb].reshape(
+        b, nb).to(torch.int32)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    got = paged_window_attention(q, kp, vp, bt, base)
+    want = paged_window_attention_reference(q, kp, vp, bt, base)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+    for i in range(t):
+        one = paged_decode_attention(q[:, i].contiguous(), kp, vp, bt,
+                                     base + i + 1)
+        assert torch.equal(got[:, i], one)
+    want = paged_decode_attention_reference(q[:, 0], kp, vp, bt, base + 1)
+    assert (got[:, 0].float() - want.float()).abs().max().item() \
+        <= _tol(want, dtype)
+
+
+def test_decode_kernels_give_the_same_bits_twice(cuda):
+    """The splits' partials are merged in a fixed order, with no atomics:
+    two calls on the same inputs agree bit for bit."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    b, s, h, kv, d, dv, _, _, kv_len = DECODE_CASES[7]             # 16 splits
+    q = _randn(gen, b, h, d, dtype=torch.float32)
+    k = _randn(gen, b, s, kv, d, dtype=torch.float32)
+    v = _randn(gen, b, s, kv, dv, dtype=torch.float32)
+    kl = torch.tensor(kv_len, dtype=torch.int32, device=cuda)
+    assert torch.equal(decode_attention(q, k, v, kl), decode_attention(q, k, v, kl))
+    b, t, h, kv, d, dv, bs, nb, n, bases = PAGED_SPLIT_CASES[1]
+    q = _randn(gen, b, t, h, d, dtype=torch.float32)
+    kp = _randn(gen, n, bs, kv, d, dtype=torch.float32)
+    vp = _randn(gen, n, bs, kv, dv, dtype=torch.float32)
+    bt = torch.randperm(n, generator=gen, device=cuda)[:b * nb].reshape(
+        b, nb).to(torch.int32)
+    base = torch.tensor(bases, dtype=torch.int32, device=cuda)
+    assert torch.equal(paged_window_attention(q, kp, vp, bt, base),
+                       paged_window_attention(q, kp, vp, bt, base))
+
+
+def test_decode_wrappers_reject_rows_that_are_not_16_byte_pieces(cuda):
+    """K1 and K3 copy K/V rows in 16-byte pieces: a head of 6 f32 (24 bytes)
+    or a K/V tensor off a 16-byte boundary is refused, not misread."""
+    q = torch.zeros(1, 4, 6, device=cuda)
+    k = torch.zeros(1, 8, 2, 6, device=cuda)
+    kl = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="16 bytes"):
+        decode_attention(q, k, k, kl)
+    with pytest.raises(ValueError, match="16 bytes"):
+        paged_decode_attention(q, k, k, torch.zeros(1, 1, dtype=torch.int32,
+                                                    device=cuda), kl)
+    k = torch.zeros(2 * 8 * 2 * 16 + 1, device=cuda)[1:].view(2, 8, 2, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        decode_attention(torch.zeros(2, 4, 16, device=cuda), k, k,
+                         torch.ones(2, dtype=torch.int32, device=cuda))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):

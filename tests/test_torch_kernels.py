@@ -2,6 +2,7 @@
 PyTorch version, held against the JAX package's Pallas kernel (interpret
 mode) and its jnp oracle on the same numpy inputs.  The CUDA kernels
 themselves are tested on the card by ``test_torch_cuda.py``."""
+import inspect
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -15,6 +16,8 @@ from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_attention_reference as jax_flash_ref
 from repro_torch.kernels import build
 from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.kernels.decode_attention.ops import (check_vector_rows,
+                                                      decode_splits)
 from repro_torch.kernels.flash_attention import flash_attention
 
 TOL = dict(atol=2e-5, rtol=2e-5)      # f32 on both sides: summation order only
@@ -150,6 +153,30 @@ def test_decode_wrapper_rejects(bad):
             torch.zeros(2, 8, 2, 512)
     with pytest.raises((TypeError, ValueError)):
         decode_attention(q, k, v, kv_len)
+
+
+@pytest.mark.parametrize("s", [0, 1, 63, 64, 65, 128, 1088, 2048, 4096,
+                               100_000])
+def test_decode_splits_come_from_the_capacity_alone(s):
+    """K3's blocks per (batch, KV head): ceil(S / 64) within [1, 16], a
+    function of the cache's capacity only (the lengths stay on the card)."""
+    n = decode_splits(s)
+    assert 1 <= n <= 16
+    assert n == max(1, min(16, -(-s // 64)))
+    assert list(inspect.signature(decode_splits).parameters) == ["s"]
+
+
+def test_kernel_rows_must_be_whole_16_byte_pieces():
+    """The decode kernels copy K/V rows 16 bytes at a time: rows of 6 f32
+    (24 bytes) or a tensor off a 16-byte boundary are refused."""
+    check_vector_rows("k", 8, 4, torch.zeros(2, 8, dtype=torch.float32))
+    check_vector_rows("k", 8, 16, torch.zeros(2, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="16 bytes"):
+        check_vector_rows("k", 6, 8, torch.zeros(2, 8))
+    with pytest.raises(ValueError, match="16 bytes"):
+        check_vector_rows("k", 8, 4, torch.zeros(2, 8, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="aligned"):
+        check_vector_rows("k", 8, 8, torch.zeros(17)[1:])
 
 
 def test_plain_versions_do_not_count_launches():

@@ -4,6 +4,7 @@ interpret mode and the JAX oracle, then the paged decode and verify layers,
 the continuation prefill and the model's paged steps on converted weights at
 the reduced smollm-135m size.  The same numpy inputs go to both sides."""
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import LayerSpec
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_window_attention)
+from repro_torch.kernels.paged_attention.ops import paged_splits
 from repro_torch.models import api, attention
 from repro_torch.params import from_jax_params
 
@@ -105,6 +107,23 @@ def test_padded_table_tail_is_inert(rng, t):
         q, kp2, vp2, jnp.asarray(bt2), jnp.asarray(base), interpret=True)
     np.testing.assert_allclose(paged_window_attention(*_t(q, kp, vp, bt, base))
                                .numpy(), np.asarray(want), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("nb,bs", [(1, 8), (4, 8), (6, 8), (9, 16), (10, 16),
+                                   (66, 16), (17, 128), (1000, 16), (3, 1),
+                                   (4096, 8)])
+def test_paged_splits_cover_every_page_once(nb, bs):
+    """K1's split of a table into clusters of blocks: 1-16 splits of P
+    pages, split i covering [i*P, min((i+1)*P, nb)); together they cover
+    every page exactly once and none is empty.  A function of (nb, bs)
+    only, never of the lengths or of T."""
+    splits, per = paged_splits(nb, bs)
+    assert 1 <= splits <= 16
+    ranges = [range(i * per, min((i + 1) * per, nb)) for i in range(splits)]
+    assert [p for r in ranges for p in r] == list(range(nb))
+    assert all(len(r) > 0 for r in ranges)
+    assert splits <= max(1, min(16, -(-nb * bs // 64)))
+    assert list(inspect.signature(paged_splits).parameters) == ["nb", "bs"]
 
 
 def test_wrappers_check_shapes_and_devices():
