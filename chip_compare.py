@@ -1,5 +1,5 @@
-"""Compare the port's two decode kernels and its long decode steps between
-checkouts, on one NVIDIA GPU.
+"""Compare the port's attention kernels and its long prefill and decode
+steps between checkouts, on one NVIDIA GPU.
 
     python3 chip_compare.py OLD_ROOT NEW_ROOT [--splits]
 
@@ -7,15 +7,18 @@ Each checkout runs in a process of its own, in the order OLD, NEW, NEW,
 OLD, so both meet the same card, and each run prints one JSON line:
 
 - device ms (torch.profiler, median of 50 launches, warm L2, f32) of the
-  flash-decoding kernel K3 at ``serve_decode`` (4 x 64-slot caches, lengths
+  prefill kernel K2 at ``serve_prefill`` (4 x 16 tokens), ``long_prefill``
+  (4 x 1024) and ``long_prefill_b1`` (1 x 1024, the paged path's
+  single-prompt prefill), of the flash-decoding kernel K3 at ``serve_decode`` (4 x 64-slot caches, lengths
   <= 31), ``long_decode`` (4 x 1041 of 1088) and ``s4096_ragged`` (lengths
   4096, 3001, 1500, 7), and of the paged kernel K1 at ``paged_serve_decode``
   (8-token pages), ``paged_long_decode`` (66 16-token pages, kv_len 1041)
   and ``paged_long_window`` (the T = 5 verify window), 9 query heads over
   3 KV heads of 64, as ``chip_smoke.py`` times them;
-- wall ms (median of 5), device-busy ms and the decode kernel's ms of the
-  padded and the paged long decode step of smollm-135m at full width (4
-  sequences at kv_len 1041).
+- wall ms (median of 5), device-busy ms and the attention kernel's ms
+  (``fa_fwd``; ``dec_fwd`` or ``paged_fwd``) of the padded long prefill
+  (4 x 1024 tokens) and of the padded and the paged long decode step of
+  smollm-135m at full width (4 sequences at kv_len 1041).
 
 ``--splits`` also times the last checkout's kernels at the long shapes with
 one block per (batch, KV head) and with the split count its wrappers pick,
@@ -39,6 +42,11 @@ K3_SHAPES = [  # name, cache slots, lengths
     ("long_decode", 1088, [1041] * 4),
     ("s4096_ragged", 4096, [4096, 3001, 1500, 7]),
 ]
+K2_SHAPES = [  # name, batch, tokens
+    ("serve_prefill", 4, 16),
+    ("long_prefill", 4, 1024),
+    ("long_prefill_b1", 1, 1024),
+]
 K1_SHAPES = [  # name, pages, page size, window T, window base (kv_len)
     ("paged_serve_decode", 4, 8, 1, [23, 19, 16, 30]),
     ("paged_long_decode", 66, 16, 1, [1040] * 4),
@@ -51,6 +59,7 @@ def measure(root: Path, splits: bool) -> dict:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_window_attention
     from repro_torch.models import api
     from repro_torch.serving import EngineConfig, InferenceEngine, greedy
@@ -78,6 +87,9 @@ def measure(root: Path, splits: bool) -> dict:
         return statistics.median(us for _, us in activities(fn, N_TIMED)) / 1e3
 
     out, calls = {}, {}
+    for name, b, s in K2_SHAPES:
+        q, k, v = randn(b, s, H, D), randn(b, s, KV, D), randn(b, s, KV, D)
+        out[f"K2/{name}"] = kernel_ms(lambda: flash_attention(q, k, v))
     for name, s, lens in K3_SHAPES:
         q, k, v = randn(B, H, D), randn(B, s, KV, D), randn(B, s, KV, D)
         kl = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -96,7 +108,7 @@ def measure(root: Path, splits: bool) -> dict:
     if splits:
         out.update(split_sweep(calls, kernel_ms))
 
-    def step(key, fn):
+    def step(key, fn, symbol):
         fn()
         torch.cuda.synchronize()
         walls = []
@@ -109,8 +121,7 @@ def measure(root: Path, splits: bool) -> dict:
         out[key] = {
             "wall_ms": statistics.median(walls),
             "device_busy_ms": sum(us for _, us in kern) / 1e3 / 3,
-            "decode_kernel_ms": sum(us for nm, us in kern if "dec_fwd" in nm
-                                    or "paged_fwd" in nm) / 1e3 / 3}
+            f"{symbol}_ms": sum(us for nm, us in kern if symbol in nm) / 1e3 / 3}
 
     cfg = get_config("smollm-135m")
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
@@ -118,9 +129,11 @@ def measure(root: Path, splits: bool) -> dict:
     prompts = torch.randint(2, cfg.vocab_size, (B, 1024),
                             generator=torch.Generator().manual_seed(0)).tolist()
     toks, kv_len = eng._pad_prompts(prompts)
+    step("padded long prefill", lambda: eng._prefill(toks, kv_len), "fa_fwd")
     logits, cache = eng._prefill(toks, kv_len)
     nxt = greedy(logits, cfg.vocab_size)[:, None].long()
-    step("padded long decode step", lambda: eng._decode(nxt, cache, kv_len))
+    step("padded long decode step", lambda: eng._decode(nxt, cache, kv_len),
+         "dec_fwd")
     del cache, logits
     pools = api.init_paged_pools(cfg, B * 66 + 1, 16, device="cuda")
     for pool in pools:
@@ -131,7 +144,8 @@ def measure(root: Path, splits: bool) -> dict:
     kl = torch.full((B,), 1041, dtype=torch.int32, device="cuda")
     tok = torch.randint(2, cfg.vocab_size, (B, 1), generator=gen, device="cuda")
     step("paged long decode step",
-         lambda: api.paged_decode_step(cfg, params, tok, pools, bt, kl))
+         lambda: api.paged_decode_step(cfg, params, tok, pools, bt, kl),
+         "paged_fwd")
     return out
 
 

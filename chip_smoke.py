@@ -7,11 +7,17 @@ Phases, in order; any failed check exits non-zero:
 1. device: a CUDA device must be present; prints its name and power limit;
    TF32 off for matmuls and convolutions (full fp32).
 2. build: compiles every CUDA kernel of the serve paths from
-   ``src/repro_torch/kernels/csrc`` with nvcc, all at once (four).
+   ``src/repro_torch/kernels/csrc`` with nvcc, all at once (four); prints
+   each kernel's registers and counts the tensor-core instructions (HMMA)
+   of flash attention's tensor-core instances in the built library's SASS
+   (``cuobjdump -sass``, where the toolkit has it): each must have some and
+   none may spill.
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    tensors, f32 and bf16, at the serve paths' shapes and the edge cases
-   (q_offset, window, softcap, non-causal, D != Dv, ragged lengths, the
-   edges of the decode kernels' splits; for paged attention both entry
+   (q_offset, window, softcap, non-causal, D != Dv, ragged lengths, flash
+   attention's D = 128 instance at group 16 and with window and softcap,
+   decode rows with kv_len past the slots and at 0, the edges of the
+   decode kernels' splits; for paged attention both entry
    points, windows T = 1..5, a null-block free slot, permuted tables, a
    poisoned table tail and limits on page and split boundaries; for WKV6
    ragged T, T < chunk, chunk 16, strong decay down to w = 1e-6 with finite
@@ -20,8 +26,10 @@ Phases, in order; any failed check exits non-zero:
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
    computes WKV6); the profiler must see one device activity per kernel
-   call; the two decode kernels also with a cold L2 (64 MB written between
-   launches, only the kernel's own activities summed).
+   call; flash attention and the two decode kernels also with a cold L2
+   (64 MB written between launches, only the kernel's own activities
+   summed).  A bound prices fp32 operations at the TF32 tensor cores' rate
+   over three (3xTF32, the card's fastest route to fp32-accurate products).
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
@@ -76,6 +84,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
 from repro_torch.kernels.decode_attention.ops import decode_splits  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_reference)
+from repro_torch.kernels.flash_attention.ref import attention_mask  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_reference,
     paged_window_attention, paged_window_attention_reference)
@@ -87,9 +96,12 @@ from repro_torch.models import api  # noqa: E402
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  PagedEngine, PagedEngineConfig, greedy)
 
-# Bounds use the H100 data sheet's peaks: HBM bytes/s, and FLOP/s of fp32
-# outside the tensor cores (what these FMA kernels use) and of bf16.
-PEAK_FLOPS = {torch.float32: H100.peak_flops_fp32, torch.bfloat16: H100.peak_flops}
+# Bounds use the H100 data sheet's peaks: HBM bytes/s, and FLOP/s of bf16
+# and of fp32 at fp32 accuracy, the fastest route to which is the TF32
+# tensor cores with each operand split in two (3xTF32: 495 / 3 TFLOP/s,
+# above the 67 of fp32 FMA).
+PEAK_FLOPS = {torch.float32: H100.peak_flops_tf32 / 3,
+              torch.bfloat16: H100.peak_flops}
 TOL_F32 = 1e-4            # fp32 kernel vs fp32 plain: summation order only
 TOL_BF16 = 2e-2           # x max|ref|: both round the output to bf16
 TOL_LOGITS = 1e-3         # card vs CPU logits, f32, 30 layers
@@ -101,12 +113,23 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
     ("long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 9, 3, 64, 64, True, None, None, 0),
     ("s2048", 4, 2048, 2048, 9, 3, 64, 64, True, None, None, 0),
+    # the paged path's single-prompt 1k prefills
+    ("long_prefill_b1", 1, LONG_PROMPT, LONG_PROMPT, 9, 3, 64, 64, True, None,
+     None, 0),
+    # paged set b: a 16-token chunk over a 16-token cached prefix
+    ("chunk_prefill", 4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
+    # the D = 128 instance at chatglm2-6b's widths (group 16: two blocks)
+    ("chatglm2_prefill", 2, LONG_PROMPT, LONG_PROMPT, 32, 2, 128, 128, True,
+     None, None, 0),
     ("q_offset", 2, 33, 65, 4, 2, 16, 16, True, None, None, 32),
     ("window_softcap", 2, 64, 64, 4, 4, 16, 16, True, 24, 50.0, 0),
     ("non_causal", 2, 48, 48, 2, 1, 32, 32, False, None, None, 0),
     ("d96_dv64", 2, 100, 100, 4, 2, 96, 64, True, None, None, 0),
     ("ragged33", 1, 33, 33, 3, 3, 8, 8, True, None, None, 0),
+    ("d128_ragged300", 2, 300, 300, 32, 2, 128, 128, True, None, None, 0),
+    ("d128_window_softcap", 1, 77, 77, 12, 2, 128, 128, True, 24, 50.0, 0),
 ]
+FLASH_TIMED = 6                       # the first six cases are timed
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -121,6 +144,10 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     # window starts 841 and 500 inside a tile; 150 and 33 shorter than it
     ("window_in_split", 4, LONG_CACHE, 9, 3, 64, 64, None, 200,
      [1041, 700, 150, 33]),
+    # kv_len past the 128 slots: the window starts at kv_len - 40 = 110
+    ("window_past_slots", 2, 128, 8, 8, 16, 16, None, 40, [150, 77]),
+    # past the slots, and a row with no valid key (0, as the reference)
+    ("empty_row", 2, 80, 4, 2, 64, 64, None, None, [90, 0]),
 ]
 LONG_PAGE, LONG_PAGES = 16, 66        # ceil((1024 + 32) / 16) pages a sequence
 PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
@@ -165,7 +192,8 @@ WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
 ]
 TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
          "paged_attention": "paged_long_decode", "wkv6": "rwkv_long_prefill"}
-COLD = {"decode_attention": "dec_fwd", "paged_attention": "paged_fwd"}
+COLD = {"flash_attention": "fa_fwd", "decode_attention": "dec_fwd",
+        "paged_attention": "paged_fwd"}
 FLUSH_BYTES = 64 * 2**20              # written between launches: > the 50 MB L2
 RWKV_ARGS = ["--arch", "rwkv6-3b", "--no-reduced", "--device", "cuda"]
 RWKV_PARITY_LAYERS = 4                # card vs CPU logits: the first 4 of 32
@@ -405,7 +433,43 @@ def phase_build() -> dict:
         regs = [ln.split("info    :")[-1].strip()
                 for ln in build.build_log(name).splitlines() if "registers" in ln]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
-    return {"wall_s": wall, "per_kernel_s": took}
+    return {"wall_s": wall, "per_kernel_s": took, "fa_fwd_mma": mma_check()}
+
+
+def mma_check() -> dict:
+    """Per tensor-core instance of flash attention (``fa_fwd_mma``): its
+    spill stores from the build log and its HMMA instructions in the
+    library's SASS.  Fails on a spill, on an instance without HMMA, or on
+    no instance at all."""
+    funcs, cur = {}, None
+    for ln in build.build_log("flash_attention").splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if "fa_fwd_mma" in ln else None
+        elif cur and "spill stores" in ln:
+            funcs[cur] = {"spill_bytes": int(ln.split("bytes spill stores")[0]
+                                             .split(",")[-1])}
+    if not funcs:
+        fail("flash attention's build log names no fa_fwd_mma instance")
+    cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
+    if cuobjdump.is_file():
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(build.library_path("flash_attention"))],
+                              capture_output=True, text=True, check=True).stdout
+        cur = None
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                cur = ln.split("Function :")[1].strip()
+                if cur in funcs:
+                    funcs[cur]["hmma"] = 0
+            elif cur in funcs and "HMMA" in ln:
+                funcs[cur]["hmma"] += 1
+    for fn, rec in funcs.items():
+        print(f"[build] {fn}: {rec['spill_bytes']} bytes spilled, "
+              f"{rec.get('hmma', 'not measured (no cuobjdump)')} HMMA "
+              "instructions in its SASS", flush=True)
+        if rec["spill_bytes"] or rec.get("hmma", 1) == 0:
+            fail(f"{fn}: spills or no tensor-core instruction")
+    return funcs
 
 
 def phase_parity() -> dict:
@@ -499,15 +563,21 @@ def wkv6_parity(case, dtype, gen) -> dict:
 def phase_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    for case in FLASH_CASES[:3]:
+    device_kernels(lambda: torch.ones(1, device="cuda").add_(1))  # profiler warm-up
+    for case in FLASH_CASES[:FLASH_TIMED]:
         args, kw = flash_inputs(case, torch.float32, gen)
         lib_args = [t.transpose(1, 2).contiguous() for t in args]
+        # SDPA's causal mask is aligned top left: past a prefix, a mask
+        lib_kw = {"is_causal": True} if not kw["q_offset"] else {
+            "attn_mask": attention_mask(case[2], case[3], causal=True,
+                                        window=None, q_offset=kw["q_offset"],
+                                        device="cuda")}
         out[f"flash_attention/{case[0]}"] = time_three(
-            lambda: flash_attention(*args, **kw),
+            f"flash_attention/{case[0]}", lambda: flash_attention(*args, **kw),
             lambda: flash_attention_reference(*args, **kw),
-            lambda: F.scaled_dot_product_attention(*lib_args, is_causal=True,
+            lambda: F.scaled_dot_product_attention(*lib_args, **lib_kw,
                                                    enable_gqa=True),
-            flash_cost(case, torch.float32))
+            flash_cost(case, torch.float32), COLD["flash_attention"])
     for case in DECODE_CASES[:3]:
         (q, k, v, kl), kw = decode_inputs(case, torch.float32, gen)
         mask = (torch.arange(k.shape[1], device="cuda")[None, :]
@@ -515,7 +585,7 @@ def phase_times() -> dict:
         lq, lk, lv = q[:, :, None], k.transpose(1, 2).contiguous(), \
             v.transpose(1, 2).contiguous()
         out[f"decode_attention/{case[0]}"] = time_three(
-            lambda: decode_attention(q, k, v, kl, **kw),
+            f"decode_attention/{case[0]}", lambda: decode_attention(q, k, v, kl, **kw),
             lambda: decode_attention_reference(q, k, v, kl, **kw),
             lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                                    enable_gqa=True),
@@ -528,20 +598,23 @@ def phase_times() -> dict:
         fn, ref = paged_fns(case)
         # no PyTorch call reads K/V through a block table: library_ms null
         out[f"paged_attention/{case[0]}"] = time_three(
-            lambda: fn(*args, **kw), lambda: ref(*args, **kw), None,
+            f"paged_attention/{case[0]}", lambda: fn(*args, **kw),
+            lambda: ref(*args, **kw), None,
             paged_cost(case, torch.float32), COLD["paged_attention"])
         out[f"paged_attention/{case[0]}"]["splits"] = paged_splits(case[9], case[8])[0]
     for case in WKV6_CASES[:2]:
         args, kw = wkv6_inputs(case, torch.float32, gen)
         # no PyTorch call computes WKV6: library_ms null
         out[f"wkv6/{case[0]}"] = time_three(
-            lambda: wkv6(*args, **kw), lambda: wkv6_chunked(*args, **kw), None,
+            f"wkv6/{case[0]}", lambda: wkv6(*args, **kw),
+            lambda: wkv6_chunked(*args, **kw), None,
             wkv6_cost(case, torch.float32))
     for tag, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f})"
         cold = "" if r["cold_ms"] is None else f", cold L2 {r['cold_ms']:.4f} ms"
-        print(f"[times] {tag}: kernel {r['ms']:.4f} ms (call {r['call_ms']:.4f}"
+        print(f"[times] {tag}: kernel {r['ms']:.4f} ms (CUDA events "
+              f"{r['call_ms']:.4f}"
               f"{cold}), "
               f"plain {r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f}), "
               f"library {lib}, "
@@ -552,7 +625,7 @@ def phase_times() -> dict:
     return out
 
 
-def time_three(kernel, plain, library, cost, cold: str | None = None) -> dict:
+def time_three(tag, kernel, plain, library, cost, cold: str | None = None) -> dict:
     """Kernel, plain version and library call (None: there is none) on the
     same inputs, with the bound of the function from its bytes and
     operations.  Each wrapper launches its kernel once a call: the profiler
@@ -560,9 +633,14 @@ def time_three(kernel, plain, library, cost, cold: str | None = None) -> dict:
     symbol, to time it with a cold L2 as well."""
     nbytes, ops = cost
     b_ms, b_by = bound(nbytes, ops, torch.float32)
-    seen = max(len(device_kernels(kernel)) for _ in range(3))
+    seen = 0
+    for _ in range(5):      # the first profiles of a process can see nothing
+        seen = max(seen, len(device_kernels(kernel)))
+        if seen:
+            break
     if seen != 1:
-        fail(f"the profiler saw {seen} device activities for one kernel call")
+        fail(f"{tag}: the profiler saw {seen} device activities for one "
+             "kernel call")
     k, p = timed(kernel, per_call=1), timed(plain)
     k["cold_ms"] = cold_ms(kernel, cold) if cold else None
     lib = timed(library) if library is not None else {"ms": None,

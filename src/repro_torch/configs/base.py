@@ -129,11 +129,12 @@ class HWSpec:
     name: str
     peak_flops: float          # per-chip dense bf16 FLOP/s (tensor cores)
     peak_flops_fp32: float     # per-chip fp32 FLOP/s outside the tensor cores
+    peak_flops_tf32: float     # per-chip dense TF32 FLOP/s (tensor cores)
     hbm_bw: float              # bytes/s
     hbm_bytes: float
 
 
-# NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, 67 TFLOP/s fp32,
-# 3.35 TB/s HBM3, 80 GiB.
+# NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, 495 TF32, 67 TFLOP/s
+# fp32 outside the tensor cores, 3.35 TB/s HBM3, 80 GiB.
 H100 = HWSpec("h100-sxm", peak_flops=989e12, peak_flops_fp32=67e12,
-              hbm_bw=3.35e12, hbm_bytes=80 * 2**30)
+              peak_flops_tf32=495e12, hbm_bw=3.35e12, hbm_bytes=80 * 2**30)

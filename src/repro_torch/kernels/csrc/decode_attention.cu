@@ -23,8 +23,8 @@
 //   thread-block cluster.  The host picks their number from the cache's
 //   capacity S alone (ceil(S / 64), clamped to [1, 16]) and never reads
 //   kv_len.  Each block computes its own slice of [lo, len), len =
-//   min(kv_len, S), lo = len - window with a window, in whole 32-position
-//   tiles: ceil((len - lo) / splits) rounded up to a tile.  At B = 4,
+//   min(kv_len, S), lo = clamp(kv_len - window, 0, len) with a window, in
+//   whole 32-position tiles: ceil((len - lo) / splits) rounded up to a tile.  At B = 4,
 //   KV = 3 and S = 1088 that is 192 blocks on 132 SMs, where one block per
 //   (batch, KV head) gave 12.  Blocks are short, so a call costs a fixed
 //   part (launch, the first loads, the combine) plus the per-tile time of
@@ -76,9 +76,11 @@ dec_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ 
   const int kh = blockIdx.y, b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   // The cache has s slots: a length past them reads no further, as the
-  // reference's mask over the s slots does.
-  const int len = max(0, min(kv_len[b], s));
-  const int lo = window > 0 ? max(0, len - window) : 0;
+  // reference's mask over the s slots does; the window starts from the
+  // unclamped length (positions > kv_len - 1 - window), as the reference's.
+  const int n = kv_len[b];
+  const int len = max(0, min(n, s));
+  const int lo = window > 0 ? min(max(0, n - window), len) : 0;
   const int per = ((len - lo + splits - 1) / splits + TILE - 1) / TILE * TILE;
   const int start = lo + rank * per;
   const int end = min(start + per, len);

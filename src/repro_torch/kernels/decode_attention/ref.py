@@ -1,8 +1,10 @@
 """Plain PyTorch version of decode attention: one query token per sequence
 against a KV cache with per-sequence valid lengths, optional window and
 tanh softcap, softmax in fp32 with -1e30 for masked scores.  Mirrors
-``repro/kernels/decode_attention/ref.py``: the CPU path and the kernel's
-yardstick on the card."""
+``repro/kernels/decode_attention/ref.py``, except that a row with no valid
+key (``kv_len`` 0) is 0, as in the reference's serving backends
+(``decode_attention_xla`` and the Pallas kernel) and the CUDA kernels, not
+the mean of V: the CPU path and the kernel's yardstick on the card."""
 from __future__ import annotations
 
 from typing import Optional
@@ -38,6 +40,7 @@ def decode_attention_reference(
         mask &= pos > kv_len - 1 - window   # query sits at kv_len
     logits = logits.masked_fill(~mask[:, None, :], NEG_INF)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
-    probs = probs / probs.sum(dim=-1, keepdim=True)
+    probs = probs.masked_fill(~mask[:, None, :], 0.0)
+    probs = probs / probs.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     out = torch.einsum("bhs,bshd->bhd", probs, vf)
     return out.to(q.dtype)

@@ -4,10 +4,12 @@ PyTorch version on a CPU tensor.  This is the symbol the model layers call.
 Replaces the TPU kernel ``flash_attention_pallas``
 (``src/repro/kernels/flash_attention/flash_attention.py:92``).  On the H100
 prefill attention is bound by operations (2*(D+Dv) per visible
-(query, key) pair); the kernel (``csrc/flash_attention.cu``) tiles 64 query
-rows x 64 keys per block in shared memory with fp32 FMA micro tiles and
-skips KV tiles that the causal diagonal or the window hide — see the source
-for the design and what comes next.
+(query, key) pair).  The kernel (``csrc/flash_attention.cu``) computes both
+products on the tensor cores at fp32 accuracy (3xTF32 ``mma.sync``) for
+D = Dv = 64 and 128, with the query heads of one KV head in one block and
+K/V staged through a ``cp.async`` ring; other head dims, and K/V off a
+16-byte boundary, take its general fp32 FMA instance.  See the source for
+the design and what comes next.
 """
 from __future__ import annotations
 

@@ -35,6 +35,12 @@ FLASH_CASES = [
     (2, 48, 48, 2, 1, 32, 32, False, None, None, 0),
     (2, 100, 100, 4, 2, 96, 64, True, None, None, 0),       # D != Dv
     (1, 77, 77, 2, 1, 256, 256, True, None, None, 0),
+    # the tensor-core instances: D = 128 at group 16 (split over two blocks),
+    # D = 128 with a window and softcap at group 6, a 16-token chunk over a
+    # 16-token cached prefix at D = 64
+    (2, 300, 300, 32, 2, 128, 128, True, None, None, 0),
+    (1, 77, 77, 12, 2, 128, 128, True, 24, 50.0, 0),
+    (4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
 ]
 
 DECODE_CASES = [
@@ -55,6 +61,8 @@ DECODE_CASES = [
     (4, 1088, 9, 3, 64, 64, None, 200, [1041, 700, 150, 33]),
     (2, 1088, 12, 1, 128, 96, None, 300, [1088, 1000]),    # general instance
     (2, 2048, 8, 1, 256, 256, None, None, [2048, 1500]),    # widest, 16 splits
+    # kv_len past the 128 slots: the window starts at kv_len - 40 = 110
+    (2, 128, 8, 8, 16, 16, None, 40, [150, 77]),
 ]
 
 PAGED_CASES = [
@@ -146,11 +154,9 @@ def test_decode_kernel_matches_plain(cuda, case, dtype):
     got = decode_attention(q, k, v, kl, softcap=cap, window=window)
     torch.cuda.synchronize()
     assert decode_attention.launches == n + 1
-    ok = kl > 0            # no valid key: the kernel writes 0, as the TPU one
     want = decode_attention_reference(q, k, v, kl, softcap=cap, window=window)
-    err = (got.float() - want.float())[ok].abs().max().item()
-    assert err <= _tol(want[ok], dtype)
-    assert (got[~ok] == 0).all()
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+    assert (got[kl == 0] == 0).all()   # no valid key: 0, as the reference
 
 
 def _paged_inputs(gen, case, dtype):

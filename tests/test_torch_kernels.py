@@ -12,6 +12,7 @@ import torch
 
 from repro.kernels.decode_attention.decode_attention import decode_attention_pallas
 from repro.kernels.decode_attention.ref import decode_attention_reference as jax_decode_ref
+from repro.kernels.decode_attention.xla import decode_attention_xla
 from repro.kernels.flash_attention.flash_attention import flash_attention_pallas
 from repro.kernels.flash_attention.ref import flash_attention_reference as jax_flash_ref
 from repro_torch.kernels import build
@@ -103,6 +104,31 @@ def test_decode_plain_matches_jax(rng, case):
     np.testing.assert_allclose(got, np.asarray(pallas), **TOL)
     want = jax_decode_ref(q, k, v, kv_len, softcap=cap, window=win)
     np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("case", DECODE_CASES)
+def test_decode_plain_row_without_keys_is_zero(rng, case):
+    """A row at kv_len 0 is exactly 0, as in ``decode_attention_xla`` (the
+    reference's serving backend) and the CUDA kernel; every other row
+    matches it too."""
+    q, k, v, kv_len = _decode_inputs(rng, case)
+    kv_len[0] = 0
+    cap, win = case[-2:]
+    got = decode_attention(*_t(q, k, v, kv_len), softcap=cap, window=win).numpy()
+    want = decode_attention_xla(q, k, v, kv_len, softcap=cap, window=win)
+    assert (got[0] == 0).all()
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_decode_plain_window_past_the_slots_matches_xla(rng):
+    """kv_len > S with a window: the window starts at kv_len - window (from
+    the unclamped length) and ends at the S slots, as in
+    ``decode_attention_xla``; the CUDA kernel is held to this on the card."""
+    q, k, v, _ = _decode_inputs(rng, (2, 128, 8, 8, 16, 16, None, 40))
+    kv_len = np.array([150, 77], np.int32)
+    got = decode_attention(*_t(q, k, v, kv_len), window=40).numpy()
+    want = decode_attention_xla(q, k, v, kv_len, window=40)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
 
 
 def test_decode_is_one_row_of_flash(rng):

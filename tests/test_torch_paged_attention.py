@@ -15,6 +15,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.kernels.paged_attention.paged_attention import (
     paged_decode_attention_pallas, paged_window_attention_pallas)
+from repro.kernels.paged_attention.xla import paged_decode_attention_xla
 from repro.kernels.paged_attention.ref import (
     paged_decode_attention_reference as jax_paged_decode_reference,
     paged_window_attention_reference as jax_paged_window_reference)
@@ -66,6 +67,23 @@ def test_paged_decode_plain_matches_jax(rng, case):
     oracle = jax_paged_decode_reference(q, kp, vp, bt, kv_len, softcap=cap)
     np.testing.assert_allclose(got, np.asarray(pallas), atol=TOL, rtol=TOL)
     np.testing.assert_allclose(got, np.asarray(oracle), atol=TOL, rtol=TOL)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_paged_decode_plain_row_without_keys_is_zero(rng, case):
+    """A row at kv_len 0 (a free slot) is exactly 0, as in
+    ``paged_decode_attention_xla`` and the CUDA kernel; the other rows
+    match it too."""
+    b, h, kv, d, bs, nb, n, cap = case
+    q = rng.standard_normal((b, h, d)).astype(np.float32)
+    kp, vp, bt = _pools(rng, case)
+    kv_len = rng.integers(1, nb * bs + 1, size=b).astype(np.int32)
+    kv_len[-1] = 0
+    got = paged_decode_attention(*_t(q, kp, vp, bt, kv_len), softcap=cap).numpy()
+    want = paged_decode_attention_xla(q, kp, vp, jnp.asarray(bt),
+                                      jnp.asarray(kv_len), softcap=cap)
+    assert (got[-1] == 0).all()
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-6, rtol=0)
 
 
 @pytest.mark.parametrize("t", [1, 2, 4])

@@ -284,7 +284,8 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(cfgs):
 
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-    files += [ROOT / "chip_smoke.py", ROOT / "chip_compare.py"]
+    files += [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
+              ROOT / "chip_variants.py"]
     assert len(files) > 20
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for path in files:
