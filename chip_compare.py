@@ -1,5 +1,5 @@
-"""Compare the port's attention kernels and its long prefill and decode
-steps between checkouts, on one NVIDIA GPU.
+"""Compare the port's kernels and its long prefill and decode steps between
+checkouts, on one NVIDIA GPU.
 
     python3 chip_compare.py OLD_ROOT NEW_ROOT [--splits]
 
@@ -14,7 +14,10 @@ OLD, so both meet the same card, and each run prints one JSON line:
   4096, 3001, 1500, 7), and of the paged kernel K1 at ``paged_serve_decode``
   (8-token pages), ``paged_long_decode`` (66 16-token pages, kv_len 1041)
   and ``paged_long_window`` (the T = 5 verify window), 9 query heads over
-  3 KV heads of 64, as ``chip_smoke.py`` times them;
+  3 KV heads of 64, as ``chip_smoke.py`` times them, and of the WKV6 kernel
+  K4 at ``rwkv_serve_prefill`` (4 x 16 tokens) and ``rwkv_long_prefill``
+  (4 x 1024), 40 heads of 64, chunk 32, inputs drawn as ``chip_smoke.py``
+  draws them;
 - wall ms (median of 5), device-busy ms and the attention kernel's ms
   (``fa_fwd``; ``dec_fwd`` or ``paged_fwd``) of the padded long prefill
   (4 x 1024 tokens) and of the padded and the paged long decode step of
@@ -47,6 +50,11 @@ K2_SHAPES = [  # name, batch, tokens
     ("long_prefill", 4, 1024),
     ("long_prefill_b1", 1, 1024),
 ]
+K4_SHAPES = [  # name, batch, tokens
+    ("rwkv_serve_prefill", 4, 16),
+    ("rwkv_long_prefill", 4, 1024),
+]
+K4_HEADS = 40
 K1_SHAPES = [  # name, pages, page size, window T, window base (kv_len)
     ("paged_serve_decode", 4, 8, 1, [23, 19, 16, 30]),
     ("paged_long_decode", 66, 16, 1, [1040] * 4),
@@ -61,6 +69,7 @@ def measure(root: Path, splits: bool) -> dict:
     from repro_torch.kernels.decode_attention import decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.paged_attention import paged_window_attention
+    from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models import api
     from repro_torch.serving import EngineConfig, InferenceEngine, greedy
 
@@ -105,6 +114,12 @@ def measure(root: Path, splits: bool) -> dict:
         calls[name] = (q, kp, vp, bt, kl)
         out[f"K1/{name}"] = kernel_ms(
             lambda: paged_window_attention(q, kp, vp, bt, kl))
+    for name, b, t in K4_SHAPES:
+        r, k = randn(b, t, K4_HEADS, D) * 0.5, randn(b, t, K4_HEADS, D) * 0.5
+        v = randn(b, t, K4_HEADS, D)
+        w = torch.exp(-torch.exp(randn(b, t, K4_HEADS, D) * 2.0))
+        u = randn(K4_HEADS, D) * 0.3
+        out[f"K4/{name}"] = kernel_ms(lambda: wkv6(r, k, v, w, u, chunk=32))
     if splits:
         out.update(split_sweep(calls, kernel_ms))
 

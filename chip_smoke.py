@@ -11,7 +11,8 @@ Phases, in order; any failed check exits non-zero:
    each kernel's registers and counts the tensor-core instructions (HMMA)
    of flash attention's tensor-core instances in the built library's SASS
    (``cuobjdump -sass``, where the toolkit has it): each must have some and
-   none may spill.
+   none may spill; nor may WKV6's instances, whose shared bytes at D = Dv =
+   64 and the blocks an SM they allow are printed.
 3. parity: each kernel against its plain PyTorch version on the same CUDA
    tensors, f32 and bf16, at the serve paths' shapes and the edge cases
    (q_offset, window, softcap, non-causal, D != Dv, ragged lengths, flash
@@ -21,15 +22,17 @@ Phases, in order; any failed check exits non-zero:
    points, windows T = 1..5, a null-block free slot, permuted tables, a
    poisoned table tail and limits on page and split boundaries; for WKV6
    ragged T, T < chunk, chunk 16, strong decay down to w = 1e-6 with finite
-   outputs, and a given initial state, out and final state both).
+   outputs, a given initial state, out and final state both, and Dv 6 and 2,
+   where the value columns do not split evenly over the kernel's 4-block
+   cluster and some blocks own none).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
    computes WKV6); the profiler must see one device activity per kernel
-   call; flash attention and the two decode kernels also with a cold L2
-   (64 MB written between launches, only the kernel's own activities
-   summed).  A bound prices fp32 operations at the TF32 tensor cores' rate
-   over three (3xTF32, the card's fastest route to fp32-accurate products).
+   call; every kernel also with a cold L2 (64 MB written between launches,
+   only the kernel's own activities summed).  A bound prices fp32
+   operations at the TF32 tensor cores' rate over three (3xTF32, the
+   card's fastest route to fp32-accurate products).
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
@@ -189,11 +192,14 @@ WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     ("t7_lt_chunk", 4, 7, 40, 64, 64, 32, 2.0, None, False),
     ("strong_decay", 2, 48, 40, 64, 64, 16, 4.0, 1e-6, False),
     ("given_s0", 4, 64, 40, 64, 64, 32, 2.0, None, True),
+    # K4 splits Dv over 4 blocks: 2, 2, 2, 0 columns and 1, 1, 0, 0 columns
+    ("dv6_split", 2, 40, 3, 16, 6, 32, 2.0, None, True),
+    ("dv2_empty_blocks", 2, 33, 2, 16, 2, 32, 2.0, None, False),
 ]
 TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
          "paged_attention": "paged_long_decode", "wkv6": "rwkv_long_prefill"}
 COLD = {"flash_attention": "fa_fwd", "decode_attention": "dec_fwd",
-        "paged_attention": "paged_fwd"}
+        "paged_attention": "paged_fwd", "wkv6": "wkv6_fwd_kernel"}
 FLUSH_BYTES = 64 * 2**20              # written between launches: > the 50 MB L2
 RWKV_ARGS = ["--arch", "rwkv6-3b", "--no-reduced", "--device", "cuda"]
 RWKV_PARITY_LAYERS = 4                # card vs CPU logits: the first 4 of 32
@@ -433,7 +439,57 @@ def phase_build() -> dict:
         regs = [ln.split("info    :")[-1].strip()
                 for ln in build.build_log(name).splitlines() if "registers" in ln]
         print(f"[build] {name}: {'; '.join(regs)}", flush=True)
-    return {"wall_s": wall, "per_kernel_s": took, "fa_fwd_mma": mma_check()}
+    return {"wall_s": wall, "per_kernel_s": took, "fa_fwd_mma": mma_check(),
+            "wkv6_fwd_kernel": wkv6_check()}
+
+
+def ptxas_info(kernel: str, symbol: str) -> dict:
+    """Spill-store bytes and registers of each function of ``kernel``'s
+    library whose name holds ``symbol``, from its build log (-Xptxas -v).
+    Fails if none is named."""
+    funcs, cur = {}, None
+    for ln in build.build_log(kernel).splitlines():
+        if "Compiling entry function" in ln:
+            cur = ln.split("'")[1] if symbol in ln else None
+        elif cur and "spill stores" in ln:
+            funcs[cur] = {"spill_bytes": int(ln.split("bytes spill stores")[0]
+                                             .split(",")[-1])}
+        elif cur in funcs and "registers" in ln:
+            funcs[cur]["registers"] = int(ln.split("Used")[1].split("registers")[0])
+    if not funcs:
+        fail(f"{kernel}'s build log names no {symbol} instance")
+    return funcs
+
+
+def wkv6_smem_bytes(c: int, d: int, dv: int) -> int:
+    """K4's dynamic shared memory a block (``smem_floats`` of
+    ``csrc/wkv6.cu``): r, k, cw with rows of d + 1, the block's
+    ceil(dv / 4) columns of v and of S, A twice with rows of c + 1, u and
+    the chunk decay."""
+    nv = -(-dv // 4)
+    return 4 * (3 * c * (d + 1) + c * nv + 2 * c * (c + 1) + d * nv + 2 * d)
+
+
+def wkv6_check() -> dict:
+    """K4's instances (f32, bf16): no spill store (fails otherwise), their
+    registers, the shared bytes a block at the main path's C = 32, D = Dv =
+    64, and the blocks an SM those allow (65,536 registers in 256-register
+    warp units, 228 KB of shared memory with 1 KB reserved a block, 64
+    warps)."""
+    smem = wkv6_smem_bytes(32, 64, 64)
+    funcs = ptxas_info("wkv6", "wkv6_fwd_kernel")
+    for fn, rec in funcs.items():
+        warp_regs = -(-rec["registers"] * 32 // 256) * 256
+        rec["smem_bytes_d64"] = smem
+        rec["blocks_per_sm"] = min(65536 // (8 * warp_regs),
+                                   228 * 1024 // (smem + 1024), 64 // 8)
+        print(f"[build] {fn}: {rec['registers']} registers, "
+              f"{rec['spill_bytes']} bytes spilled, {smem} bytes of shared "
+              f"memory at D = Dv = 64, {rec['blocks_per_sm']} blocks an SM",
+              flush=True)
+        if rec["spill_bytes"]:
+            fail(f"{fn}: spills")
+    return funcs
 
 
 def mma_check() -> dict:
@@ -441,15 +497,7 @@ def mma_check() -> dict:
     spill stores from the build log and its HMMA instructions in the
     library's SASS.  Fails on a spill, on an instance without HMMA, or on
     no instance at all."""
-    funcs, cur = {}, None
-    for ln in build.build_log("flash_attention").splitlines():
-        if "Compiling entry function" in ln:
-            cur = ln.split("'")[1] if "fa_fwd_mma" in ln else None
-        elif cur and "spill stores" in ln:
-            funcs[cur] = {"spill_bytes": int(ln.split("bytes spill stores")[0]
-                                             .split(",")[-1])}
-    if not funcs:
-        fail("flash attention's build log names no fa_fwd_mma instance")
+    funcs = ptxas_info("flash_attention", "fa_fwd_mma")
     cuobjdump = Path(build.nvcc_path()).parent / "cuobjdump"
     if cuobjdump.is_file():
         sass = subprocess.run([str(cuobjdump), "-sass",
@@ -608,7 +656,7 @@ def phase_times() -> dict:
         out[f"wkv6/{case[0]}"] = time_three(
             f"wkv6/{case[0]}", lambda: wkv6(*args, **kw),
             lambda: wkv6_chunked(*args, **kw), None,
-            wkv6_cost(case, torch.float32))
+            wkv6_cost(case, torch.float32), COLD["wkv6"])
     for tag, r in out.items():
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f})"

@@ -4,11 +4,13 @@ RWKV-6 prefill calls; the decode step is the torch op ``wkv6_step``.
 
 Replaces the TPU kernel ``wkv6_pallas`` (``src/repro/kernels/wkv6/wkv6.py:70``)
 and, since it also takes an initial state, the whole ``wkv6`` op of
-``repro/kernels/wkv6/ops.py``.  On the H100 it is bound about equally by the
-bytes of r, k, v, w and out and by its fp32 FMAs; the kernel
-(``csrc/wkv6.cu``) gives one block to each (batch, head), carries the state
-in shared memory across the chunks and builds the intra-chunk matrix from
-the pairwise log-space decay — see the source for the design.
+``repro/kernels/wkv6/ops.py``.  On the H100 the function is bound by the
+bytes of r, k, v, w and out; the kernel (``csrc/wkv6.cu``) serves each
+(batch, head) with a cluster of 4 blocks that split the value columns,
+carries each block's columns of the state in shared memory across the
+chunks, and builds the intra-chunk matrix from the pairwise log-space decay
+once a cluster, shared through distributed shared memory — see the source
+for the design.  One launch a call.
 """
 from __future__ import annotations
 

@@ -103,6 +103,10 @@ WKV6_CASES = [
     (1, 48, 2, 16, 16, 16, 4.0, 1e-6, False),      # strong decay
     (2, 64, 3, 16, 16, 16, 2.0, None, True),       # a given s0
     (2, 40, 2, 128, 96, 32, 2.0, None, True),      # widest head, D != Dv
+    # the column split over 4 blocks: Dv 6 gives 2, 2, 2 and 0 columns, Dv 2
+    # gives 1, 1, 0 and 0 (blocks without a column still build their rows of A)
+    (2, 40, 3, 16, 6, 32, 2.0, None, True),
+    (2, 33, 2, 16, 2, 32, 2.0, None, False),
 ]
 
 

@@ -165,3 +165,29 @@ def test_wkv6_dispatch_and_checks(rng):
     with pytest.raises(ValueError, match="different devices"):
         wkv6(r, k, v, w, u.to("meta"))
     assert wkv6.launches == n
+
+
+@pytest.mark.parametrize("dv", [8, 6, 96])
+def test_wkv6_value_columns_are_independent(rng, dv):
+    """What the kernel's split over its 4-block cluster rests on: the
+    recurrence over the kernel's slices of the value columns (ceil(Dv / 4)
+    each; at Dv = 6 the fourth is empty and gives no part), of v and s0
+    both, concatenated, equals it over all columns; and both match the JAX
+    chunked XLA version."""
+    b, t, h, d, chunk = 2, 40, 3, 16, 16
+    r, k, v, w, u = _gen(rng, b, t, h, d, dv)
+    s0 = rng.standard_normal((b, h, d, dv)).astype(np.float32)
+    tr, tk, tv, tw, tu, ts0 = _t(r, k, v, w, u, s0)
+    full_o, full_s = wkv6_chunked(tr, tk, tv, tw, tu, ts0, chunk=chunk)
+    dvs = -(-dv // 4)
+    parts = [wkv6_chunked(tr, tk, tv[..., j:j + dvs].contiguous(), tw, tu,
+                          ts0[..., j:j + dvs].contiguous(), chunk=chunk)
+             for j in range(0, dv, dvs)]
+    assert sum(p[0].shape[-1] for p in parts) == dv
+    np.testing.assert_allclose(torch.cat([p[0] for p in parts], -1).numpy(),
+                               full_o.numpy(), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(torch.cat([p[1] for p in parts], -1).numpy(),
+                               full_s.numpy(), atol=1e-6, rtol=0)
+    want_o, want_s = wkv6_xla(r, k, v, w, u, s0, chunk=chunk)
+    np.testing.assert_allclose(full_o.numpy(), np.asarray(want_o), **TOL)
+    np.testing.assert_allclose(full_s.numpy(), np.asarray(want_s), **TOL)
