@@ -53,6 +53,18 @@ Phases, in order; any failed check exits non-zero:
    profiles one decode step and the long prefill, and checks the first
    batch's logits on the card against the CPU at full width and the first
    4 of the 32 layers (so the host holds no second full copy).
+8. dense serve: ``serve --arch qwen2-1.5b`` at full width (28 layers,
+   d_model 1536, 12 heads over 2 KV heads of 128, vocab 151,936) on the
+   padded path; then chatglm2-6b, the paper's own model, at full width (28
+   layers, d_model 4096, 32 heads over 2 KV heads of 128), its weights drawn
+   once and served through ``serve.serve`` padded, ``--continuous`` and
+   ``--paged`` (a 2e7-byte pool), then one long padded batch (4 x 1024-token
+   prompts, 32 new tokens); checks that flash attention ran once per layer
+   on every prefill, decode attention once per layer on every padded
+   decode step and paged attention on every paged step (and WKV6 never),
+   profiles the long prefill and a decode step, and checks the first
+   batch's logits on the card against the CPU at full width and the first
+   2 of the 28 layers, for both models.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  The last three lines are a JSON object of per-kernel numbers
@@ -79,7 +91,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import H100, get_config  # noqa: E402
+from repro_torch.configs import H100, SHAPES, get_config  # noqa: E402
+from repro_torch.core import helr_mesh  # noqa: E402
 from repro_torch.core.types import Batch, Request  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
@@ -131,8 +144,16 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("ragged33", 1, 33, 33, 3, 3, 8, 8, True, None, None, 0),
     ("d128_ragged300", 2, 300, 300, 32, 2, 128, 128, True, None, None, 0),
     ("d128_window_softcap", 1, 77, 77, 12, 2, 128, 128, True, 24, 50.0, 0),
+    # the dense serve paths' prefills (D = 128): chatglm2-6b's group 16 and
+    # qwen2-1.5b's group 6 at <= 16-token prompts, chatglm2-6b's 4 x 1024
+    ("chatglm2_serve_prefill", 4, 16, 16, 32, 2, 128, 128, True, None, None, 0),
+    ("chatglm2_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 32, 2, 128, 128,
+     True, None, None, 0),
+    ("qwen2_serve_prefill", 4, 16, 16, 12, 2, 128, 128, True, None, None, 0),
 ]
-FLASH_TIMED = 6                       # the first six cases are timed
+FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
+               "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
+               "chatglm2_long_prefill", "qwen2_serve_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -151,7 +172,18 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("window_past_slots", 2, 128, 8, 8, 16, 16, None, 40, [150, 77]),
     # past the slots, and a row with no valid key (0, as the reference)
     ("empty_row", 2, 80, 4, 2, 64, 64, None, None, [90, 0]),
+    # the dense serve paths' decode steps (D = 128, the general instance):
+    # chatglm2-6b's serve and long batch, qwen2-1.5b's serve batch
+    ("chatglm2_serve_decode", 4, 64, 32, 2, 128, 128, None, None,
+     [24, 20, 17, 31]),
+    ("chatglm2_long_decode", 4, LONG_CACHE, 32, 2, 128, 128, None, None,
+     [1041] * 4),
+    ("qwen2_serve_decode", 4, 64, 12, 2, 128, 128, None, None,
+     [24, 20, 17, 31]),
 ]
+DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
+                "chatglm2_serve_decode", "chatglm2_long_decode",
+                "qwen2_serve_decode")
 LONG_PAGE, LONG_PAGES = 16, 66        # ceil((1024 + 32) / 16) pages a sequence
 PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
     # the JAX package's CASES of tests/test_paged_attention.py
@@ -182,8 +214,18 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
      6 * LONG_PAGES + 1, None, [1, 16, 17, 80, 81, 1056]),
     ("page_edges_t5", "window", 6, 5, 9, 3, 64, 64, LONG_PAGE, LONG_PAGES,
      6 * LONG_PAGES + 1, None, [75, 76, 11, 12, 0, 1051]),
+    # D = 128 (the general instance): chatglm2-6b's paged serve decode over
+    # 8-token pages and a long decode over 16-token pages; qwen2-1.5b's
+    ("chatglm2_paged_serve_decode", "decode", 4, 1, 32, 2, 128, 128, 8, 4, 55,
+     None, [24, 20, 17, 31]),
+    ("chatglm2_paged_long_decode", "decode", 4, 1, 32, 2, 128, 128, LONG_PAGE,
+     LONG_PAGES, 4 * LONG_PAGES + 1, None, [LONG_PROMPT + 17] * 4),
+    ("qwen2_paged_serve_decode", "decode", 4, 1, 12, 2, 128, 128, 8, 4, 55,
+     None, [24, 20, 17, 31]),
 ]
-PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window")
+PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window",
+               "chatglm2_paged_serve_decode", "chatglm2_paged_long_decode",
+               "qwen2_paged_serve_decode")
 WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     ("rwkv_serve_prefill", 4, 16, 40, 64, 64, 32, 2.0, None, False),
     ("rwkv_long_prefill", 4, LONG_PROMPT, 40, 64, 64, 32, 2.0, None, False),
@@ -204,6 +246,7 @@ FLUSH_BYTES = 64 * 2**20              # written between launches: > the 50 MB L2
 RWKV_ARGS = ["--arch", "rwkv6-3b", "--no-reduced", "--device", "cuda"]
 RWKV_PARITY_LAYERS = 4                # card vs CPU logits: the first 4 of 32
 PAGED_BUDGET, PREEMPT_BUDGET = "2e7", "3e6"
+DENSE_PARITY_LAYERS = 2               # card vs CPU logits: the first 2 of 28
 PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
     "a_paged": ["--paged", "--kv-budget", PAGED_BUDGET],
     "b_prefix_chunked": ["--prefix-cache", "--workload", "shared-prefix",
@@ -612,7 +655,7 @@ def phase_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     device_kernels(lambda: torch.ones(1, device="cuda").add_(1))  # profiler warm-up
-    for case in FLASH_CASES[:FLASH_TIMED]:
+    for case in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         args, kw = flash_inputs(case, torch.float32, gen)
         lib_args = [t.transpose(1, 2).contiguous() for t in args]
         # SDPA's causal mask is aligned top left: past a prefix, a mask
@@ -626,7 +669,7 @@ def phase_times() -> dict:
             lambda: F.scaled_dot_product_attention(*lib_args, **lib_kw,
                                                    enable_gqa=True),
             flash_cost(case, torch.float32), COLD["flash_attention"])
-    for case in DECODE_CASES[:3]:
+    for case in (c for c in DECODE_CASES if c[0] in DECODE_TIMED):
         (q, k, v, kl), kw = decode_inputs(case, torch.float32, gen)
         mask = (torch.arange(k.shape[1], device="cuda")[None, :]
                 < kl[:, None])[:, None, None, :]
@@ -1108,6 +1151,137 @@ def phase_rwkv() -> dict:
             "logits_max_abs_err": errs, "launches": launches}
 
 
+def serve_dense_run(what: str, cfg, fn, mode: str = "padded") -> tuple[dict, dict]:
+    """Run one dense serve path (``fn`` returns ``serve.serve``'s or
+    ``serve.main``'s dict; ``mode`` padded, continuous or paged) with the
+    launch counts set to 0 just before and read just after; check its
+    launches (a padded path prefills once a batch) and its 12 outputs.
+    Returns (its output, its record)."""
+    reset_launches()
+    t0 = time.perf_counter()
+    out, prefills = count_prefills(fn)
+    wall = time.perf_counter() - t0
+    results = out["results"]
+    steps = sum(r.steps for r in results)
+    if mode == "paged":
+        prefills = results[0].prefill_chunks
+    elif mode == "padded" and prefills != len(results):
+        fail(f"{what}: {prefills} prefills for {len(results)} batches")
+    got = check_launches(what, prefills, steps, cfg.n_layers,
+                         paged=mode == "paged")
+    check_outputs(what, cfg, out["outputs"])
+    rec = {"digest": out["digest"], "tokens": out["tokens"],
+           "seconds": out["seconds"], "wall_s": wall,
+           "tok_per_s": out["tokens"] / out["seconds"], "prefills": prefills,
+           "steps": steps, "launches": got}
+    print(f"[dense] {what}: {out['tokens']} tokens in {out['seconds']:.2f}s "
+          f"({rec['tok_per_s']:.1f} tok/s), {prefills} prefills, {steps} "
+          f"steps, digest {out['digest']}", flush=True)
+    return out, rec
+
+
+def phase_dense() -> dict:
+    """qwen2-1.5b through ``serve.main`` (padded), then chatglm2-6b drawn
+    once and served padded, continuous and paged through ``serve.serve``,
+    and its long padded batch; card-vs-CPU logits at 2 of 28 layers."""
+    runs, launches = {}, {k: 0 for k in TIMED}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    qcfg = get_config("qwen2-1.5b")
+    out, runs["qwen2 padded"] = serve_dense_run(
+        "qwen2 padded", qcfg,
+        lambda: serve.main(["--arch", "qwen2-1.5b"] + SERVE_ARGS))
+    add(runs["qwen2 padded"]["launches"])
+    qfirst = sorted(out["results"][0].outputs)
+    del out
+    torch.cuda.empty_cache()
+
+    cfg = get_config("chatglm2-6b")
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    init_s = time.perf_counter() - t0
+    plan = helr_mesh(cfg, SHAPES["decode_32k"]).name
+    print(f"[dense] chatglm2-6b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.param_count():.4g} parameters) drawn and moved in "
+          f"{init_s:.1f} s; plan for production mesh: {plan}", flush=True)
+    reqs = serve.make_requests(cfg, 12, 16)
+    pcfg = serve.paged_config(cfg, reqs, 16, float(PAGED_BUDGET))
+    if pcfg.usable_blocks < 4 * pcfg.max_blocks:
+        fail(f"chatglm2 paged: {pcfg.usable_blocks} pages at {PAGED_BUDGET} B "
+             f"for 4 slots of {pcfg.max_blocks}")
+    outputs = {}
+    for name, kw in (("padded", {}), ("continuous", {"continuous": True}),
+                     ("paged", {"paged": pcfg})):
+        # as serve.main does: fresh requests and a freshly fitted predictor
+        out, runs[f"chatglm2 {name}"] = serve_dense_run(
+            f"chatglm2 {name}", cfg,
+            lambda: serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
+                                serve.fit_predictor(cfg, "cuda"), **kw),
+            name)
+        add(runs[f"chatglm2 {name}"]["launches"])
+        outputs[name] = out["outputs"]
+        if name == "padded":
+            first = sorted(out["results"][0].outputs)
+        del out
+    for name in ("continuous", "paged"):
+        same, total = agreement(outputs[name], outputs["padded"])
+        runs[f"chatglm2 {name}"]["agree_with_padded"] = [same, total]
+        print(f"[dense] chatglm2 {name} vs padded: {same}/{total} tokens agree",
+              flush=True)
+
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(2, cfg.vocab_size, (4, LONG_PROMPT)).tolist()
+    batch = Batch(requests=[Request(rid=i, tokens=p, input_len=len(p), slo=1e9,
+                                    arrival=0.0, true_output_len=LONG_NEW)
+                            for i, p in enumerate(prompts)])
+    true_lens = {r.rid: LONG_NEW for r in batch.requests}
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_batch=4, cache_len=LONG_CACHE, max_new_tokens=LONG_NEW))
+    eng.run_batch(batch, true_lens=true_lens)             # warm-up
+    reset_launches()
+    long = eng.run_batch(batch, true_lens=true_lens)
+    got = check_launches("chatglm2 long batch", 1, long.steps, cfg.n_layers)
+    add(got)
+    check_outputs("chatglm2 long batch", cfg, long.outputs, n=4)
+    long_tokens = sum(len(v) for v in long.outputs.values())
+    if long_tokens != 4 * LONG_NEW:
+        fail(f"chatglm2 long batch: {long_tokens} tokens, expected "
+             f"{4 * LONG_NEW}")
+    print(f"[dense] chatglm2 long batch: prefill {long.prefill_s * 1e3:.2f} ms "
+          f"({4 * LONG_PROMPT / long.prefill_s:.0f} prompt tok/s), decode "
+          f"{long.steps} steps in {long.decode_s * 1e3:.2f} ms "
+          f"({long_tokens / long.decode_s:.1f} tok/s); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
+    toks, kv_len = eng._pad_prompts(prompts)
+    profile = {"chatglm2 long prefill": step_breakdown(
+        f"chatglm2 long prefill {tuple(toks.shape)}",
+        lambda: eng._prefill(toks, kv_len))}
+    lg, cache = eng._prefill(toks, kv_len)
+    nxt = greedy(lg, cfg.vocab_size)[:, None].long()
+    profile["chatglm2 long decode step"] = step_breakdown(
+        "chatglm2 long decode step", lambda: eng._decode(nxt, cache, kv_len))
+    del params, eng, cache, lg
+    torch.cuda.empty_cache()
+
+    errs = {}
+    for name, c, rids in (("chatglm2", cfg, first), ("qwen2", qcfg, qfirst)):
+        reqs = {r.rid: r for r in serve.make_requests(c, 12, 16)}
+        print(f"[dense] {name} card vs CPU logits at full width, first "
+              f"{DENSE_PARITY_LAYERS} of {c.n_layers} layers", flush=True)
+        errs[name] = logits_parity(replace(c, n_layers=DENSE_PARITY_LAYERS),
+                                   [reqs[rid].tokens for rid in rids], "dense")
+    return {"runs": runs, "plan": plan,
+            "long_batch": {"prefill_ms": long.prefill_s * 1e3,
+                           "decode_ms": long.decode_s * 1e3, "steps": long.steps,
+                           "decode_tok_per_s": long_tokens / long.decode_s,
+                           "init_s": init_s, "launches": got},
+            "profile": profile, "logits_layers": DENSE_PARITY_LAYERS,
+            "logits_max_abs_err": errs, "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     dev = phase_device()
@@ -1117,11 +1291,12 @@ def main() -> None:
     served = phase_serve()
     paged = phase_paged(served)
     rwkv = phase_rwkv()
+    dense = phase_dense()
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
-                for k in TIMED}
+                + dense["launches"][k] for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -1144,7 +1319,8 @@ def main() -> None:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     record = {"device": dev, "build": built, "parity": parity, "times": times,
-              **served, "paged": paged, "rwkv": rwkv, "kernels": kernels,
+              **served, "paged": paged, "rwkv": rwkv, "dense": dense,
+              "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

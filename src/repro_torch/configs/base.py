@@ -1,12 +1,13 @@
-"""Config system of the PyTorch port: model architecture and hardware
-constants.
+"""Config system of the PyTorch port: model architecture, input shapes and
+hardware constants.
 
 Own copy of ``repro/configs/base.py``, trimmed to the families the port
 serves: the dense decoder-only family, whose per-block options (qkv bias,
 softcaps, norm kind, activation, gating, tied or scaled embeddings,
 post-block norms) run as in the reference while a sliding window or M-RoPE
 raises until its slice lands, and RWKV-6 (``rwkv``).  The MoE, MLA, Mamba
-and encoder-decoder extensions come with their slices.
+and encoder-decoder extensions, and their terms of ``param_count``, come
+with their slices.
 """
 from __future__ import annotations
 
@@ -80,6 +81,12 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         return pad_to(self.vocab_size, self.vocab_pad_mult)
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True when long-context decode state does not grow with the
+        sequence: the SSM / linear-attention families."""
+        return self.family in ("ssm", "hybrid")
+
     def layer_plan(self) -> tuple[LayerSpec, ...]:
         specs = []
         mixer = "rwkv6" if self.rwkv is not None else "attn"
@@ -93,6 +100,36 @@ class ModelConfig:
                 attn = "full"
             specs.append(LayerSpec(mixer=mixer, attn=attn))
         return tuple(specs)
+
+    def _attn_params(self) -> int:
+        d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim_eff
+        return d * h * hd + 2 * d * kv * hd + h * self.v_head_dim_eff * d
+
+    def _rwkv_params(self) -> int:
+        d = self.d_model
+        p = 5 * d * d                                    # r,k,v,g,o projections
+        p += 2 * d * self.rwkv.decay_lora                # data-dependent decay lora
+        p += 8 * d                                       # token-shift mixes, bonus u
+        return p
+
+    def _mlp_params(self, hidden: int) -> int:
+        n_mat = 3 if self.gated_mlp else 2
+        return n_mat * self.d_model * hidden
+
+    def param_count(self) -> int:
+        """Parameter count as the reference's accounting makes it (embedding,
+        head unless tied, norms, mixers and MLPs; no bias term).  Every
+        parameter is active: the port has no MoE yet."""
+        total = self.padded_vocab * self.d_model
+        if not self.tie_embeddings:
+            total += self.padded_vocab * self.d_model
+        total += self.d_model  # final norm
+        for spec in self.layer_plan():
+            total += self._attn_params() if spec.mixer == "attn" \
+                else self._rwkv_params()
+            total += self._mlp_params(self.d_ff)
+            total += 2 * self.d_model  # 2 norms
+        return int(total)
 
     def kv_cache_bytes(self, batch: int, seq: int, bytes_per: int = 2) -> int:
         """Paper §1 cost model: K and V of every attention layer; for RWKV
@@ -124,6 +161,35 @@ class ModelConfig:
             sliding_window=8 if self.sliding_window else None, **kw)
 
 
+StepKind = Literal["train", "prefill", "decode"]
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: StepKind
+    needs_subquadratic: bool = False
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode", needs_subquadratic=True),
+}
+
+
+def cell_is_runnable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether (arch × shape) is a defined cell, and why not when skipped
+    (every arch of the port is a decoder, so only the long-context shape
+    can be skipped)."""
+    if shape.needs_subquadratic and not model.is_subquadratic:
+        return False, "long_500k skipped: pure full-attention arch"
+    return True, ""
+
+
 @dataclass(frozen=True)
 class HWSpec:
     name: str
@@ -132,9 +198,16 @@ class HWSpec:
     peak_flops_tf32: float     # per-chip dense TF32 FLOP/s (tensor cores)
     hbm_bw: float              # bytes/s
     hbm_bytes: float
+    ici_bw: float              # bytes/s a chip, within a link domain
+    dcn_bw: float              # bytes/s a chip, between link domains
+    link_domain: int           # chips that one fast-link domain joins
 
 
 # NVIDIA H100 SXM data sheet: 989 TFLOP/s dense bf16, 495 TF32, 67 TFLOP/s
-# fp32 outside the tensor cores, 3.35 TB/s HBM3, 80 GiB.
+# fp32 outside the tensor cores, 3.35 TB/s HBM3, 80 GiB; NVLink 4 at 450
+# GB/s a direction among the 8 GPUs of an HGX H100 board; 400 Gb/s NDR
+# InfiniBand a GPU (50e9 B/s) between boards.  Data-sheet values, not
+# measurements.
 H100 = HWSpec("h100-sxm", peak_flops=989e12, peak_flops_fp32=67e12,
-              peak_flops_tf32=495e12, hbm_bw=3.35e12, hbm_bytes=80 * 2**30)
+              peak_flops_tf32=495e12, hbm_bw=3.35e12, hbm_bytes=80 * 2**30,
+              ici_bw=450e9, dcn_bw=50e9, link_domain=8)

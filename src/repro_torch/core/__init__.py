@@ -1,5 +1,6 @@
 """UELLM core of the port: resource profiler, batch scheduler and backend
-monitor of the single-engine serve paths."""
+monitor of the single-engine serve paths, and the LLM deployer (HELR over a
+device topology, HELR-mesh over the production mesh)."""
 from repro_torch.core.monitor import Monitor, MonitorStats  # noqa: F401
 from repro_torch.core.profiler import (LengthPredictor, PredictorConfig,  # noqa: F401
                                        ResourceProfiler, make_buckets)
@@ -7,3 +8,9 @@ from repro_torch.core.scheduler import (SCHEDULERS, SchedulerConfig,  # noqa: F4
                                         derive_chunk_tokens, get_scheduler,
                                         slo_odbs)
 from repro_torch.core.types import Batch, Request  # noqa: F401
+from repro_torch.core.deployer import (DEPLOYERS, EXACT_DP_MAX,  # noqa: F401
+                                       HELRConfig, MeshPlan, bgs,
+                                       candidate_plans,
+                                       default_even_deploy, he, helr,
+                                       helr_mesh, lr)
+from repro_torch.core.types import DeviceMap, DeviceNode  # noqa: F401

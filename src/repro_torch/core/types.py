@@ -1,7 +1,9 @@
-"""Core serving types shared by the profiler, scheduler, monitor and engine.
+"""Core serving types shared by the profiler, scheduler, monitor, engine
+and deployer.
 
 Own copy of ``repro/core/types.py``, trimmed to the single-engine serve
-paths, padded and paged (no cluster, fleet or retry bookkeeping)."""
+paths, padded and paged, and the deployer's topology and device map (no
+cluster, fleet or retry bookkeeping)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -61,3 +63,31 @@ class Batch:
 
     def __len__(self):
         return len(self.requests)
+
+
+@dataclass
+class DeviceNode:
+    """A hardware accelerator in the deployer's topology graph (paper §4.3)."""
+    node_id: int
+    memory: float            # bytes available for weights+KV
+    performance: float       # FLOP/s effective
+    name: str = ""
+
+
+@dataclass
+class DeviceMap:
+    """layers[i] = number of model layers on path_order[i]; the paper's
+    device-map output of HELR."""
+    path: list[int] = field(default_factory=list)       # device ids in order
+    layers: dict[int, int] = field(default_factory=dict)  # device id -> #layers
+    est_latency: float = float("inf")
+    est_util: float = 0.0
+
+    def as_ranges(self, n_layers: int) -> list[tuple[int, int, int]]:
+        """[(device_id, layer_lo, layer_hi)] pipeline ranges."""
+        out, lo = [], 0
+        for d in self.path:
+            hi = lo + self.layers.get(d, 0)
+            out.append((d, lo, hi))
+            lo = hi
+        return out

@@ -18,9 +18,16 @@ derives N from the scheduler threshold), ``--preempt`` evicts the slack-most
 resident for recompute under block pressure, and ``--speculate`` verifies
 ``--spec-tokens`` drafts of ``--drafter`` per iteration in one window pass.
 
-``--arch`` picks smollm-135m (the default) or rwkv6-3b, whose prefill runs
-through the WKV6 kernel; ``--paged`` refuses rwkv6-3b, its state being
-recurrent, as the reference does.
+``--arch`` picks smollm-135m (the default), the dense chatglm2-6b (the
+paper's own model) or qwen2-1.5b, which serve on every path above, or
+rwkv6-3b, whose prefill runs through the WKV6 kernel; ``--paged`` refuses
+rwkv6-3b, its state being recurrent, as the reference does.  The
+``serving`` line names the plan the LLM deployer (HELR-mesh) picks for the
+full-width arch at ``decode_32k`` on the production mesh, which is still
+the reference's TPU mesh (256 chips as data=16 × model=16), priced at the
+H100's FLOP/s, HBM and link classes (NVLink within an 8-GPU board,
+InfiniBand beyond, so every collective of a 16-wide group goes over
+InfiniBand).
 
 Same flags and defaults as the reference; ``--reduced`` is on by default and
 ``--no-reduced`` serves the full-width model.  The cluster, fault and
@@ -35,11 +42,11 @@ import time
 
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import SHAPES, get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import (LengthPredictor, Monitor, PredictorConfig,
                               ResourceProfiler, SchedulerConfig,
-                              derive_chunk_tokens, get_scheduler)
+                              derive_chunk_tokens, get_scheduler, helr_mesh)
 from repro_torch.core.types import Request
 from repro_torch.data.workload import (SharedPrefixConfig, WorkloadConfig,
                                        gen_requests,
@@ -261,8 +268,9 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    plan = helr_mesh(get_config(args.arch), SHAPES["decode_32k"]).name
     print(f"serving {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
-          f"on {where}")
+          f"on {where} (plan for production mesh: {plan})")
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device=device)
     reqs = make_requests(cfg, args.requests, args.max_new, args.workload)
     pcfg = drafter = None

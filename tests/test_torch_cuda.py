@@ -63,6 +63,13 @@ DECODE_CASES = [
     (2, 2048, 8, 1, 256, 256, None, None, [2048, 1500]),    # widest, 16 splits
     # kv_len past the 128 slots: the window starts at kv_len - 40 = 110
     (2, 128, 8, 8, 16, 16, None, 40, [150, 77]),
+    # the dense archs' decode at D = 128 (the general instance): chatglm2-6b's
+    # 32 heads over 2 (two rows a warp) at its serve and long lengths,
+    # qwen2-1.5b's 12 over 2
+    (4, 64, 32, 2, 128, 128, None, None, [24, 20, 17, 31]),
+    (4, 1088, 32, 2, 128, 128, None, None, [1041, 1041, 700, 1]),
+    (4, 64, 12, 2, 128, 128, None, None, [24, 20, 17, 31]),
+    (2, 1088, 12, 2, 128, 128, None, None, [1041, 513]),
 ]
 
 PAGED_CASES = [
@@ -77,6 +84,12 @@ PAGED_CASES = [
     (4, 5, 9, 3, 64, 64, 8, 4, 40, 30.0),       # serve verify window
     (2, 3, 4, 2, 96, 64, 8, 4, 16, None),       # D != Dv
     (2, 2, 16, 2, 256, 256, 4, 5, 16, None),    # widest head, group 8
+    # the dense archs at D = 128: chatglm2-6b's 32 over 2 and qwen2-1.5b's
+    # 12 over 2, over 8-token and 16-token pages
+    (4, 1, 32, 2, 128, 128, 8, 8, 40, None),
+    (4, 1, 32, 2, 128, 128, 16, 66, 300, None),
+    (4, 1, 12, 2, 128, 128, 8, 8, 40, None),
+    (2, 5, 12, 2, 128, 128, 16, 66, 140, None),
 ]
 
 # K1's page splits: 66 16-token pages give paged_splits(66, 16) = (14, 5),
