@@ -18,7 +18,10 @@ Phases, in order; any failed check exits non-zero:
    (q_offset, window, softcap, non-causal, D != Dv, ragged lengths, flash
    attention's D = 128 instance at group 16 and with window and softcap,
    decode rows with kv_len past the slots and at 0, the edges of the
-   decode kernels' splits; for paged attention both entry
+   decode kernels' splits, gemma2-27b's windowed and global prefills at
+   4,608 tokens and its ring decode after the ring wraps (K3 over the
+   ring's valid slots against the plain ring decode), minicpm3-4b's D = 96,
+   Dv = 64 prefill on 40 heads; for paged attention both entry
    points, windows T = 1..5, a null-block free slot, permuted tables, a
    poisoned table tail and limits on page and split boundaries; for WKV6
    ragged T, T < chunk, chunk 16, strong decay down to w = 1e-6 with finite
@@ -28,7 +31,7 @@ Phases, in order; any failed check exits non-zero:
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
-   computes WKV6); the profiler must see one device activity per kernel
+   computes WKV6 or a tanh softcap); the profiler must see one device activity per kernel
    call; every kernel also with a cold L2 (64 MB written between launches,
    only the kernel's own activities summed).  A bound prices fp32
    operations at the TF32 tensor cores' rate over three (3xTF32, the
@@ -65,6 +68,25 @@ Phases, in order; any failed check exits non-zero:
    profiles the long prefill and a decode step, and checks the first
    batch's logits on the card against the CPU at full width and the first
    2 of the 28 layers, for both models.
+9. window and MLA serve (``[window]`` and ``[mla]`` lines): gemma2-27b at
+   full width (d_model 4608, 32 heads over 16 KV heads of 128, d_ff 36,864,
+   vocab 256,000, local layers with a 4,096-token window and softcap 50),
+   its depth cut from 46 as ``serve.main`` cuts it on this card
+   (``serve.fit_depth``: the deepest even count whose f32 weights take at
+   most 0.7 of the card's memory; 24, 59.1 GB, on an 80 GB card), drawn
+   once and served through ``serve.serve``
+   padded and ``--continuous`` (cache_len 64: every local layer keeps a
+   ring of 64), then one long padded batch of prompts of 4,608 and 4,300
+   tokens (32 new, cache_len 4,640: the local layers keep a ring of 4,096
+   that wraps); then minicpm3-4b (Multi-head Latent Attention, 62 layers,
+   d_model 2560, 40 heads, D = 96, Dv = 64) at full width and depth, padded
+   and ``--continuous``, and a 4 x 1024 padded batch.  Checks that flash
+   attention ran once per layer on every prefill, decode attention once per
+   layer on every gemma2-27b decode step (its local layers through the
+   ring) and never on minicpm3-4b (latent-space decode with torch ops),
+   that the long batch's local caches are rings of 4,096, profiles both
+   long prefills and a decode step of each, and checks card-vs-CPU logits
+   at full width and 2 layers of each (gemma2-27b: one local, one global).
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  The last three lines are a JSON object of per-kernel numbers
@@ -75,6 +97,7 @@ and ``{"ok": true, "device": {...}}``.  A copy of every number goes to
 """
 from __future__ import annotations
 
+import copy
 import json
 import math
 import statistics
@@ -109,6 +132,8 @@ from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.models.attention import (  # noqa: E402
+    ring_decode, ring_decode_attention, ring_lengths)
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  PagedEngine, PagedEngineConfig, greedy)
 
@@ -123,7 +148,15 @@ TOL_BF16 = 2e-2           # x max|ref|: both round the output to bf16
 TOL_LOGITS = 1e-3         # card vs CPU logits, f32, 30 layers
 SERVE_ARGS = ["--no-reduced", "--device", "cuda"]
 LONG_PROMPT, LONG_NEW, LONG_CACHE = 1024, 32, 1088
+# gemma2-27b's long batch: two prompts past its 4,096-token window, a cache
+# wide enough for 32 new tokens (its local layers keep a ring of 4,096)
+GEMMA2_WINDOW = 4096
+GEMMA2_LONG, GEMMA2_CACHE = (4608, 4300), 4640
 N_TIMED = 25
+PAD_SPINS, SPIN = 128, "spin_kernel"   # see device_kernels
+# profiled windows, the most spin kernels one of them lost, and the windows
+# that lost every spin (and were retried)
+PROFILER = {"windows": 0, "max_lost": 0, "all_lost": 0}
 
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
@@ -150,10 +183,26 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("chatglm2_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 32, 2, 128, 128,
      True, None, None, 0),
     ("qwen2_serve_prefill", 4, 16, 16, 12, 2, 128, 128, True, None, None, 0),
+    # gemma2-27b (group 2, D = 128, softcap 50): the long batch's local
+    # layers (window 4,096 inside 4,608 tokens) and global layers, and the
+    # serve prefill's local layers; minicpm3-4b's MLA prefill (40 heads,
+    # D = 96, Dv = 64: the general instance) at 4 x 1024 and at serve size
+    ("gemma2_long_prefill", 2, GEMMA2_LONG[0], GEMMA2_LONG[0], 32, 16, 128, 128,
+     True, GEMMA2_WINDOW, 50.0, 0),
+    ("gemma2_global_prefill", 2, GEMMA2_LONG[0], GEMMA2_LONG[0], 32, 16, 128,
+     128, True, None, 50.0, 0),
+    ("gemma2_serve_prefill", 4, 16, 16, 32, 16, 128, 128, True, GEMMA2_WINDOW,
+     50.0, 0),
+    ("minicpm3_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 40, 40, 96, 64, True,
+     None, None, 0),
+    ("minicpm3_serve_prefill", 4, 16, 16, 40, 40, 96, 64, True, None, None, 0),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
-               "chatglm2_long_prefill", "qwen2_serve_prefill")
+               "chatglm2_long_prefill", "qwen2_serve_prefill",
+               "gemma2_long_prefill", "gemma2_global_prefill",
+               "gemma2_serve_prefill", "minicpm3_long_prefill",
+               "minicpm3_serve_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -180,10 +229,22 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      [1041] * 4),
     ("qwen2_serve_decode", 4, 64, 12, 2, 128, 128, None, None,
      [24, 20, 17, 31]),
+    # gemma2-27b's global layers in the long batch's decode (group 2, D =
+    # 128, softcap 50)
+    ("gemma2_long_decode", 2, GEMMA2_CACHE, 32, 16, 128, 128, 50.0, None,
+     list(GEMMA2_LONG)),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
-                "qwen2_serve_decode")
+                "qwen2_serve_decode", "gemma2_long_decode")
+# gemma2-27b's local layers in the long batch's decode: a ring of 4,096
+# slots after the wrap, as DECODE_CASES but with kv_len the query's
+# position; K3 over the first min(kv_len + 1, w) slots (``ring_kernel``)
+# against the plain ``ring_decode`` (``ring_plain``)
+RING_CASES = [
+    ("gemma2_ring_decode", 2, GEMMA2_WINDOW, 32, 16, 128, 128, 50.0,
+     GEMMA2_WINDOW, [GEMMA2_LONG[0] + 12, GEMMA2_LONG[1] + 10]),
+]
 LONG_PAGE, LONG_PAGES = 16, 66        # ceil((1024 + 32) / 16) pages a sequence
 PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
     # the JAX package's CASES of tests/test_paged_attention.py
@@ -238,6 +299,7 @@ WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     ("dv6_split", 2, 40, 3, 16, 6, 32, 2.0, None, True),
     ("dv2_empty_blocks", 2, 33, 2, 16, 2, 32, 2.0, None, False),
 ]
+WINDOW_PARITY_LAYERS = 2       # gemma2-27b card vs CPU: one local, one global
 TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
          "paged_attention": "paged_long_decode", "wkv6": "rwkv_long_prefill"}
 COLD = {"flash_attention": "fa_fwd", "decode_attention": "dec_fwd",
@@ -282,34 +344,44 @@ def call_ms(fn) -> float:
 
 def device_kernels(fn, n: int = 1):
     """Device activities (kernels, copies) of ``n`` calls of ``fn`` as
-    torch.profiler records them: [(name, microseconds)]."""
+    torch.profiler records them: [(name, microseconds)].  The profiler can
+    lose a run of a window's first activities (all of a one-kernel window,
+    in most tries once the process has served for minutes), and keeps every
+    activity after the first it keeps.  So each window opens with PAD_SPINS
+    spin kernels (``torch.cuda._sleep``), dropped from the result: one of
+    them seen means every activity of ``fn`` was recorded; none seen is
+    retried."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    for _ in range(5):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(PAD_SPINS):
+                torch.cuda._sleep(50)
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        kern = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        spins = sum(SPIN in name for name, _ in kern)
+        PROFILER["windows"] += 1
+        PROFILER["max_lost"] = max(PROFILER["max_lost"], PAD_SPINS - spins)
+        if spins:
+            return [(name, us) for name, us in kern if SPIN not in name]
+        PROFILER["all_lost"] += 1
+    fail(f"the profiler lost all {PAD_SPINS} spin kernels that open its "
+         "window, five times")
 
 
 def timed(fn, per_call: int | None = None) -> dict:
-    """Device ms per call and the event-timed ms per call; ``ms`` is the
-    device time where the profiler saw the device, else the event time.
-    The profiler can miss some of a window's activities (24 of 25 launches
-    once), so the device time is the mean over the activities it saw times
-    the activities of one call: ``per_call`` where the caller knows it,
-    else the most that three profiles of one call saw."""
+    """Device ms per call (profiler: the mean activity times the activities
+    of one call, ``per_call`` where the caller knows it, else those of one
+    profiled call) and the event-timed ms per call."""
     if per_call is None:
-        per_call = max(len(device_kernels(fn)) for _ in range(3))
+        per_call = len(device_kernels(fn))
     kern = device_kernels(fn, N_TIMED)
-    dev = sum(us for _, us in kern) / len(kern) * per_call / 1e3 \
-        if kern else None
-    ev = call_ms(fn)
-    return {"ms": dev if dev is not None else ev, "device_ms": dev,
-            "call_ms": ev, "launches_per_call": per_call,
-            "launches_seen_per_call": len(kern) / N_TIMED}
+    return {"ms": sum(us for _, us in kern) / len(kern) * per_call / 1e3,
+            "call_ms": call_ms(fn), "launches_per_call": per_call}
 
 
 def cold_ms(fn, symbol: str) -> float:
@@ -418,6 +490,20 @@ def decode_cost(case, dtype):
     rows = sum(min(n, window) if window else n for n in kv_len)
     nbytes = size * (rows * kv * (d + dv) + b * h * (d + dv)) + 4 * b
     return nbytes, 2.0 * (d + dv) * rows * h
+
+
+def ring_kernel(q, k, v, kv_len, *, softcap=None, window=None):
+    """Decode over a ring of w slots as ``attention.attn_decode`` runs it
+    (``ring_decode_attention``: K3 over the first min(kv_len + 1, w) slots,
+    no window)."""
+    return ring_decode_attention(q, k, v, kv_len, softcap=softcap)
+
+
+def ring_plain(q, k, v, kv_len, *, softcap=None, window=None):
+    """The plain ring decode (the reference's ``_ring_decode``) at query
+    position kv_len."""
+    cfg = replace(get_config("gemma2-27b"), attn_softcap=softcap)
+    return ring_decode(cfg, q, {"k": k, "v": v}, kv_len, window)
 
 
 def wkv6_inputs(case, dtype, gen):
@@ -572,7 +658,9 @@ def phase_parity() -> dict:
                                  for c in FLASH_CASES], flash_inputs),
             ("decode_attention", [(c, decode_attention,
                                    decode_attention_reference)
-                                  for c in DECODE_CASES], decode_inputs),
+                                  for c in DECODE_CASES]
+             + [(c, ring_kernel, ring_plain) for c in RING_CASES],
+             decode_inputs),
             ("paged_attention", paged, paged_inputs)):
         for case, fn, ref in cases:
             for dtype in (torch.float32, torch.bfloat16):
@@ -654,7 +742,6 @@ def wkv6_parity(case, dtype, gen) -> dict:
 def phase_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
-    device_kernels(lambda: torch.ones(1, device="cuda").add_(1))  # profiler warm-up
     for case in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
         args, kw = flash_inputs(case, torch.float32, gen)
         lib_args = [t.transpose(1, 2).contiguous() for t in args]
@@ -663,11 +750,13 @@ def phase_times() -> dict:
             "attn_mask": attention_mask(case[2], case[3], causal=True,
                                         window=None, q_offset=kw["q_offset"],
                                         device="cuda")}
+        # no PyTorch call computes a tanh softcap: library_ms null there
+        library = None if kw["softcap"] else \
+            (lambda: F.scaled_dot_product_attention(*lib_args, **lib_kw,
+                                                    enable_gqa=True))
         out[f"flash_attention/{case[0]}"] = time_three(
             f"flash_attention/{case[0]}", lambda: flash_attention(*args, **kw),
-            lambda: flash_attention_reference(*args, **kw),
-            lambda: F.scaled_dot_product_attention(*lib_args, **lib_kw,
-                                                   enable_gqa=True),
+            lambda: flash_attention_reference(*args, **kw), library,
             flash_cost(case, torch.float32), COLD["flash_attention"])
     for case in (c for c in DECODE_CASES if c[0] in DECODE_TIMED):
         (q, k, v, kl), kw = decode_inputs(case, torch.float32, gen)
@@ -675,11 +764,22 @@ def phase_times() -> dict:
                 < kl[:, None])[:, None, None, :]
         lq, lk, lv = q[:, :, None], k.transpose(1, 2).contiguous(), \
             v.transpose(1, 2).contiguous()
+        library = None if kw["softcap"] else \
+            (lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                                    enable_gqa=True))
         out[f"decode_attention/{case[0]}"] = time_three(
             f"decode_attention/{case[0]}", lambda: decode_attention(q, k, v, kl, **kw),
-            lambda: decode_attention_reference(q, k, v, kl, **kw),
-            lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
-                                                   enable_gqa=True),
+            lambda: decode_attention_reference(q, k, v, kl, **kw), library,
+            decode_cost(case, torch.float32), COLD["decode_attention"])
+        out[f"decode_attention/{case[0]}"]["splits"] = decode_splits(case[2])
+    for case in RING_CASES:
+        (q, k, v, kl), kw = decode_inputs(case, torch.float32, gen)
+        # the lengths K3 reads, computed once: one launch a timed call
+        ring_len = ring_lengths(kl, k.shape[1])
+        out[f"decode_attention/{case[0]}"] = time_three(
+            f"decode_attention/{case[0]}",
+            lambda: decode_attention(q, k, v, ring_len, softcap=kw["softcap"]),
+            lambda: ring_plain(q, k, v, kl, **kw), None,
             decode_cost(case, torch.float32), COLD["decode_attention"])
         out[f"decode_attention/{case[0]}"]["splits"] = decode_splits(case[2])
     for case in PAGED_CASES:
@@ -710,9 +810,8 @@ def phase_times() -> dict:
               f"plain {r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f}), "
               f"library {lib}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device time "
-              f"{'from torch.profiler' if r['device_ms'] is not None else 'not seen: event times'}"
-              f" ({r['launches_seen_per_call']:.2f} of {r['launches_per_call']} "
-              "activities a call seen)", flush=True)
+              f"from torch.profiler ({r['launches_per_call']} activities a "
+              "call)", flush=True)
     return out
 
 
@@ -724,11 +823,7 @@ def time_three(tag, kernel, plain, library, cost, cold: str | None = None) -> di
     symbol, to time it with a cold L2 as well."""
     nbytes, ops = cost
     b_ms, b_by = bound(nbytes, ops, torch.float32)
-    seen = 0
-    for _ in range(5):      # the first profiles of a process can see nothing
-        seen = max(seen, len(device_kernels(kernel)))
-        if seen:
-            break
+    seen = len(device_kernels(kernel))
     if seen != 1:
         fail(f"{tag}: the profiler saw {seen} device activities for one "
              "kernel call")
@@ -742,14 +837,14 @@ def time_three(tag, kernel, plain, library, cost, cold: str | None = None) -> di
             "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
 
 
-def step_breakdown(what: str, fn) -> dict:
+def step_breakdown(what: str, fn, reps: int = 5) -> dict:
     """Where one serving step's time goes: host-clock wall time (median of
-    5, synchronised), device busy time and launches (profiler), idle share,
-    and the kernels that take the most device time."""
+    ``reps``, synchronised), device busy time and launches (profiler), idle
+    share, and the kernels that take the most device time."""
     fn()
     torch.cuda.synchronize()
     walls = []
-    for _ in range(5):
+    for _ in range(reps):
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -779,12 +874,14 @@ def reset_launches() -> None:
 
 
 def check_launches(what: str, prefills: int, steps: int, n_layers: int,
-                   paged: bool = False, rwkv: bool = False) -> dict:
+                   paged: bool = False, rwkv: bool = False,
+                   mla: bool = False) -> dict:
     """Launches of the path just run: flash attention once per layer and
     prefill call, the decode kernel (paged attention on a paged path) once
     per layer and decode or verify step, the other decode kernel and WKV6
-    never; on an rwkv path WKV6 once per layer and prefill call and no
-    attention kernel."""
+    never; on an MLA path no decode kernel (it decodes in the latent space
+    with torch ops); on an rwkv path WKV6 once per layer and prefill call
+    and no attention kernel."""
     got = {"flash_attention": flash_attention.launches,
            "decode_attention": decode_attention.launches,
            "paged_attention": paged_window_attention.launches,
@@ -793,6 +890,9 @@ def check_launches(what: str, prefills: int, steps: int, n_layers: int,
             "decode_attention": 0 if paged else n_layers * steps,
             "paged_attention": n_layers * steps if paged else 0, "wkv6": 0}
     used = ("flash_attention", "paged_attention" if paged else "decode_attention")
+    if mla:
+        want["decode_attention"] = 0
+        used = ("flash_attention",)
     if rwkv:
         want = {k: 0 for k in want} | {"wkv6": n_layers * prefills}
         used = ("wkv6",)
@@ -804,10 +904,13 @@ def check_launches(what: str, prefills: int, steps: int, n_layers: int,
 
 def logits_parity(cfg, prompts, what: str = "serve") -> dict:
     """Prefill and first decode-step logits of one batch on the card vs the
-    same engine on the CPU (plain kernel versions, same seeded weights)."""
+    same engine on the CPU (plain kernel versions, the same seeded weights:
+    drawn on the CPU once, a copy moved to the card)."""
     got = {}
+    cpu_params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     for device in ("cuda", "cpu"):
-        params = api.init_params(cfg, seed=0, dtype=torch.float32, device=device)
+        params = copy.deepcopy(cpu_params).to(device) if device == "cuda" \
+            else cpu_params
         eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, cache_len=64))
         toks, kv_len = eng._pad_prompts(prompts)
         lg, cache = eng._prefill(toks, kv_len)
@@ -816,6 +919,7 @@ def logits_parity(cfg, prompts, what: str = "serve") -> dict:
         got[device] = (lg.float().cpu(), lg2.float().cpu())
         got["nxt"] = nxt
         del params, eng, cache
+    del cpu_params
     errs = {name: (got["cuda"][i] - got["cpu"][i]).abs().max().item()
             for i, name in enumerate(("prefill", "decode"))}
     for name, err in errs.items():
@@ -1100,42 +1204,15 @@ def phase_rwkv() -> dict:
     reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
     first_prompts = [reqs[rid].tokens for rid in first]
 
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(2, cfg.vocab_size, (4, LONG_PROMPT)).tolist()
-    batch = Batch(requests=[Request(rid=i, tokens=p, input_len=len(p), slo=1e9,
-                                    arrival=0.0, true_output_len=LONG_NEW)
-                            for i, p in enumerate(prompts)])
-    true_lens = {r.rid: LONG_NEW for r in batch.requests}
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     init_s = time.perf_counter() - t0
-    eng = InferenceEngine(cfg, params, EngineConfig(
-        max_batch=4, cache_len=LONG_CACHE, max_new_tokens=LONG_NEW))
-    eng.run_batch(batch, true_lens=true_lens)             # warm-up
-    reset_launches()
-    long = eng.run_batch(batch, true_lens=true_lens)
-    got = check_launches("rwkv long batch", 1, long.steps, cfg.n_layers,
-                         rwkv=True)
-    launches += got["wkv6"]
-    check_outputs("rwkv long batch", cfg, long.outputs, n=4)
-    long_tokens = sum(len(v) for v in long.outputs.values())
-    if long_tokens != 4 * LONG_NEW:
-        fail(f"rwkv long batch: {long_tokens} tokens, expected {4 * LONG_NEW}")
-    print(f"[rwkv] long batch: prefill {long.prefill_s * 1e3:.2f} ms "
-          f"({4 * LONG_PROMPT / long.prefill_s:.0f} prompt tok/s), decode "
-          f"{long.steps} steps in {long.decode_s * 1e3:.2f} ms "
-          f"({long_tokens / long.decode_s:.1f} tok/s); weights drawn and "
-          f"moved in {init_s:.1f} s; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    toks, kv_len = eng._pad_prompts(prompts)
-    profile = {"rwkv long prefill": step_breakdown(
-        f"rwkv long prefill {tuple(toks.shape)}",
-        lambda: eng._prefill(toks, kv_len))}
-    lg, cache = eng._prefill(toks, kv_len)
-    nxt = greedy(lg, cfg.vocab_size)[:, None].long()
-    profile["rwkv long decode step"] = step_breakdown(
-        "rwkv long decode step", lambda: eng._decode(nxt, cache, kv_len))
-    del params, eng, cache, lg
+    print(f"[rwkv] weights drawn and moved in {init_s:.1f} s", flush=True)
+    long, profile, _ = long_batch("rwkv", "rwkv", cfg, params,
+                                  [LONG_PROMPT] * 4, LONG_CACHE)
+    long["init_s"] = init_s
+    launches += long["launches"]["wkv6"]
+    del params
     torch.cuda.empty_cache()
     print(f"[rwkv] card vs CPU logits at full width, first "
           f"{RWKV_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
@@ -1143,20 +1220,19 @@ def phase_rwkv() -> dict:
                          first_prompts, "rwkv")
     return {"runs": runs,
             "continuous_agree_with_padded": [same, total],
-            "long_batch": {"prefill_ms": long.prefill_s * 1e3,
-                           "decode_ms": long.decode_s * 1e3, "steps": long.steps,
-                           "decode_tok_per_s": long_tokens / long.decode_s,
-                           "init_s": init_s, "launches": got},
+            "long_batch": long,
             "profile": profile, "logits_layers": RWKV_PARITY_LAYERS,
             "logits_max_abs_err": errs, "launches": launches}
 
 
-def serve_dense_run(what: str, cfg, fn, mode: str = "padded") -> tuple[dict, dict]:
+def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
+                    tag: str = "dense") -> tuple[dict, dict]:
     """Run one dense serve path (``fn`` returns ``serve.serve``'s or
     ``serve.main``'s dict; ``mode`` padded, continuous or paged) with the
     launch counts set to 0 just before and read just after; check its
-    launches (a padded path prefills once a batch) and its 12 outputs.
-    Returns (its output, its record)."""
+    launches (a padded path prefills once a batch; an MLA model decodes
+    without a kernel) and its 12 outputs.  Returns (its output, its
+    record); ``tag`` heads its printed line."""
     reset_launches()
     t0 = time.perf_counter()
     out, prefills = count_prefills(fn)
@@ -1168,13 +1244,13 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded") -> tuple[dict, dic
     elif mode == "padded" and prefills != len(results):
         fail(f"{what}: {prefills} prefills for {len(results)} batches")
     got = check_launches(what, prefills, steps, cfg.n_layers,
-                         paged=mode == "paged")
+                         paged=mode == "paged", mla=cfg.mla is not None)
     check_outputs(what, cfg, out["outputs"])
     rec = {"digest": out["digest"], "tokens": out["tokens"],
            "seconds": out["seconds"], "wall_s": wall,
            "tok_per_s": out["tokens"] / out["seconds"], "prefills": prefills,
            "steps": steps, "launches": got}
-    print(f"[dense] {what}: {out['tokens']} tokens in {out['seconds']:.2f}s "
+    print(f"[{tag}] {what}: {out['tokens']} tokens in {out['seconds']:.2f}s "
           f"({rec['tok_per_s']:.1f} tok/s), {prefills} prefills, {steps} "
           f"steps, digest {out['digest']}", flush=True)
     return out, rec
@@ -1232,38 +1308,11 @@ def phase_dense() -> dict:
         print(f"[dense] chatglm2 {name} vs padded: {same}/{total} tokens agree",
               flush=True)
 
-    rng = np.random.default_rng(0)
-    prompts = rng.integers(2, cfg.vocab_size, (4, LONG_PROMPT)).tolist()
-    batch = Batch(requests=[Request(rid=i, tokens=p, input_len=len(p), slo=1e9,
-                                    arrival=0.0, true_output_len=LONG_NEW)
-                            for i, p in enumerate(prompts)])
-    true_lens = {r.rid: LONG_NEW for r in batch.requests}
-    eng = InferenceEngine(cfg, params, EngineConfig(
-        max_batch=4, cache_len=LONG_CACHE, max_new_tokens=LONG_NEW))
-    eng.run_batch(batch, true_lens=true_lens)             # warm-up
-    reset_launches()
-    long = eng.run_batch(batch, true_lens=true_lens)
-    got = check_launches("chatglm2 long batch", 1, long.steps, cfg.n_layers)
-    add(got)
-    check_outputs("chatglm2 long batch", cfg, long.outputs, n=4)
-    long_tokens = sum(len(v) for v in long.outputs.values())
-    if long_tokens != 4 * LONG_NEW:
-        fail(f"chatglm2 long batch: {long_tokens} tokens, expected "
-             f"{4 * LONG_NEW}")
-    print(f"[dense] chatglm2 long batch: prefill {long.prefill_s * 1e3:.2f} ms "
-          f"({4 * LONG_PROMPT / long.prefill_s:.0f} prompt tok/s), decode "
-          f"{long.steps} steps in {long.decode_s * 1e3:.2f} ms "
-          f"({long_tokens / long.decode_s:.1f} tok/s); peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB", flush=True)
-    toks, kv_len = eng._pad_prompts(prompts)
-    profile = {"chatglm2 long prefill": step_breakdown(
-        f"chatglm2 long prefill {tuple(toks.shape)}",
-        lambda: eng._prefill(toks, kv_len))}
-    lg, cache = eng._prefill(toks, kv_len)
-    nxt = greedy(lg, cfg.vocab_size)[:, None].long()
-    profile["chatglm2 long decode step"] = step_breakdown(
-        "chatglm2 long decode step", lambda: eng._decode(nxt, cache, kv_len))
-    del params, eng, cache, lg
+    long, profile, _ = long_batch("dense", "chatglm2", cfg, params,
+                                  [LONG_PROMPT] * 4, LONG_CACHE)
+    long["init_s"] = init_s
+    add(long["launches"])
+    del params
     torch.cuda.empty_cache()
 
     errs = {}
@@ -1273,13 +1322,174 @@ def phase_dense() -> dict:
               f"{DENSE_PARITY_LAYERS} of {c.n_layers} layers", flush=True)
         errs[name] = logits_parity(replace(c, n_layers=DENSE_PARITY_LAYERS),
                                    [reqs[rid].tokens for rid in rids], "dense")
-    return {"runs": runs, "plan": plan,
-            "long_batch": {"prefill_ms": long.prefill_s * 1e3,
-                           "decode_ms": long.decode_s * 1e3, "steps": long.steps,
-                           "decode_tok_per_s": long_tokens / long.decode_s,
-                           "init_s": init_s, "launches": got},
+    return {"runs": runs, "plan": plan, "long_batch": long,
             "profile": profile, "logits_layers": DENSE_PARITY_LAYERS,
             "logits_max_abs_err": errs, "launches": launches}
+
+
+def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
+    """One long padded batch (seeded prompts of ``lengths`` tokens, LONG_NEW
+    new ones; after a warm-up run) with the launch counts set to 0 just
+    before and read just after, then ``[profile]`` lines of its prefill and
+    of one decode step.
+    Returns (record, profile, the width of each layer's cache)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n).tolist() for n in lengths]
+    batch = Batch(requests=[Request(rid=i, tokens=p, input_len=len(p), slo=1e9,
+                                    arrival=0.0, true_output_len=LONG_NEW)
+                            for i, p in enumerate(prompts)])
+    true_lens = {r.rid: LONG_NEW for r in batch.requests}
+    eng = InferenceEngine(cfg, params, EngineConfig(
+        max_batch=len(prompts), cache_len=cache_len, max_new_tokens=LONG_NEW))
+    eng.run_batch(batch, true_lens=true_lens)
+    reset_launches()
+    long = eng.run_batch(batch, true_lens=true_lens)
+    got = check_launches(f"{name} long batch", 1, long.steps, cfg.n_layers,
+                         rwkv=cfg.rwkv is not None, mla=cfg.mla is not None)
+    check_outputs(f"{name} long batch", cfg, long.outputs, n=len(prompts))
+    tokens = sum(len(v) for v in long.outputs.values())
+    if tokens != len(prompts) * LONG_NEW:
+        fail(f"{name} long batch: {tokens} tokens, expected "
+             f"{len(prompts) * LONG_NEW}")
+    n_prompt = sum(lengths)
+    print(f"[{tag}] {name} long batch {list(lengths)}: prefill "
+          f"{long.prefill_s * 1e3:.2f} ms ({n_prompt / long.prefill_s:.0f} "
+          f"prompt tok/s), decode {long.steps} steps in "
+          f"{long.decode_s * 1e3:.2f} ms ({tokens / long.decode_s:.1f} tok/s); "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.1f} "
+          "GiB", flush=True)
+    toks, kv_len = eng._pad_prompts(prompts)
+    profile = {f"{name} long prefill": step_breakdown(
+        f"{name} long prefill {tuple(toks.shape)}",
+        lambda: eng._prefill(toks, kv_len))}
+    lg, cache = eng._prefill(toks, kv_len)
+    widths = [next(iter(c.values())).shape[1] for c in cache]
+    nxt = greedy(lg, cfg.vocab_size)[:, None].long()
+    profile[f"{name} long decode step"] = step_breakdown(
+        f"{name} long decode step", lambda: eng._decode(nxt, cache, kv_len))
+    del eng, cache, lg
+    rec = {"prompt_lengths": list(lengths), "cache_len": cache_len,
+           "prefill_ms": long.prefill_s * 1e3, "decode_ms": long.decode_s * 1e3,
+           "steps": long.steps, "decode_tok_per_s": tokens / long.decode_s,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": got}
+    return rec, profile, widths
+
+
+def serve_window_mla(tag: str, name: str, cfg, params) -> tuple[dict, list]:
+    """``serve.serve`` padded and ``--continuous`` on ``params``, each with
+    fresh requests and a freshly fitted predictor as ``serve.main`` makes
+    them.  Returns (the runs' records, the first padded batch's rids)."""
+    runs, outputs = {}, {}
+    for mode, kw in (("padded", {}), ("continuous", {"continuous": True})):
+        out, runs[f"{name} {mode}"] = serve_dense_run(
+            f"{name} {mode}", cfg,
+            lambda: serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
+                                serve.fit_predictor(cfg, "cuda"), **kw),
+            mode, tag)
+        outputs[mode] = out["outputs"]
+        if mode == "padded":
+            first = sorted(out["results"][0].outputs)
+        del out
+    same, total = agreement(outputs["continuous"], outputs["padded"])
+    runs[f"{name} continuous"]["agree_with_padded"] = [same, total]
+    print(f"[{tag}] {name} continuous vs padded: {same}/{total} tokens agree",
+          flush=True)
+    return runs, first
+
+
+def phase_window_mla() -> dict:
+    """gemma2-27b at full width, its depth cut to fit the card, drawn once:
+    served padded and continuous (cache_len 64, so every local layer keeps
+    a ring of 64), then a long padded batch whose prompts pass the 4,096
+    window (the local layers' rings wrap), card-vs-CPU logits at 2 layers
+    (one local, one global); then minicpm3-4b at full width and depth, the
+    same serve paths, a 4 x 1024 batch, and card-vs-CPU logits at 2 of 62
+    layers."""
+    launches = {k: 0 for k in TIMED}
+    runs, long, profile, errs = {}, {}, {}, {}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    torch.cuda.empty_cache()
+    full = get_config("gemma2-27b")
+    # the depth cut ``serve.main`` makes on this card
+    cfg = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
+    gemma2_layers = cfg.n_layers
+    nbytes = 4 * cfg.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    init_s = {"gemma2": time.perf_counter() - t0}
+    plan = {"gemma2": helr_mesh(full, SHAPES["decode_32k"]).name}
+    print(f"[window] gemma2-27b at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim_eff}, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
+          f"{cfg.sliding_window}), depth cut {full.n_layers} -> "
+          f"{cfg.n_layers} layers to fit the card: {cfg.param_count():.4g} "
+          f"parameters, {nbytes / 1e9:.2f} GB of f32 weights (all "
+          f"{full.n_layers}: {4 * full.param_count() / 1e9:.1f} GB), drawn "
+          f"and moved in {init_s['gemma2']:.1f} s; plan for production mesh: "
+          f"{plan['gemma2']}", flush=True)
+    got, first = serve_window_mla("window", "gemma2", cfg, params)
+    runs.update(got)
+    long["gemma2"], prof, widths = long_batch(
+        "window", "gemma2", cfg, params, GEMMA2_LONG, GEMMA2_CACHE)
+    profile.update(prof)
+    want = [GEMMA2_WINDOW if s.attn == "window" else GEMMA2_CACHE
+            for s in cfg.layer_plan()]
+    print(f"[window] gemma2 long batch cache widths: local {widths[0]}, "
+          f"global {widths[1]} (expected {want[:2]})", flush=True)
+    if widths != want:
+        fail(f"gemma2 long batch: cache widths {widths}, expected {want}")
+    for rec in list(got.values()) + [long["gemma2"]]:
+        add(rec["launches"])
+    del params
+    torch.cuda.empty_cache()
+    reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
+    print(f"[window] gemma2 card vs CPU logits at full width, first "
+          f"{WINDOW_PARITY_LAYERS} of {cfg.n_layers} layers (one local, one "
+          "global)", flush=True)
+    errs["gemma2"] = logits_parity(
+        replace(full, n_layers=WINDOW_PARITY_LAYERS),
+        [reqs[rid].tokens for rid in first], "window")
+
+    cfg = get_config("minicpm3-4b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    init_s["minicpm3"] = time.perf_counter() - t0
+    plan["minicpm3"] = helr_mesh(cfg, SHAPES["decode_32k"]).name
+    print(f"[mla] minicpm3-4b at full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads, latent "
+          f"{cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}, D "
+          f"{cfg.head_dim_eff}, Dv {cfg.v_head_dim_eff}): "
+          f"{cfg.param_count():.4g} parameters, "
+          f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn and "
+          f"moved in {init_s['minicpm3']:.1f} s; plan for production mesh: "
+          f"{plan['minicpm3']}", flush=True)
+    got, first = serve_window_mla("mla", "minicpm3", cfg, params)
+    runs.update(got)
+    long["minicpm3"], prof, _ = long_batch(
+        "mla", "minicpm3", cfg, params, [LONG_PROMPT] * 4, LONG_CACHE)
+    profile.update(prof)
+    for rec in list(got.values()) + [long["minicpm3"]]:
+        add(rec["launches"])
+    del params
+    torch.cuda.empty_cache()
+    reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
+    print(f"[mla] minicpm3 card vs CPU logits at full width, first "
+          f"{DENSE_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
+    errs["minicpm3"] = logits_parity(
+        replace(cfg, n_layers=DENSE_PARITY_LAYERS),
+        [reqs[rid].tokens for rid in first], "mla")
+    return {"runs": runs, "plan": plan, "init_s": init_s,
+            "gemma2_layers": gemma2_layers,
+            "gemma2_weight_bytes": nbytes, "long_batch": long,
+            "profile": profile, "logits_max_abs_err": errs,
+            "launches": launches}
 
 
 def main() -> None:
@@ -1292,11 +1502,13 @@ def main() -> None:
     paged = phase_paged(served)
     rwkv = phase_rwkv()
     dense = phase_dense()
+    window_mla = phase_window_mla()
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
-                + dense["launches"][k] for k in TIMED}
+                + dense["launches"][k] + window_mla["launches"][k]
+                for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -1318,8 +1530,14 @@ def main() -> None:
             "max_abs_err": parity[f"{name}/{case}/float32"]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    print(f"[profiler] {PROFILER['windows']} windows, each opened by "
+          f"{PAD_SPINS} spin kernels: at most {PROFILER['max_lost']} of them "
+          f"lost in one, all lost in {PROFILER['all_lost']} (retried)",
+          flush=True)
     record = {"device": dev, "build": built, "parity": parity, "times": times,
+              "profiler": PROFILER,
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
+              "window_mla": window_mla,
               "kernels": kernels,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -3,11 +3,11 @@ hardware constants.
 
 Own copy of ``repro/configs/base.py``, trimmed to the families the port
 serves: the dense decoder-only family, whose per-block options (qkv bias,
-softcaps, norm kind, activation, gating, tied or scaled embeddings,
-post-block norms) run as in the reference while a sliding window or M-RoPE
-raises until its slice lands, and RWKV-6 (``rwkv``).  The MoE, MLA, Mamba
-and encoder-decoder extensions, and their terms of ``param_count``, come
-with their slices.
+softcaps, sliding-window layers, Multi-head Latent Attention (``mla``),
+norm kind, activation, gating, tied or scaled embeddings, post-block norms)
+run as in the reference while M-RoPE raises until its slice lands, and
+RWKV-6 (``rwkv``).  The MoE, Mamba and encoder-decoder extensions, and
+their terms of ``param_count``, come with their slices.
 """
 from __future__ import annotations
 
@@ -19,6 +19,19 @@ AttnKind = Literal["full", "window"]
 
 def pad_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
 
 
 @dataclass(frozen=True)
@@ -56,6 +69,7 @@ class ModelConfig:
     sliding_window: Optional[int] = None   # window size for "window" layers
     window_pattern: int = 0                # >0: layer i is full iff i % pattern == pattern-1
     # --- family extensions ---
+    mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
     # --- misc ---
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
@@ -71,10 +85,14 @@ class ModelConfig:
 
     @property
     def head_dim_eff(self) -> int:
+        if self.mla is not None:
+            return self.mla.qk_head_dim
         return self.head_dim or (self.d_model // self.n_heads)
 
     @property
     def v_head_dim_eff(self) -> int:
+        if self.mla is not None:
+            return self.mla.v_head_dim
         return self.head_dim_eff
 
     @property
@@ -103,6 +121,13 @@ class ModelConfig:
 
     def _attn_params(self) -> int:
         d, h, kv, hd = self.d_model, self.n_heads, self.n_kv_heads, self.head_dim_eff
+        if self.mla is not None:
+            m = self.mla
+            p = d * m.q_lora_rank + m.q_lora_rank * h * m.qk_head_dim       # q down/up
+            p += d * (m.kv_lora_rank + m.qk_rope_head_dim)                  # kv down + rope k
+            p += m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)   # kv up
+            p += h * m.v_head_dim * d                                       # o proj
+            return p
         return d * h * hd + 2 * d * kv * hd + h * self.v_head_dim_eff * d
 
     def _rwkv_params(self) -> int:
@@ -132,9 +157,10 @@ class ModelConfig:
         return int(total)
 
     def kv_cache_bytes(self, batch: int, seq: int, bytes_per: int = 2) -> int:
-        """Paper §1 cost model: K and V of every attention layer; for RWKV
-        the recurrent state and the two token-shift rows of every layer,
-        whatever the sequence length."""
+        """Paper §1 cost model: K and V of every attention layer (a window
+        layer holds at most its window; an MLA layer the latent and the
+        rope key); for RWKV the recurrent state and the two token-shift
+        rows of every layer, whatever the sequence length."""
         if self.rwkv is not None:
             per_layer = self.n_heads * self.rwkv.head_size ** 2 + 2 * self.d_model
             return int(self.n_layers * batch * per_layer * bytes_per)
@@ -143,7 +169,11 @@ class ModelConfig:
             eff_seq = seq
             if spec.attn == "window" and self.sliding_window:
                 eff_seq = min(seq, self.sliding_window)
-            total += batch * eff_seq * 2 * self.n_kv_heads * self.head_dim_eff
+            if self.mla is not None:
+                width = self.mla.kv_lora_rank + self.mla.qk_rope_head_dim
+            else:
+                width = 2 * self.n_kv_heads * self.head_dim_eff
+            total += batch * eff_seq * width
         return int(total * bytes_per)
 
     def reduced(self, *, n_layers: int | None = None) -> "ModelConfig":
@@ -151,13 +181,17 @@ class ModelConfig:
         kv_ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
         n_heads = 4
         kw = {}
+        if self.mla is not None:
+            kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
+                                  qk_nope_head_dim=16, qk_rope_head_dim=8,
+                                  v_head_dim=16)
         if self.rwkv is not None:
             kw["rwkv"] = replace(self.rwkv, head_size=16, decay_lora=8)
         return replace(
             self, name=self.name + "-reduced", n_layers=n_layers or 2,
             d_model=64, n_heads=n_heads,
             n_kv_heads=max(1, n_heads // min(kv_ratio, n_heads)),
-            head_dim=16, d_ff=128, vocab_size=512, vocab_pad_mult=64,
+            head_dim=0 if self.mla is not None else 16, d_ff=128, vocab_size=512, vocab_pad_mult=64,
             sliding_window=8 if self.sliding_window else None, **kw)
 
 

@@ -19,9 +19,13 @@ resident for recompute under block pressure, and ``--speculate`` verifies
 ``--spec-tokens`` drafts of ``--drafter`` per iteration in one window pass.
 
 ``--arch`` picks smollm-135m (the default), the dense chatglm2-6b (the
-paper's own model) or qwen2-1.5b, which serve on every path above, or
-rwkv6-3b, whose prefill runs through the WKV6 kernel; ``--paged`` refuses
-rwkv6-3b, its state being recurrent, as the reference does.  The
+paper's own model) or qwen2-1.5b, which serve on every path above;
+gemma2-27b, whose local layers keep a ring of their 4,096-token window,
+minicpm3-4b, whose Multi-head Latent Attention caches the compressed
+latent, or rwkv6-3b, whose prefill runs through the WKV6 kernel.  These
+three serve padded and ``--continuous``; ``--paged`` refuses them (ring
+caches, latents and recurrent state are not paged KV blocks), as the
+reference does.  The
 ``serving`` line names the plan the LLM deployer (HELR-mesh) picks for the
 full-width arch at ``decode_32k`` on the production mesh, which is still
 the reference's TPU mesh (256 chips as data=16 × model=16), priced at the
@@ -30,8 +34,11 @@ InfiniBand beyond, so every collective of a 16-wide group goes over
 InfiniBand).
 
 Same flags and defaults as the reference; ``--reduced`` is on by default and
-``--no-reduced`` serves the full-width model.  The cluster, fault and
-profile flags exit with "not ported yet".
+``--no-reduced`` serves the full-width model.  On a card too small for a
+model's f32 weights the port keeps the width and cuts the depth
+(``fit_depth``) and says so: gemma2-27b's 46 layers take 108.9 GB, so on
+one 80 GB H100 it serves its first 24 layers (59.1 GB).  The cluster,
+fault and profile flags exit with "not ported yet".
 """
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ import argparse
 import hashlib
 import json
 import time
+from dataclasses import replace
 
 import torch
 
@@ -76,6 +84,28 @@ def outputs_digest(done: dict) -> str:
     blob = json.dumps(sorted((int(k), list(map(int, v)))
                              for k, v in done.items()))
     return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+# The share of a card's memory the f32 weights may take; caches and
+# activations get the rest (gemma2-27b's long batch of 4,608 + 4,300 tokens
+# took 8 GiB beyond its weights on the H100)
+WEIGHT_SHARE = 0.7
+
+
+def fit_depth(cfg: ModelConfig, nbytes: float) -> ModelConfig:
+    """``cfg`` cut to the deepest whole number of its local/global layer
+    pattern whose f32 weights take at most ``nbytes``, at the same width;
+    ``cfg`` itself where every layer fits."""
+    step = max(cfg.window_pattern, 1)
+    n = cfg.n_layers
+    while n > step and 4 * replace(cfg, n_layers=n).param_count() > nbytes:
+        n -= step
+    return cfg if n == cfg.n_layers else replace(cfg, n_layers=n)
+
+
+def card_weight_bytes(device) -> float:
+    """The bytes of f32 weights the card ``device`` is given."""
+    return WEIGHT_SHARE * torch.cuda.get_device_properties(device).total_memory
 
 
 def make_requests(cfg: ModelConfig, n: int, max_new: int,
@@ -194,7 +224,9 @@ def print_paged(res, pcfg: PagedEngineConfig, drafter_name: str) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m",
+                    help="smollm-135m, chatglm2-6b, qwen2-1.5b, gemma2-27b, "
+                         "minicpm3-4b or rwkv6-3b")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the reduced config (--no-reduced: full width)")
@@ -268,6 +300,16 @@ def main(argv=None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if device.type == "cuda":
+        budget = card_weight_bytes(device)
+        cut = fit_depth(cfg, budget)
+        if cut.n_layers < cfg.n_layers:
+            print(f"depth cut {cfg.n_layers} -> {cut.n_layers} layers at full "
+                  f"width: {4 * cut.param_count() / 1e9:.1f} GB of f32 "
+                  f"weights, within {WEIGHT_SHARE} of the card's "
+                  f"{budget / WEIGHT_SHARE / 1e9:.1f} GB (all "
+                  f"{cfg.n_layers}: {4 * cfg.param_count() / 1e9:.1f} GB)")
+        cfg = cut
     plan = helr_mesh(get_config(args.arch), SHAPES["decode_32k"]).name
     print(f"serving {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "
           f"on {where} (plan for production mesh: {plan})")

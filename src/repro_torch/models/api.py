@@ -58,8 +58,10 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
 
 def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the architecture's decode cache can live in paged KV blocks:
-    every mixer a full-attention GQA layer (no sliding-window ring buffers,
-    no rwkv recurrent state)."""
+    every mixer a full-attention GQA layer (no MLA latents, no
+    sliding-window ring buffers, no rwkv recurrent state)."""
+    if cfg.mla is not None:
+        return False, "MLA decodes from the compressed latent cache"
     for spec in cfg.layer_plan():
         if spec.mixer != "attn":
             return False, f"{spec.mixer} state is recurrent, not a KV cache"

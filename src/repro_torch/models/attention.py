@@ -1,12 +1,19 @@
-"""GQA attention with prefill, decode and paged-decode paths.  Port of
-``repro/models/attention.py``, plain-GQA branches only.
+"""GQA attention (with sliding-window layers) and MLA (MiniCPM3-style
+latent attention), with prefill, decode and paged-decode paths.  Port of
+``repro/models/attention.py``, single-device branches.
 
 Prefill (and its prefix-continuation form) runs the flash-attention kernel;
 decode writes the new token's K/V into the contiguous cache in place and
 runs the flash-decoding kernel; paged decode and the speculative verify
 window write into one layer's block pool in place and run the paged
-attention kernel.  The sliding window ring cache, MLA and sharded branches
-raise ``NotImplementedError`` until their slices land.
+attention kernel.  A window layer whose window is shorter than the cache
+keeps a ring of ``window`` slots (slot = position % window) and decodes
+over it through the flash-decoding kernel as well (``attn_decode``).  An
+MLA layer caches the compressed latent and the rope key, expands them for
+the prefill's flash attention and decodes in the latent space with torch
+ops (``_mla_decode_absorbed``), as the reference does outside any Pallas
+kernel.  M-RoPE and the sharded branches raise ``NotImplementedError``
+until their slices land.
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_window_attention)
-from repro_torch.models.common import Dense, apply_dense, apply_rope
+from repro_torch.models.common import Dense, apply_dense, apply_rope, softcap
 
 
 class Attention(nn.Module):
@@ -29,20 +36,36 @@ class Attention(nn.Module):
         super().__init__()
         d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
         kw = dict(generator=generator, dtype=dtype)
+        if cfg.mla is not None:
+            m = cfg.mla
+            self.q_down = Dense(d, m.q_lora_rank, **kw)
+            self.q_up = Dense(m.q_lora_rank, h * m.qk_head_dim, **kw)
+            self.kv_down = Dense(d, m.kv_lora_rank + m.qk_rope_head_dim, **kw)
+            self.kv_up = Dense(m.kv_lora_rank,
+                               h * (m.qk_nope_head_dim + m.v_head_dim), **kw)
+            self.o = Dense(h * m.v_head_dim, d, **kw)
+            return
         self.q = Dense(d, h * hd, bias=cfg.qkv_bias, **kw)
         self.k = Dense(d, kv * hd, bias=cfg.qkv_bias, **kw)
         self.v = Dense(d, kv * cfg.v_head_dim_eff, bias=cfg.qkv_bias, **kw)
         self.o = Dense(h * cfg.v_head_dim_eff, d, **kw)
 
 
-def _check_supported(cfg: ModelConfig, spec: LayerSpec, plan) -> None:
-    if spec.attn == "window" and cfg.sliding_window:
-        raise NotImplementedError(
-            "sliding-window attention (ring cache) is not ported yet")
+def _check_supported(cfg: ModelConfig, plan) -> None:
     if cfg.rope == "mrope":
         raise NotImplementedError("M-RoPE is not ported yet")
     if plan is not None:
         raise NotImplementedError("sharded attention plans are not ported yet")
+
+
+def _check_paged(cfg: ModelConfig, spec: LayerSpec, plan) -> None:
+    """The paged paths' gates, as the reference's (the serving runtime
+    checks ``api.paged_compatible`` first)."""
+    _check_supported(cfg, plan)
+    if cfg.mla is not None:
+        raise NotImplementedError("paged decode: MLA uses the latent cache")
+    if spec.attn == "window" and cfg.sliding_window:
+        raise NotImplementedError("paged decode: window layers use ring cache")
 
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -57,6 +80,37 @@ def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def _mla_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+             positions: torch.Tensor):
+    """MLA projections.  Returns (q [B,S,H,dn+dr], latent c_kv [B,S,r],
+    k_rope [B,S,dr])."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = apply_dense(p.q_up, apply_dense(p.q_down, x))
+    q_nope, q_rope = q.reshape(b, s, cfg.n_heads, m.qk_head_dim).split(
+        [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
+    c_kv, k_rope = apply_dense(p.kv_down, x).split(
+        [m.kv_lora_rank, m.qk_rope_head_dim], dim=-1)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)[:, :, 0]
+    return q, c_kv.contiguous(), k_rope
+
+
+def _mla_expand(cfg: ModelConfig, p: Attention, c_kv: torch.Tensor,
+                k_rope: torch.Tensor):
+    """Latent -> full K [B,S,H,dn+dr], V [B,S,H,dv].  c_kv [B,S,r],
+    k_rope [B,S,dr] (one rope key shared by every head)."""
+    m = cfg.mla
+    b, s, _ = c_kv.shape
+    h = cfg.n_heads
+    k_nope, v = apply_dense(p.kv_up, c_kv).reshape(
+        b, s, h, m.qk_nope_head_dim + m.v_head_dim).split(
+        [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_head_dim)], dim=-1)
+    return k, v.contiguous()
 
 
 def _pad_seq(x: torch.Tensor, target: int) -> torch.Tensor:
@@ -75,7 +129,11 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                  kv_len: Optional[torch.Tensor] = None,
                  prefix: Optional[dict] = None):
     """Full-sequence attention.  Returns (y, cache entry or None);
-    ``cache_len`` > 0 allocates a cache {"k", "v"} [B, cache_len, KV, hd].
+    ``cache_len`` > 0 allocates a cache: {"k", "v"} [B, cache_len, KV, hd],
+    or on a window layer whose window is shorter than ``cache_len`` a ring
+    {"k", "v"} [B, window, KV, hd] (``build_window_cache``; ``kv_len`` [B]
+    gives each sequence's valid length, else the full sequence), or on an
+    MLA layer {"c_kv" [B, cache_len, r], "k_rope" [B, cache_len, dr]}.
     Right-padded rows attend causally like every other row (no length
     mask): their outputs are never read.
 
@@ -83,8 +141,27 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     continuation prefill: x holds only the uncached suffix (``positions``
     already offset by P), and the queries attend over the prefix K/V
     concatenated with the suffix's, causal at absolute positions through
-    the kernel's ``q_offset``.  The returned cache covers the suffix only."""
-    _check_supported(cfg, spec, plan)
+    the kernel's ``q_offset``.  The returned cache covers the suffix only.
+    Plain GQA caches only: MLA and window layers raise, as in the
+    reference."""
+    _check_supported(cfg, plan)
+    window = cfg.sliding_window if spec.attn == "window" else None
+    if prefix is not None and (cfg.mla is not None or window is not None):
+        raise NotImplementedError(
+            "prefix-continuation prefill needs a plain GQA cache")
+    if cfg.mla is not None:
+        q, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+        k, v = _mla_expand(cfg, p, c_kv, k_rope)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap)
+        b, s = q.shape[:2]
+        y = apply_dense(p.o, out.reshape(b, s, -1))
+        cache = None
+        if cache_len:
+            cache = {"c_kv": _pad_seq(c_kv, cache_len),
+                     "k_rope": _pad_seq(k_rope, cache_len)}
+        return y, cache
+
     q, k, v = _qkv(cfg, p, x, positions)
     b, s = q.shape[:2]
     if prefix is not None:
@@ -93,12 +170,34 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                               causal=causal, softcap=cfg.attn_softcap,
                               q_offset=prefix["k"].shape[1])
     else:
-        out = flash_attention(q, k, v, causal=causal, softcap=cfg.attn_softcap)
+        out = flash_attention(q, k, v, causal=causal, window=window,
+                              softcap=cfg.attn_softcap)
     y = apply_dense(p.o, out.reshape(b, s, -1))
     cache = None
     if cache_len:
-        cache = {"k": _pad_seq(k, cache_len), "v": _pad_seq(v, cache_len)}
+        if window is not None and window < cache_len:
+            ln = kv_len if kv_len is not None else \
+                torch.full((b,), s, dtype=torch.int32, device=x.device)
+            cache = {"k": build_window_cache(k, ln, window),
+                     "v": build_window_cache(v, ln, window)}
+        else:
+            cache = {"k": _pad_seq(k, cache_len), "v": _pad_seq(v, cache_len)}
     return y, cache
+
+
+def build_window_cache(k: torch.Tensor, kv_len: torch.Tensor,
+                       w: int) -> torch.Tensor:
+    """Re-lay full-sequence K/V [B, S, ...] into a ring [B, w, ...] with
+    slot = position % w, keeping each sequence's newest w entries (kv_len
+    [B] = its valid length; a slot no position reached takes the clamped
+    position, as the reference's)."""
+    b, s = k.shape[:2]
+    slots = torch.arange(w, device=k.device)[None, :]
+    ln = kv_len.to(k.device).long()[:, None]
+    # largest position p <= ln-1 with p % w == slot (at least the slot)
+    pos = slots + w * torch.div(ln - 1 - slots, w, rounding_mode="floor").clamp_min(0)
+    pos = pos.clamp(0, s - 1)
+    return k[torch.arange(b, device=k.device)[:, None], pos]
 
 
 def _write_slot(buf: torch.Tensor, new: torch.Tensor,
@@ -117,16 +216,111 @@ def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     kv_len: [B] int32 current lengths (the new token's position).  The
     cache is updated in place — the reference returns a new array, here the
     write saves a copy of the whole cache per layer and step.  Returns
-    (y, cache)."""
-    _check_supported(cfg, spec, plan)
+    (y, cache).
+
+    A window layer whose cache is no wider than its window is a ring (slot
+    = position % w), decoded by ``ring_decode_attention``.  An MLA layer
+    decodes in the latent space (``_mla_decode_absorbed``), the reference's
+    path when no plan asks for the expanded one."""
+    _check_supported(cfg, plan)
     b = x.shape[0]
+    window = cfg.sliding_window if spec.attn == "window" else None
+    if cfg.mla is not None:
+        q, c_kv, k_rope = _mla_qkv(cfg, p, x, kv_len[:, None])
+        _write_slot(cache["c_kv"], c_kv[:, 0], kv_len)
+        _write_slot(cache["k_rope"], k_rope[:, 0], kv_len)
+        out = _mla_decode_absorbed(cfg, p, q[:, 0], cache, kv_len + 1)
+        y = apply_dense(p.o, out.reshape(b, -1))
+        return y.reshape(b, 1, -1), cache
     q, k, v = _qkv(cfg, p, x, kv_len[:, None])
-    _write_slot(cache["k"], k[:, 0], kv_len)
-    _write_slot(cache["v"], v[:, 0], kv_len)
-    out = decode_attention(q[:, 0], cache["k"], cache["v"], kv_len + 1,
-                           softcap=cfg.attn_softcap)
+    w = cache["k"].shape[1]
+    use_ring = window is not None and w <= window
+    slot = kv_len % w if use_ring else kv_len
+    _write_slot(cache["k"], k[:, 0], slot)
+    _write_slot(cache["v"], v[:, 0], slot)
+    if use_ring:
+        out = ring_decode_attention(q[:, 0], cache["k"], cache["v"], kv_len,
+                                    softcap=cfg.attn_softcap)
+    else:
+        out = decode_attention(q[:, 0], cache["k"], cache["v"], kv_len + 1,
+                               softcap=cfg.attn_softcap, window=window)
     y = apply_dense(p.o, out.reshape(b, -1))
     return y.reshape(b, 1, -1), cache
+
+
+def ring_lengths(kv_len: torch.Tensor, w: int) -> torch.Tensor:
+    """The ring slots a query at position kv_len [B] attends to, as a
+    length: min(kv_len + 1, w).  Slot s of a ring of w holds position
+    kv_len - ((kv_len - s) mod w), which lies inside the window (w is the
+    window or a cache no wider than it) whenever it is >= 0, so the valid
+    slots are exactly s < min(kv_len + 1, w)."""
+    return (kv_len + 1).clamp(max=w)
+
+
+def ring_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          kv_len: torch.Tensor, softcap=None) -> torch.Tensor:
+    """Decode attention over a ring cache k, v [B, w, KV, D] for q [B, H, D]
+    at position kv_len [B], through the flash-decoding kernel over the
+    first ``ring_lengths`` slots with no window: softmax does not depend on
+    the keys' order, so this computes the reference's ``_ring_decode``
+    (``ring_decode`` here, its plain version)."""
+    return decode_attention(q, k, v, ring_lengths(kv_len, k.shape[1]),
+                            softcap=softcap)
+
+
+def ring_decode(cfg: ModelConfig, q: torch.Tensor, cache: dict,
+                kv_len: torch.Tensor, window: int) -> torch.Tensor:
+    """Plain version of decode attention over a ring cache (slot = pos %
+    w), the reference's ``_ring_decode``: q [B, H, D] at position kv_len
+    [B]; slot s holds position kv_len - ((kv_len - s) mod w), masked to
+    the window.  The yardstick of ``ring_decode_attention``, which runs
+    the flash-decoding kernel instead."""
+    b, h, d = q.shape
+    k, v = cache["k"], cache["v"]
+    w, kv = k.shape[1], k.shape[2]
+    qg = (q.float() * d ** -0.5).to(k.dtype).reshape(b, kv, h // kv, d)
+    logits = softcap(torch.einsum("bkgd,bskd->bkgs", qg, k).float(),
+                     cfg.attn_softcap)
+    slots = torch.arange(w, device=q.device)[None, :]
+    kl = kv_len.to(q.device).long()[:, None]
+    pos = kl - (kl - slots) % w
+    valid = (pos >= 0) & (pos > kl - window)
+    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", probs.to(v.dtype), v).float()
+    return out.reshape(b, h, -1).to(q.dtype)
+
+
+def _mla_decode_absorbed(cfg: ModelConfig, p: Attention, q: torch.Tensor,
+                         cache: dict, kv_len: torch.Tensor) -> torch.Tensor:
+    """Matmul-absorbed MLA decode: attention runs in the compressed latent
+    space, W_uk absorbed into the query and W_uv into the output, so no
+    step expands the latent cache to K/V:
+
+        score_i = (W_uk^T q_nope)·c_i + q_rope·k_rope_i
+        out     = (softmax(score) @ C) @ W_uv
+
+    q: [B, H, dn+dr]; cache c_kv [B, S, r], k_rope [B, S, dr]; kv_len [B]
+    valid entries.  Returns [B, H, dv]."""
+    m = cfg.mla
+    b, h, _ = q.shape
+    s = cache["c_kv"].shape[1]
+    q_nope, q_rope = q.split([m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    # kv_up weight [r, H*(dn+dv)] -> U_k [r, H, dn], U_v [r, H, dv]
+    u_k, u_v = p.kv_up.w.reshape(
+        m.kv_lora_rank, h, m.qk_nope_head_dim + m.v_head_dim).split(
+        [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope.float(), u_k.float())
+    scale = m.qk_head_dim ** -0.5
+    c, kr = cache["c_kv"], cache["k_rope"]
+    logits = (torch.einsum("bhr,bsr->bhs", (q_lat * scale).to(c.dtype), c).float()
+              + torch.einsum("bhd,bsd->bhs", (q_rope.float() * scale).to(kr.dtype),
+                             kr).float())
+    mask = torch.arange(s, device=q.device)[None, :] < kv_len[:, None]
+    probs = torch.softmax(logits.masked_fill(~mask[:, None, :], -1e30), dim=-1)
+    o_lat = torch.einsum("bhs,bsr->bhr", probs.to(c.dtype), c).float()
+    out = torch.einsum("bhr,rhd->bhd", o_lat, u_v.float())
+    return out.to(q.dtype)
 
 
 def attn_paged_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
@@ -138,7 +332,7 @@ def attn_paged_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     new token's K/V is written into slot ``kv_len`` of its sequence's table
     in place — the reference returns a new pool — then attention reads
     through the table.  Returns (y, pool)."""
-    _check_supported(cfg, spec, plan)
+    _check_paged(cfg, spec, plan)
     b = x.shape[0]
     q, k, v = _qkv(cfg, p, x, kv_len[:, None])
     bs = pool["k"].shape[1]
@@ -164,7 +358,7 @@ def attn_paged_spec(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     where a position is invalid).  All T positions' K/V are written in one
     in-place scatter, then attention reads through the table, causal within
     the window.  Returns (y [B, T, d], pool)."""
-    _check_supported(cfg, spec, plan)
+    _check_paged(cfg, spec, plan)
     b, t, _ = x.shape
     positions = kv_len[:, None] + torch.arange(t, device=x.device)[None, :]
     q, k, v = _qkv(cfg, p, x, positions)

@@ -5,8 +5,10 @@ block.
 The reference stacks layer groups and runs one ``lax.scan``; here the stack
 is an ``nn.ModuleList`` of ``n_layers`` blocks run by a Python loop.  The
 decode cache, the paged pools and a continuation prefill's prefix K/V are
-each a list with one entry per layer: {"k", "v"} for attention, {"shift",
-"state", "cm_shift"} for RWKV-6.
+each a list with one entry per layer: {"k", "v"} for attention ([B,
+cache_len, ...], or a ring [B, window, ...] on a window layer whose window
+is shorter than the cache), {"c_kv", "k_rope"} for MLA, {"shift", "state",
+"cm_shift"} for RWKV-6.
 """
 from __future__ import annotations
 

@@ -3,11 +3,11 @@
 candidate plans with it.
 
 Own copy of ``repro/perf/cost_model.py`` with the same formulas, trimmed to
-the families the port serves (dense attention, with windows, and RWKV-6);
-the MoE, MLA, Mamba and encoder-decoder terms come with their slices, and so
-do the reference's plan options that no port plan sets yet (sequence-sharded
-attention, unsharded residuals, a causal discount, quantized KV).  The
-default hardware is the port's ``H100``.
+the families the port serves (dense attention, with windows and MLA, and
+RWKV-6); the MoE, Mamba and encoder-decoder terms come with their slices,
+and so do the reference's plan options that no port plan sets yet (the
+absorbed MLA decode, sequence-sharded attention, unsharded residuals, a
+causal discount, quantized KV).  The default hardware is the port's ``H100``.
 
 Conventions: bf16 params/activations/KV (2 bytes), fp32 accumulation;
 residuals sharded over the model axis between blocks; causal attention
@@ -213,6 +213,16 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
             continue
         s_kv = min(s, cfg.sliding_window) if spec.attn == "window" else s
         fwd += _attn_layer_flops(cfg, b, 1, s_kv, 1.0)
+    extra_hbm = 0.0
+    if cfg.mla is not None:
+        # every plan expands the latent each step (none plans the absorbed
+        # decode): 2*S*r*H*(dn+dv) per layer, and the expanded K/V are
+        # written+read through HBM
+        m = cfg.mla
+        fwd += cfg.n_layers * 2.0 * b * s * m.kv_lora_rank * \
+            cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+        extra_hbm = cfg.n_layers * 2.0 * b * s * cfg.n_heads * \
+            (m.qk_head_dim + m.v_head_dim) * 2.0 / desc.n_chips
     ct.model_flops = 2.0 * cfg.param_count() * tokens
     ct.flops = fwd / desc.n_chips
     ct.weight_bytes_chip = weight_bytes(cfg, desc)
@@ -220,7 +230,8 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
     ct.kv_bytes_chip = kv_total / desc.n_chips
     # decode reads all local weights + all local KV each step
     ct.hbm_bytes = ct.weight_bytes_chip + ct.kv_bytes_chip \
-        + 4.0 * (tokens / max(desc.dp, 1)) * d * 2.0 * cfg.n_layers
+        + 4.0 * (tokens / max(desc.dp, 1)) * d * 2.0 * cfg.n_layers \
+        + extra_hbm
     coll = ct.coll_parts
     if desc.tp > 1:
         ring = 2.0 * (desc.tp - 1) / desc.tp

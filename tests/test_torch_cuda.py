@@ -20,7 +20,7 @@ from repro_torch.kernels.paged_attention import (
     paged_window_attention, paged_window_attention_reference)
 from repro_torch.kernels.paged_attention.ops import paged_splits
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
-from repro_torch.models import api
+from repro_torch.models import api, attention
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
                                  PagedEngineConfig)
 
@@ -41,6 +41,11 @@ FLASH_CASES = [
     (2, 300, 300, 32, 2, 128, 128, True, None, None, 0),
     (1, 77, 77, 12, 2, 128, 128, True, 24, 50.0, 0),
     (4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
+    # gemma2-27b's local layers at group 2: the window bites well inside the
+    # prompt, so whole tiles below it are skipped; minicpm3-4b's MLA
+    # prefill, D = 96, Dv = 64 on 40 heads (the general instance)
+    (2, 600, 600, 4, 2, 128, 128, True, 256, 50.0, 0),
+    (2, 130, 130, 40, 40, 96, 64, True, None, None, 0),
 ]
 
 DECODE_CASES = [
@@ -456,4 +461,55 @@ def test_rwkv_engine_on_card_matches_cpu(cuda):
         if dev != "cpu":
             assert wkv6.launches - n_wkv >= 2 * cfg.n_layers
             assert (wkv6.launches - n_wkv) % cfg.n_layers == 0
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("w,window", [(256, 256), (64, 4096)])
+def test_ring_decode_through_the_kernel_matches_plain(cuda, w, window, dtype):
+    """gemma2-27b's ring decode as the model runs it
+    (``ring_decode_attention``: K3 over the first min(kv_len + 1, w) slots,
+    no window) against the plain ``ring_decode``
+    on the same CUDA tensors, before and after the ring wraps."""
+    cfg = get_config("gemma2-27b").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    kv_len = torch.tensor([0, 5, w - 1, w, w + 7, 3 * w + 2], dtype=torch.int32,
+                          device=cuda)
+    q = _randn(gen, 6, 8, 128, dtype=dtype)
+    k = _randn(gen, 6, w, 4, 128, dtype=dtype)
+    v = _randn(gen, 6, w, 4, 128, dtype=dtype)
+    got = attention.ring_decode_attention(q, k, v, kv_len,
+                                          softcap=cfg.attn_softcap)
+    want = attention.ring_decode(cfg, q, {"k": k, "v": v}, kv_len, window)
+    assert (got.float() - want.float()).abs().max().item() <= _tol(want, dtype)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "minicpm3-4b"])
+def test_window_and_mla_engines_on_card_match_cpu(cuda, arch):
+    """Greedy outputs of the reduced gemma2-27b (a ring of 8 slots on its
+    local layer) and minicpm3-4b (MLA) on the card equal the CPU's, padded
+    and continuous; flash attention ran once per layer and prefill, decode
+    attention once per layer and step on gemma2-27b (the local layer's
+    ring included) and never on minicpm3-4b (latent-space decode)."""
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, tokens=torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=g).tolist(),
+                    input_len=n, slo=1.0, arrival=float(i), true_output_len=6)
+            for i, n in enumerate((5, 14, 9, 3, 11))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        eng = InferenceEngine(cfg, api.init_params(cfg, seed=0, device=dev),
+                              EngineConfig(max_batch=3, cache_len=32,
+                                           max_new_tokens=6))
+        n_fa, n_dec = flash_attention.launches, decode_attention.launches
+        res = eng.run_batch(Batch(requests=reqs[:3]),
+                            true_lens={r.rid: 6 for r in reqs})
+        cont = eng.run_continuous(reqs)
+        outs[str(dev)] = (res.outputs, cont.outputs)
+        if dev != "cpu":
+            n_fa = flash_attention.launches - n_fa
+            assert n_fa >= 2 * cfg.n_layers and n_fa % cfg.n_layers == 0
+            steps = 0 if cfg.mla is not None else res.steps + cont.steps
+            assert decode_attention.launches - n_dec == cfg.n_layers * steps
     assert outs["cpu"] == outs[str(cuda)]

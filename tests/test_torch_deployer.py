@@ -27,7 +27,8 @@ from repro_torch.core.types import DeviceMap, DeviceNode
 from repro_torch.perf import cost_model
 from repro_torch.sharding import ShardingPlan
 
-ARCHS = ["smollm-135m", "rwkv6-3b", "chatglm2-6b", "qwen2-1.5b"]
+ARCHS = ["smollm-135m", "rwkv6-3b", "chatglm2-6b", "qwen2-1.5b", "gemma2-27b",
+         "minicpm3-4b"]
 REL = 1e-12
 
 # The reference's TPU-v5e constants as the port's HWSpec.  The reference
@@ -264,3 +265,27 @@ def test_step_time_prices_at_the_given_hw(arch):
     # both searched with the H100 constants: the same candidates and costs
     assert ref.name == mine.name
     assert _terms(mine.cost, ref.cost) == _terms(ref.cost)
+
+
+@pytest.mark.parametrize("kw", [{}, dict(n_chips=256, tp=16, dp=16,
+                                          seq_shard_decode=16)],
+                         ids=["one_chip", "tp16"])
+def test_mla_decode_cost_matches_jax(kw):
+    """minicpm3-4b's decode cost with the latent expanded every step, as
+    every plan has it, on one chip and under the tp16 plan: the same terms
+    as the reference's; the expansion's operations and its K/V traffic are
+    in them."""
+    cfg, jcfg = get_config("minicpm3-4b"), jax_get_config("minicpm3-4b")
+    shape = "decode_32k"
+    got = cost_model.step_cost(cfg, SHAPES[shape],
+                               cost_model.ParallelismDesc(**kw))
+    want = jax_cost_model.step_cost(
+        jcfg, JAX_SHAPES[shape],
+        jax_cost_model.ParallelismDesc(mla_absorbed=False, **kw))
+    assert _terms(got, want) == _terms(want)
+    assert got.times(TPU_V5E) == want.times()
+    absorbed = jax_cost_model.step_cost(
+        jcfg, JAX_SHAPES[shape],
+        jax_cost_model.ParallelismDesc(mla_absorbed=True, **kw))
+    assert absorbed.flops < got.flops and absorbed.hbm_bytes < got.hbm_bytes
+    assert absorbed.kv_bytes_chip == got.kv_bytes_chip

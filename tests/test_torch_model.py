@@ -236,11 +236,24 @@ def test_block_options_match_jax(rng, variant):
 
 @pytest.mark.parametrize("what", ["window", "mrope", "prefix"])
 def test_unported_branches_raise(models, what):
+    """M-RoPE is not ported; a window layer's ring cache can neither be
+    decoded through a paged pool nor continued from a prefix, as in the
+    reference (the window prefill and ring decode themselves are ported:
+    ``tests/test_torch_gemma2.py``)."""
     cfg, *_ = models
     toks = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     prefix = None
     if what == "window":
         cfg = dataclasses.replace(cfg, sliding_window=2)
+        model = api.init_params(cfg, device="cpu")
+        pools = [{"k": torch.zeros(4, 8, cfg.n_kv_heads, cfg.head_dim_eff),
+                  "v": torch.zeros(4, 8, cfg.n_kv_heads, cfg.head_dim_eff)}
+                 for _ in range(cfg.n_layers)]
+        with pytest.raises(NotImplementedError, match="ring cache"):
+            api.paged_decode_step(cfg, model, toks["tokens"][:, :1], pools,
+                                  torch.ones(1, 2, dtype=torch.int32),
+                                  torch.full((1,), 3, dtype=torch.int32))
+        return
     elif what == "mrope":
         cfg = dataclasses.replace(cfg, rope="mrope")
     else:           # continuation prefill over a ring cache, as the reference

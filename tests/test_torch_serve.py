@@ -259,12 +259,12 @@ def test_serve_cli_flags():
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "gemma2-27b", "--device", "cpu"])
+        serve.main(["--arch", "qwen2-moe-a2.7b", "--device", "cpu"])
 
 
 def test_get_config_names_the_later_slice():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("gemma2-27b")
+        get_config("qwen2-moe-a2.7b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
