@@ -49,9 +49,10 @@ Phases, in order; any failed check exits non-zero:
    verify step and flash attention once per layer on every prefill chunk,
    that every run passed the engine's leak audit, and that the paged
    engine's first prefill and decode logits on the card match the CPU.
-7. rwkv serve: ``serve --arch rwkv6-3b`` at full width (32 layers,
-   d_model 2560, 40 heads of 64), padded and ``--continuous``, then one
-   long padded batch (4 x 1024-token prompts, 32 new tokens); checks that
+7. rwkv serve: rwkv6-3b at full width (32 layers, d_model 2560, 40 heads
+   of 64), its weights drawn once and served through ``serve.serve``
+   padded and ``--continuous``, then one long padded batch (4 x 1024-token
+   prompts, 32 new tokens); checks that
    WKV6 ran once per layer on every prefill (and no attention kernel ran),
    profiles one decode step and the long prefill, and checks the first
    batch's logits on the card against the CPU at full width and the first
@@ -87,16 +88,33 @@ Phases, in order; any failed check exits non-zero:
    that the long batch's local caches are rings of 4,096, profiles both
    long prefills and a decode step of each, and checks card-vs-CPU logits
    at full width and 2 layers of each (gemma2-27b: one local, one global).
+10. MoE and M-RoPE serve (``[moe]`` and ``[vlm]`` lines): qwen2-moe-a2.7b at
+   full width and depth (24 layers, d_model 2048, 16 heads over 16 KV heads
+   of 128, 60 routed experts top-4 and 4 shared ones of 1,408 units, vocab
+   151,936; 57.25 GB of f32 weights, which ``serve.fit_depth`` keeps
+   whole), then qwen2-vl-7b at full width and depth (28 layers, d_model
+   3584, 28 heads over 4 KV heads of 128, M-RoPE; 30.46 GB), each drawn
+   once and served through ``serve.serve`` padded, ``--continuous`` and
+   ``--paged`` (a 1.1e8-byte pool: 34 pages of 8 tokens for qwen2-moe),
+   then one long padded batch (4 x 1024-token prompts, 32 new tokens).
+   Checks the launches as phase 8 does, prints the largest fraction of
+   (token, expert) entries the MoE capacity dropped at a prefill, the
+   expert GEMMs' device time at the long prefill's and a decode step's
+   shapes, and the bytes of weights a decode step reads against its
+   device time, profiles both long prefills and a decode step of each, and
+   checks card-vs-CPU logits at full width and 2 layers of each, with the
+   smallest router top-k margin of qwen2-moe's inputs beside them.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  The last three lines are a JSON object of per-kernel numbers
-(launches on those paths, error, device time, plain-version and library
-times, bound), the card's name and power limit as nvidia-smi reports them,
+after.  A ``[phase]`` line gives each phase's seconds.  The last three
+lines are a JSON object of per-kernel numbers (launches on those paths,
+error, device time, plain-version and library times, bound), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.  A copy of every number goes to
 ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -131,7 +149,7 @@ from repro_torch.kernels.paged_attention.ops import paged_splits  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.models import api, moe  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
@@ -196,13 +214,23 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("minicpm3_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 40, 40, 96, 64, True,
      None, None, 0),
     ("minicpm3_serve_prefill", 4, 16, 16, 40, 40, 96, 64, True, None, None, 0),
+    # qwen2-moe-a2.7b (group 1: 16 over 16 heads) and qwen2-vl-7b (group 7:
+    # 28 over 4), D = 128: the long batch's 4 x 1024 and the serve prefill
+    ("qwen2_moe_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 16, 16, 128, 128,
+     True, None, None, 0),
+    ("qwen2_vl_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 28, 4, 128, 128,
+     True, None, None, 0),
+    ("qwen2_moe_serve_prefill", 4, 16, 16, 16, 16, 128, 128, True, None, None, 0),
+    ("qwen2_vl_serve_prefill", 4, 16, 16, 28, 4, 128, 128, True, None, None, 0),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
                "chatglm2_long_prefill", "qwen2_serve_prefill",
                "gemma2_long_prefill", "gemma2_global_prefill",
                "gemma2_serve_prefill", "minicpm3_long_prefill",
-               "minicpm3_serve_prefill")
+               "minicpm3_serve_prefill", "qwen2_moe_long_prefill",
+               "qwen2_vl_long_prefill", "qwen2_moe_serve_prefill",
+               "qwen2_vl_serve_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -233,10 +261,22 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     # 128, softcap 50)
     ("gemma2_long_decode", 2, GEMMA2_CACHE, 32, 16, 128, 128, 50.0, None,
      list(GEMMA2_LONG)),
+    # qwen2-moe-a2.7b (group 1) and qwen2-vl-7b (group 7) at D = 128: the
+    # long batch's decode and the serve decode
+    ("qwen2_moe_long_decode", 4, LONG_CACHE, 16, 16, 128, 128, None, None,
+     [1041] * 4),
+    ("qwen2_vl_long_decode", 4, LONG_CACHE, 28, 4, 128, 128, None, None,
+     [1041] * 4),
+    ("qwen2_moe_serve_decode", 4, 64, 16, 16, 128, 128, None, None,
+     [24, 20, 17, 31]),
+    ("qwen2_vl_serve_decode", 4, 64, 28, 4, 128, 128, None, None,
+     [24, 20, 17, 31]),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
-                "qwen2_serve_decode", "gemma2_long_decode")
+                "qwen2_serve_decode", "gemma2_long_decode",
+                "qwen2_moe_long_decode", "qwen2_vl_long_decode",
+                "qwen2_moe_serve_decode", "qwen2_vl_serve_decode")
 # gemma2-27b's local layers in the long batch's decode: a ring of 4,096
 # slots after the wrap, as DECODE_CASES but with kv_len the query's
 # position; K3 over the first min(kv_len + 1, w) slots (``ring_kernel``)
@@ -283,10 +323,16 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
      LONG_PAGES, 4 * LONG_PAGES + 1, None, [LONG_PROMPT + 17] * 4),
     ("qwen2_paged_serve_decode", "decode", 4, 1, 12, 2, 128, 128, 8, 4, 55,
      None, [24, 20, 17, 31]),
+    # qwen2-moe-a2.7b's (group 1) and qwen2-vl-7b's (group 7) paged decode
+    ("qwen2_moe_paged_serve_decode", "decode", 4, 1, 16, 16, 128, 128, 8, 4,
+     55, None, [24, 20, 17, 31]),
+    ("qwen2_vl_paged_serve_decode", "decode", 4, 1, 28, 4, 128, 128, 8, 4, 55,
+     None, [24, 20, 17, 31]),
 ]
 PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window",
                "chatglm2_paged_serve_decode", "chatglm2_paged_long_decode",
-               "qwen2_paged_serve_decode")
+               "qwen2_paged_serve_decode", "qwen2_moe_paged_serve_decode",
+               "qwen2_vl_paged_serve_decode")
 WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     ("rwkv_serve_prefill", 4, 16, 40, 64, 64, 32, 2.0, None, False),
     ("rwkv_long_prefill", 4, LONG_PROMPT, 40, 64, 64, 32, 2.0, None, False),
@@ -305,10 +351,12 @@ TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
 COLD = {"flash_attention": "fa_fwd", "decode_attention": "dec_fwd",
         "paged_attention": "paged_fwd", "wkv6": "wkv6_fwd_kernel"}
 FLUSH_BYTES = 64 * 2**20              # written between launches: > the 50 MB L2
-RWKV_ARGS = ["--arch", "rwkv6-3b", "--no-reduced", "--device", "cuda"]
 RWKV_PARITY_LAYERS = 4                # card vs CPU logits: the first 4 of 32
 PAGED_BUDGET, PREEMPT_BUDGET = "2e7", "3e6"
 DENSE_PARITY_LAYERS = 2               # card vs CPU logits: the first 2 of 28
+# phase 10's paged pool: 4 slots of 8 pages of 8 tokens and more at either
+# model's f32 KV (qwen2-moe-a2.7b: 3.1 MB a page, so 2e7 B would buy 6)
+MOE_VLM_BUDGET = "1.1e8"
 PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
     "a_paged": ["--paged", "--kv-budget", PAGED_BUDGET],
     "b_prefix_chunked": ["--prefix-cache", "--workload", "shared-prefix",
@@ -902,10 +950,11 @@ def check_launches(what: str, prefills: int, steps: int, n_layers: int,
     return got
 
 
-def logits_parity(cfg, prompts, what: str = "serve") -> dict:
+def logits_parity(cfg, prompts, what: str = "serve", note=None) -> dict:
     """Prefill and first decode-step logits of one batch on the card vs the
     same engine on the CPU (plain kernel versions, the same seeded weights:
-    drawn on the CPU once, a copy moved to the card)."""
+    drawn on the CPU once, a copy moved to the card); ``note``, a function
+    called after both runs, adds to each printed line."""
     got = {}
     cpu_params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
     for device in ("cuda", "cpu"):
@@ -922,9 +971,10 @@ def logits_parity(cfg, prompts, what: str = "serve") -> dict:
     del cpu_params
     errs = {name: (got["cuda"][i] - got["cpu"][i]).abs().max().item()
             for i, name in enumerate(("prefill", "decode"))}
+    extra = note() if note is not None else ""
     for name, err in errs.items():
         print(f"[{what}] card vs CPU {name} logits: max_abs_err {err:.3e} "
-              f"(tol {TOL_LOGITS})", flush=True)
+              f"(tol {TOL_LOGITS}){extra}", flush=True)
         if not err <= TOL_LOGITS:
             fail(f"card vs CPU {name} logits differ by {err}")
     return errs
@@ -1171,56 +1221,31 @@ def count_prefills(fn):
 
 
 def phase_rwkv() -> dict:
+    """rwkv6-3b drawn once: served padded and continuous through
+    ``serve.serve``, its long padded batch, card-vs-CPU logits at 4 of 32
+    layers."""
     cfg = get_config("rwkv6-3b")
-    runs, launches = {}, 0
-    for name, flags in (("padded", []), ("continuous", ["--continuous"])):
-        reset_launches()
-        t0 = time.perf_counter()
-        out, prefills = count_prefills(lambda: serve.main(RWKV_ARGS + flags))
-        wall = time.perf_counter() - t0
-        results = out["results"]
-        steps = sum(r.steps for r in results)
-        if name == "padded" and prefills != len(results):
-            fail(f"rwkv padded: {prefills} prefills for {len(results)} batches")
-        got = check_launches(f"rwkv {name}", prefills, steps, cfg.n_layers,
-                             rwkv=True)
-        launches += got["wkv6"]
-        check_outputs(f"rwkv {name}", cfg, out["outputs"])
-        runs[name] = {"digest": out["digest"], "tokens": out["tokens"],
-                      "seconds": out["seconds"], "wall_s": wall,
-                      "tok_per_s": out["tokens"] / out["seconds"],
-                      "prefills": prefills, "decode_steps": steps,
-                      "outputs": out["outputs"], "launches": got}
-        print(f"[rwkv] {name}: {out['tokens']} tokens in {out['seconds']:.2f}s "
-              f"({runs[name]['tok_per_s']:.1f} tok/s), {prefills} prefills, "
-              f"{steps} decode steps, digest {out['digest']}", flush=True)
-        if name == "padded":
-            first = sorted(results[0].outputs)
-    # the recurrence runs over the padding, so the continuous engine's
-    # re-prefilled waves need not agree with the padded batches (printed)
-    same, total = agreement(runs["continuous"].pop("outputs"),
-                            runs["padded"].pop("outputs"))
-    print(f"[rwkv] continuous vs padded: {same}/{total} tokens agree", flush=True)
-    reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
-    first_prompts = [reqs[rid].tokens for rid in first]
-
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     init_s = time.perf_counter() - t0
-    print(f"[rwkv] weights drawn and moved in {init_s:.1f} s", flush=True)
+    print(f"[rwkv] rwkv6-3b ({cfg.n_layers} layers, d_model {cfg.d_model}) "
+          f"drawn once and moved in {init_s:.1f} s", flush=True)
+    # the recurrence runs over the padding, so the continuous engine's
+    # re-prefilled waves need not agree with the padded batches (printed)
+    runs, first = serve_modes("rwkv", "rwkv", cfg, params)
     long, profile, _ = long_batch("rwkv", "rwkv", cfg, params,
                                   [LONG_PROMPT] * 4, LONG_CACHE)
     long["init_s"] = init_s
-    launches += long["launches"]["wkv6"]
+    launches = sum(r["launches"]["wkv6"] for r in runs.values()) \
+        + long["launches"]["wkv6"]
     del params
     torch.cuda.empty_cache()
+    reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
     print(f"[rwkv] card vs CPU logits at full width, first "
           f"{RWKV_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
     errs = logits_parity(replace(cfg, n_layers=RWKV_PARITY_LAYERS),
-                         first_prompts, "rwkv")
-    return {"runs": runs,
-            "continuous_agree_with_padded": [same, total],
-            "long_batch": long,
+                         [reqs[rid].tokens for rid in first], "rwkv")
+    return {"runs": runs, "long_batch": long,
             "profile": profile, "logits_layers": RWKV_PARITY_LAYERS,
             "logits_max_abs_err": errs, "launches": launches}
 
@@ -1231,8 +1256,8 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
     ``serve.main``'s dict; ``mode`` padded, continuous or paged) with the
     launch counts set to 0 just before and read just after; check its
     launches (a padded path prefills once a batch; an MLA model decodes
-    without a kernel) and its 12 outputs.  Returns (its output, its
-    record); ``tag`` heads its printed line."""
+    without a kernel, an RWKV one runs only WKV6) and its 12 outputs.
+    Returns (its output, its record); ``tag`` heads its printed line."""
     reset_launches()
     t0 = time.perf_counter()
     out, prefills = count_prefills(fn)
@@ -1244,7 +1269,8 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
     elif mode == "padded" and prefills != len(results):
         fail(f"{what}: {prefills} prefills for {len(results)} batches")
     got = check_launches(what, prefills, steps, cfg.n_layers,
-                         paged=mode == "paged", mla=cfg.mla is not None)
+                         paged=mode == "paged", rwkv=cfg.rwkv is not None,
+                         mla=cfg.mla is not None)
     check_outputs(what, cfg, out["outputs"])
     rec = {"digest": out["digest"], "tokens": out["tokens"],
            "seconds": out["seconds"], "wall_s": wall,
@@ -1288,25 +1314,10 @@ def phase_dense() -> dict:
     if pcfg.usable_blocks < 4 * pcfg.max_blocks:
         fail(f"chatglm2 paged: {pcfg.usable_blocks} pages at {PAGED_BUDGET} B "
              f"for 4 slots of {pcfg.max_blocks}")
-    outputs = {}
-    for name, kw in (("padded", {}), ("continuous", {"continuous": True}),
-                     ("paged", {"paged": pcfg})):
-        # as serve.main does: fresh requests and a freshly fitted predictor
-        out, runs[f"chatglm2 {name}"] = serve_dense_run(
-            f"chatglm2 {name}", cfg,
-            lambda: serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
-                                serve.fit_predictor(cfg, "cuda"), **kw),
-            name)
-        add(runs[f"chatglm2 {name}"]["launches"])
-        outputs[name] = out["outputs"]
-        if name == "padded":
-            first = sorted(out["results"][0].outputs)
-        del out
-    for name in ("continuous", "paged"):
-        same, total = agreement(outputs[name], outputs["padded"])
-        runs[f"chatglm2 {name}"]["agree_with_padded"] = [same, total]
-        print(f"[dense] chatglm2 {name} vs padded: {same}/{total} tokens agree",
-              flush=True)
+    got, first = serve_modes("dense", "chatglm2", cfg, params, pcfg)
+    runs.update(got)
+    for rec in got.values():
+        add(rec["launches"])
 
     long, profile, _ = long_batch("dense", "chatglm2", cfg, params,
                                   [LONG_PROMPT] * 4, LONG_CACHE)
@@ -1376,12 +1387,20 @@ def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
     return rec, profile, widths
 
 
-def serve_window_mla(tag: str, name: str, cfg, params) -> tuple[dict, list]:
-    """``serve.serve`` padded and ``--continuous`` on ``params``, each with
-    fresh requests and a freshly fitted predictor as ``serve.main`` makes
-    them.  Returns (the runs' records, the first padded batch's rids)."""
+def serve_modes(tag: str, name: str, cfg, params,
+                paged: PagedEngineConfig | None = None) -> tuple[dict, list]:
+    """``serve.serve`` padded, ``--continuous`` and, given a ``paged`` pool,
+    ``--paged`` on ``params``, each with fresh requests and a freshly
+    fitted predictor as ``serve.main`` makes them; how many tokens each
+    later mode shares with the padded one is printed (RWKV-6's recurrence
+    over the padding and MoE capacity over the padded batch can make a
+    prompt's output depend on its batch).  Returns (the runs' records, the
+    first padded batch's rids)."""
     runs, outputs = {}, {}
-    for mode, kw in (("padded", {}), ("continuous", {"continuous": True})):
+    modes = [("padded", {}), ("continuous", {"continuous": True})]
+    if paged is not None:
+        modes.append(("paged", {"paged": paged}))
+    for mode, kw in modes:
         out, runs[f"{name} {mode}"] = serve_dense_run(
             f"{name} {mode}", cfg,
             lambda: serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
@@ -1391,10 +1410,11 @@ def serve_window_mla(tag: str, name: str, cfg, params) -> tuple[dict, list]:
         if mode == "padded":
             first = sorted(out["results"][0].outputs)
         del out
-    same, total = agreement(outputs["continuous"], outputs["padded"])
-    runs[f"{name} continuous"]["agree_with_padded"] = [same, total]
-    print(f"[{tag}] {name} continuous vs padded: {same}/{total} tokens agree",
-          flush=True)
+    for mode, _ in modes[1:]:
+        same, total = agreement(outputs[mode], outputs["padded"])
+        runs[f"{name} {mode}"]["agree_with_padded"] = [same, total]
+        print(f"[{tag}] {name} {mode} vs padded: {same}/{total} tokens agree",
+              flush=True)
     return runs, first
 
 
@@ -1433,7 +1453,7 @@ def phase_window_mla() -> dict:
           f"{full.n_layers}: {4 * full.param_count() / 1e9:.1f} GB), drawn "
           f"and moved in {init_s['gemma2']:.1f} s; plan for production mesh: "
           f"{plan['gemma2']}", flush=True)
-    got, first = serve_window_mla("window", "gemma2", cfg, params)
+    got, first = serve_modes("window", "gemma2", cfg, params)
     runs.update(got)
     long["gemma2"], prof, widths = long_batch(
         "window", "gemma2", cfg, params, GEMMA2_LONG, GEMMA2_CACHE)
@@ -1470,7 +1490,7 @@ def phase_window_mla() -> dict:
           f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn and "
           f"moved in {init_s['minicpm3']:.1f} s; plan for production mesh: "
           f"{plan['minicpm3']}", flush=True)
-    got, first = serve_window_mla("mla", "minicpm3", cfg, params)
+    got, first = serve_modes("mla", "minicpm3", cfg, params)
     runs.update(got)
     long["minicpm3"], prof, _ = long_batch(
         "mla", "minicpm3", cfg, params, [LONG_PROMPT] * 4, LONG_CACHE)
@@ -1492,23 +1512,174 @@ def phase_window_mla() -> dict:
             "launches": launches}
 
 
+@contextlib.contextmanager
+def moe_watch(margins: bool = False):
+    """While the block runs, ``moe.moe_apply`` (the stack calls it through
+    its module) also keeps each prefill call's (S > 1) drop fraction, a
+    device tensor read only at the end, and with ``margins`` each call's
+    smallest router top-k margin (``moe.router_margin``)."""
+    apply, seen = moe.moe_apply, {"drop_frac": [], "margin": []}
+
+    def watched(cfg, p, x, **kw):
+        y, aux = apply(cfg, p, x, **kw)
+        if x.shape[1] > 1:
+            seen["drop_frac"].append(aux["drop_frac"])
+        if margins:
+            seen["margin"].append(moe.router_margin(cfg, p, x))
+        return y, aux
+    moe.moe_apply = watched
+    try:
+        yield seen
+    finally:
+        moe.moe_apply = apply
+
+
+def expert_gemms(cfg, p, tokens: int) -> dict:
+    """Device time of one MoE layer's three batched expert products at the
+    capacity of a call over ``tokens`` tokens ([E, C, d] x [E, d, f] twice,
+    [E, C, f] x [E, f, d]) on layer ``p``'s banks, mean of 5, and the
+    kernels that run them."""
+    c = moe.expert_capacity(cfg, tokens)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    e, d, f = p.up.shape
+    buf = torch.randn(e, c, d, generator=gen, device="cuda")
+    hid = torch.randn(e, c, f, generator=gen, device="cuda")
+
+    def run():
+        torch.matmul(buf, p.up)
+        torch.matmul(buf, p.gate)
+        torch.matmul(hid, p.down)
+    kern = device_kernels(run, 5)
+    return {"tokens": tokens, "capacity": c,
+            "ms": sum(us for _, us in kern) / 5 / 1e3,
+            "kernels": sorted({name[:60] for name, _ in kern})}
+
+
+def phase_moe_vlm() -> dict:
+    """qwen2-moe-a2.7b, then qwen2-vl-7b, each at full width and depth
+    (``serve.fit_depth`` must keep every layer), drawn once: served padded,
+    continuous and paged, a 4 x 1024 padded batch, card-vs-CPU logits at 2
+    layers; for qwen2-moe the largest drop fraction at a prefill, the
+    expert GEMMs' device time, the weight bytes a decode step reads against
+    its device time, and the router margin beside the logits."""
+    launches = {k: 0 for k in TIMED}
+    runs, long, profile, errs, init_s, plan, moe_rec = {}, {}, {}, {}, {}, {}, {}
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    for tag, name, arch in (("moe", "qwen2-moe", "qwen2-moe-a2.7b"),
+                            ("vlm", "qwen2-vl", "qwen2-vl-7b")):
+        torch.cuda.empty_cache()
+        full = get_config(arch)
+        cfg = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
+        if cfg is not full:
+            fail(f"{arch}: fit_depth cut it to {cfg.n_layers} of "
+                 f"{full.n_layers} layers; the card should hold it whole")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        init_s[name] = time.perf_counter() - t0
+        plan[name] = helr_mesh(cfg, SHAPES["decode_32k"]).name
+        experts = "" if cfg.moe is None else (
+            f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} and "
+            f"{cfg.moe.n_shared_experts} shared of {cfg.moe.d_expert}")
+        print(f"[{tag}] {arch} at full width and depth ({cfg.n_layers} "
+              f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+              f"{cfg.n_kv_heads} of {cfg.head_dim_eff}{experts}, rope "
+              f"{cfg.rope}): {cfg.param_count():.4g} parameters, "
+              f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn once "
+              f"and moved in {init_s[name]:.1f} s; plan for production mesh: "
+              f"{plan[name]}", flush=True)
+        pcfg = serve.paged_config(cfg, serve.make_requests(cfg, 12, 16), 16,
+                                  float(MOE_VLM_BUDGET))
+        if pcfg.usable_blocks < 4 * pcfg.max_blocks:
+            fail(f"{name} paged: {pcfg.usable_blocks} pages at "
+                 f"{MOE_VLM_BUDGET} B for 4 slots of {pcfg.max_blocks}")
+        with moe_watch() as seen:
+            got, first = serve_modes(tag, name, cfg, params, pcfg)
+            long[name], prof, _ = long_batch(tag, name, cfg, params,
+                                             [LONG_PROMPT] * 4, LONG_CACHE)
+        runs.update(got)
+        profile.update(prof)
+        for rec in list(got.values()) + [long[name]]:
+            add(rec["launches"])
+        if cfg.moe is not None:
+            drops = torch.stack(seen["drop_frac"]).float().cpu()
+            moe_rec["max_prefill_drop_frac"] = drops.max().item()
+            moe_rec["prefill_calls"] = len(drops)
+            print(f"[moe] largest fraction of (token, expert) entries dropped "
+                  f"past capacity at a prefill: {drops.max().item():.4f} "
+                  f"(mean {drops.mean().item():.4f} over {len(drops)} MoE layer "
+                  "calls at prefill)", flush=True)
+            for what, tokens in (("long prefill", 4 * LONG_PROMPT),
+                                 ("decode step", 4)):
+                moe_rec[f"expert_gemms {what}"] = rec = expert_gemms(
+                    cfg, params.blocks[0].mlp, tokens)
+                print(f"[moe] expert GEMMs at the {what} (T = {tokens}, "
+                      f"capacity {rec['capacity']}): {rec['ms']:.3f} ms of "
+                      f"device time a layer, x {cfg.n_layers} = "
+                      f"{rec['ms'] * cfg.n_layers:.2f} ms; kernels "
+                      f"{rec['kernels']}", flush=True)
+            # a decode step reads every weight but the embedding table (its
+            # 4 rows aside), the routers included
+            nbytes = 4 * (cfg.param_count() - cfg.padded_vocab * cfg.d_model
+                          + cfg.n_layers * cfg.d_model * cfg.moe.n_experts)
+            step = profile[f"{name} long decode step"]
+            moe_rec["decode_weight_bytes"] = nbytes
+            moe_rec["decode_bound_ms"] = nbytes / H100.hbm_bw * 1e3
+            print(f"[moe] a decode step reads {nbytes / 1e9:.2f} GB of f32 "
+                  f"weights (every expert bank): at least "
+                  f"{moe_rec['decode_bound_ms']:.2f} ms at "
+                  f"{H100.hbm_bw / 1e12:.2f} TB/s; the long decode step took "
+                  f"{step['device_busy_ms']:.2f} ms of device time "
+                  f"({step['wall_ms']:.2f} wall)", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
+        print(f"[{tag}] {name} card vs CPU logits at full width, first "
+              f"{DENSE_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
+        with moe_watch(margins=cfg.moe is not None) as seen:
+            errs[name] = logits_parity(
+                replace(cfg, n_layers=DENSE_PARITY_LAYERS),
+                [reqs[rid].tokens for rid in first], tag,
+                note=None if cfg.moe is None else lambda: (
+                    f"; smallest router top-k margin of its MoE inputs "
+                    f"{min(seen['margin']):.3e}"))
+        if cfg.moe is not None:
+            moe_rec["logits_min_router_margin"] = min(seen["margin"])
+    return {"runs": runs, "plan": plan, "init_s": init_s, "long_batch": long,
+            "profile": profile, "logits_max_abs_err": errs, "moe": moe_rec,
+            "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
-    dev = phase_device()
-    built = phase_build()
-    parity = phase_parity()
-    times = phase_times()
-    served = phase_serve()
-    paged = phase_paged(served)
-    rwkv = phase_rwkv()
-    dense = phase_dense()
-    window_mla = phase_window_mla()
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[phase] {name}: {phase_s[name]:.1f} s", flush=True)
+        return out
+    dev = run("device", phase_device)
+    built = run("build", phase_build)
+    parity = run("parity", phase_parity)
+    times = run("times", phase_times)
+    served = run("serve", phase_serve)
+    paged = run("paged", phase_paged, served)
+    rwkv = run("rwkv", phase_rwkv)
+    dense = run("dense", phase_dense)
+    window_mla = run("window_mla", phase_window_mla)
+    moe_vlm = run("moe_vlm", phase_moe_vlm)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
                 + dense["launches"][k] + window_mla["launches"][k]
-                for k in TIMED}
+                + moe_vlm["launches"][k] for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -1537,8 +1708,8 @@ def main() -> None:
     record = {"device": dev, "build": built, "parity": parity, "times": times,
               "profiler": PROFILER,
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
-              "window_mla": window_mla,
-              "kernels": kernels,
+              "window_mla": window_mla, "moe_vlm": moe_vlm,
+              "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,12 +4,14 @@ archs this slice serves; every other arch of the reference registry raises
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401
-    H100, SHAPES, HWSpec, LayerSpec, MLAConfig, ModelConfig, RWKVConfig,
-    ShapeConfig, cell_is_runnable, pad_to)
+    H100, SHAPES, HWSpec, LayerSpec, MLAConfig, ModelConfig, MoEConfig,
+    RWKVConfig, ShapeConfig, cell_is_runnable, group_period, pad_to)
 from repro_torch.configs.chatglm2_6b import CONFIG as _CHATGLM2_6B
 from repro_torch.configs.gemma2_27b import CONFIG as _GEMMA2_27B
 from repro_torch.configs.minicpm3_4b import CONFIG as _MINICPM3_4B
 from repro_torch.configs.qwen2_1_5b import CONFIG as _QWEN2_1_5B
+from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _QWEN2_MOE_A2_7B
+from repro_torch.configs.qwen2_vl_7b import CONFIG as _QWEN2_VL_7B
 from repro_torch.configs.rwkv6_3b import CONFIG as _RWKV6_3B
 from repro_torch.configs.smollm_135m import CONFIG as _SMOLLM_135M
 
@@ -18,13 +20,13 @@ _PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M,
                                    "chatglm2-6b": _CHATGLM2_6B,
                                    "qwen2-1.5b": _QWEN2_1_5B,
                                    "gemma2-27b": _GEMMA2_27B,
-                                   "minicpm3-4b": _MINICPM3_4B}
+                                   "minicpm3-4b": _MINICPM3_4B,
+                                   "qwen2-moe-a2.7b": _QWEN2_MOE_A2_7B,
+                                   "qwen2-vl-7b": _QWEN2_VL_7B}
 
 # arch id -> the ROADMAP queue-1 item that ports it
 _LATER: dict[str, str] = {
-    "qwen2-moe-a2.7b": "item 3 (model-family breadth: MoE)",
     "llama4-maverick-400b-a17b": "item 3 (model-family breadth: MoE)",
-    "qwen2-vl-7b": "item 3 (model-family breadth: M-RoPE)",
     "jamba-1.5-large-398b": "item 3 (model-family breadth: Mamba)",
     "whisper-medium": "item 3 (model-family breadth: encoder-decoder)",
 }

@@ -2,15 +2,17 @@
 hardware constants.
 
 Own copy of ``repro/configs/base.py``, trimmed to the families the port
-serves: the dense decoder-only family, whose per-block options (qkv bias,
-softcaps, sliding-window layers, Multi-head Latent Attention (``mla``),
-norm kind, activation, gating, tied or scaled embeddings, post-block norms)
-run as in the reference while M-RoPE raises until its slice lands, and
-RWKV-6 (``rwkv``).  The MoE, Mamba and encoder-decoder extensions, and
-their terms of ``param_count``, come with their slices.
+serves: the decoder-only family, whose per-block options (qkv bias,
+RoPE or M-RoPE, softcaps, sliding-window layers, Multi-head Latent
+Attention (``mla``), the capacity-dispatched Mixture-of-Experts MLP
+(``moe``), norm kind, activation, gating, tied or scaled embeddings,
+post-block norms, the vision stub's embedding input) run as in the
+reference, and RWKV-6 (``rwkv``).  The Mamba and encoder-decoder
+extensions, and their terms of ``param_count``, come with their slices.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 from typing import Literal, Optional
 
@@ -19,6 +21,22 @@ AttnKind = Literal["full", "window"]
 
 def pad_to(x: int, mult: int) -> int:
     return ((x + mult - 1) // mult) * mult
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_expert: int                 # per-expert FFN hidden dim
+    n_shared_experts: int = 0
+    d_shared: int = 0             # per-shared-expert hidden dim (0 -> d_expert)
+    moe_period: int = 1           # MoE MLP every k-th layer (others dense d_ff)
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0
+
+    @property
+    def d_shared_eff(self) -> int:
+        return self.d_shared or self.d_expert
 
 
 @dataclass(frozen=True)
@@ -46,7 +64,7 @@ class LayerSpec:
     """Structural plan for one transformer block."""
     mixer: str = "attn"                    # "attn" or "rwkv6"
     attn: AttnKind = "full"
-    mlp: str = "dense"
+    mlp: str = "dense"                     # "dense" or "moe"
 
 
 @dataclass(frozen=True)
@@ -64,13 +82,17 @@ class ModelConfig:
     qkv_bias: bool = False
     rope: Literal["rope", "mrope", "none"] = "rope"
     rope_theta: float = 10_000.0
+    mrope_sections: tuple[int, int, int] = (16, 24, 24)
     attn_softcap: Optional[float] = None
     final_softcap: Optional[float] = None
     sliding_window: Optional[int] = None   # window size for "window" layers
     window_pattern: int = 0                # >0: layer i is full iff i % pattern == pattern-1
     # --- family extensions ---
+    moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    # --- multimodal ---
+    frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
     # --- misc ---
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     norm_eps: float = 1e-5
@@ -116,7 +138,11 @@ class ModelConfig:
                 attn = "window"
             else:
                 attn = "full"
-            specs.append(LayerSpec(mixer=mixer, attn=attn))
+            mlp = "dense"
+            if self.moe is not None and \
+                    i % self.moe.moe_period == self.moe.moe_period - 1:
+                mlp = "moe"
+            specs.append(LayerSpec(mixer=mixer, attn=attn, mlp=mlp))
         return tuple(specs)
 
     def _attn_params(self) -> int:
@@ -141,10 +167,11 @@ class ModelConfig:
         n_mat = 3 if self.gated_mlp else 2
         return n_mat * self.d_model * hidden
 
-    def param_count(self) -> int:
+    def param_count(self, active_only: bool = False) -> int:
         """Parameter count as the reference's accounting makes it (embedding,
-        head unless tied, norms, mixers and MLPs; no bias term).  Every
-        parameter is active: the port has no MoE yet."""
+        head unless tied, norms, mixers and MLPs; no bias term); with
+        ``active_only`` an MoE layer counts its top-k routed experts, not
+        all of them."""
         total = self.padded_vocab * self.d_model
         if not self.tie_embeddings:
             total += self.padded_vocab * self.d_model
@@ -152,7 +179,13 @@ class ModelConfig:
         for spec in self.layer_plan():
             total += self._attn_params() if spec.mixer == "attn" \
                 else self._rwkv_params()
-            total += self._mlp_params(self.d_ff)
+            if spec.mlp == "moe":
+                m = self.moe
+                n_routed = m.top_k if active_only else m.n_experts
+                total += n_routed * self._mlp_params(m.d_expert)
+                total += m.n_shared_experts * self._mlp_params(m.d_shared_eff)
+            else:
+                total += self._mlp_params(self.d_ff)
             total += 2 * self.d_model  # 2 norms
         return int(total)
 
@@ -181,6 +214,13 @@ class ModelConfig:
         kv_ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
         n_heads = 4
         kw = {}
+        if self.rope == "mrope":
+            kw["mrope_sections"] = (2, 3, 3)       # sums to head_dim 16 // 2
+        if self.moe is not None:
+            kw["moe"] = replace(self.moe, n_experts=4,
+                                top_k=min(self.moe.top_k, 2), d_expert=96,
+                                d_shared=96,
+                                n_shared_experts=min(self.moe.n_shared_experts, 1))
         if self.mla is not None:
             kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                                   qk_nope_head_dim=16, qk_rope_head_dim=8,
@@ -193,6 +233,23 @@ class ModelConfig:
             n_kv_heads=max(1, n_heads // min(kv_ratio, n_heads)),
             head_dim=0 if self.mla is not None else 16, d_ff=128, vocab_size=512, vocab_pad_mult=64,
             sliding_window=8 if self.sliding_window else None, **kw)
+
+
+def group_period(cfg: ModelConfig) -> int:
+    """The smallest block of layers that repeats the layer plan: the lcm of
+    the MoE period and the local/global window pattern (the reference's
+    ``group_period``, ``repro/models/transformer.py``, whose hybrid
+    attention period no ported arch has).  A depth cut keeps whole
+    periods."""
+    p = 1
+    if cfg.moe is not None:
+        p = math.lcm(p, cfg.moe.moe_period)
+    if cfg.window_pattern:
+        p = math.lcm(p, cfg.window_pattern)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a whole "
+                         f"number of {p}-layer periods")
+    return p
 
 
 StepKind = Literal["train", "prefill", "decode"]

@@ -259,7 +259,12 @@ def candidate_plans(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
                     hw: HWSpec = H100) -> list[MeshPlan]:
     """Enumerate the parallelism plans expressible on the production mesh
     ((pod,)data=16, model=16), score each with the analytic cost model at
-    ``hw``, and mark memory feasibility."""
+    ``hw``, and mark memory feasibility.  An MoE arch whose experts split
+    16 ways would also get the reference's expert-parallel plans, which
+    are not ported yet: it raises."""
+    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0:
+        raise NotImplementedError(
+            f"{cfg.name}: the expert-parallel (ep16) plans are not ported yet")
     pods = 2 if multi_pod else 1
     chips = 256 * pods
     data_axes = ("pod", "data") if multi_pod else ("data",)

@@ -19,7 +19,9 @@ resident for recompute under block pressure, and ``--speculate`` verifies
 ``--spec-tokens`` drafts of ``--drafter`` per iteration in one window pass.
 
 ``--arch`` picks smollm-135m (the default), the dense chatglm2-6b (the
-paper's own model) or qwen2-1.5b, which serve on every path above;
+paper's own model), qwen2-1.5b, qwen2-moe-a2.7b (a Mixture-of-Experts MLP
+with capacity-dropping dispatch on every layer) or qwen2-vl-7b (M-RoPE),
+which serve on every path above;
 gemma2-27b, whose local layers keep a ring of their 4,096-token window,
 minicpm3-4b, whose Multi-head Latent Attention caches the compressed
 latent, or rwkv6-3b, whose prefill runs through the WKV6 kernel.  These
@@ -35,9 +37,11 @@ InfiniBand).
 
 Same flags and defaults as the reference; ``--reduced`` is on by default and
 ``--no-reduced`` serves the full-width model.  On a card too small for a
-model's f32 weights the port keeps the width and cuts the depth
-(``fit_depth``) and says so: gemma2-27b's 46 layers take 108.9 GB, so on
-one 80 GB H100 it serves its first 24 layers (59.1 GB).  The cluster,
+model's f32 weights the port keeps the width and cuts the depth to whole
+group periods (``fit_depth``) and says what it kept: gemma2-27b's 46
+layers take 108.9 GB, so on one 80 GB H100 it serves its first 24 layers
+(59.1 GB); qwen2-moe-a2.7b (57.25 GB) and qwen2-vl-7b (30.46 GB) serve
+whole.  The cluster,
 fault and profile flags exit with "not ported yet".
 """
 from __future__ import annotations
@@ -51,7 +55,7 @@ from dataclasses import replace
 import torch
 
 from repro_torch.configs import SHAPES, get_config
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, group_period
 from repro_torch.core import (LengthPredictor, Monitor, PredictorConfig,
                               ResourceProfiler, SchedulerConfig,
                               derive_chunk_tokens, get_scheduler, helr_mesh)
@@ -93,13 +97,21 @@ WEIGHT_SHARE = 0.7
 
 
 def fit_depth(cfg: ModelConfig, nbytes: float) -> ModelConfig:
-    """``cfg`` cut to the deepest whole number of its local/global layer
-    pattern whose f32 weights take at most ``nbytes``, at the same width;
-    ``cfg`` itself where every layer fits."""
-    step = max(cfg.window_pattern, 1)
+    """``cfg`` cut to the deepest whole number of its group periods
+    (``group_period``: the layers that repeat its layer plan) whose f32
+    weights take at most ``nbytes``, at the same width; ``cfg`` itself
+    where every layer fits.  Raises ``ValueError`` when not even one
+    period fits."""
+    step = group_period(cfg)
     n = cfg.n_layers
-    while n > step and 4 * replace(cfg, n_layers=n).param_count() > nbytes:
+    while n > 0 and 4 * replace(cfg, n_layers=n).param_count() > nbytes:
         n -= step
+    if n == 0:
+        one = 4 * replace(cfg, n_layers=step).param_count()
+        raise ValueError(
+            f"{cfg.name}: one group period ({step} layers, with the "
+            f"embeddings) takes {one:.4g} bytes of f32 weights, over the "
+            f"budget of {nbytes:.4g} bytes")
     return cfg if n == cfg.n_layers else replace(cfg, n_layers=n)
 
 
@@ -226,7 +238,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     help="smollm-135m, chatglm2-6b, qwen2-1.5b, gemma2-27b, "
-                         "minicpm3-4b or rwkv6-3b")
+                         "minicpm3-4b, qwen2-moe-a2.7b, qwen2-vl-7b or "
+                         "rwkv6-3b")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the reduced config (--no-reduced: full width)")
@@ -303,12 +316,17 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         budget = card_weight_bytes(device)
         cut = fit_depth(cfg, budget)
+        within = (f"within {WEIGHT_SHARE} of the card's "
+                  f"{budget / WEIGHT_SHARE / 1e9:.1f} GB")
         if cut.n_layers < cfg.n_layers:
             print(f"depth cut {cfg.n_layers} -> {cut.n_layers} layers at full "
                   f"width: {4 * cut.param_count() / 1e9:.1f} GB of f32 "
-                  f"weights, within {WEIGHT_SHARE} of the card's "
-                  f"{budget / WEIGHT_SHARE / 1e9:.1f} GB (all "
-                  f"{cfg.n_layers}: {4 * cfg.param_count() / 1e9:.1f} GB)")
+                  f"weights, {within} (all {cfg.n_layers}: "
+                  f"{4 * cfg.param_count() / 1e9:.1f} GB)")
+        else:
+            print(f"depth whole: all {cfg.n_layers} layers, "
+                  f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, "
+                  f"{within}")
         cfg = cut
     plan = helr_mesh(get_config(args.arch), SHAPES["decode_32k"]).name
     print(f"serving {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}) "

@@ -1,7 +1,7 @@
 """Model API of the port: init / prefill / decode and the paged decode and
-verify steps for the decoder-only family.  Port of ``repro/models/api.py``
-(the encoder-decoder dispatch and the dry-run specs come with their
-slices)."""
+verify steps for the decoder-only family (the vision stub's prefill takes
+embeddings).  Port of ``repro/models/api.py`` (the encoder-decoder dispatch
+and the dry-run specs come with their slices)."""
 from __future__ import annotations
 
 import torch
@@ -20,12 +20,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Transformer, batch: dict, *,
             cache_len: int, kv_len=None, prefix_kv=None):
-    """batch: {"tokens": [B, S]}.  Returns (logits [B, Vp], cache).
-    ``prefix_kv`` (per-layer K/V of an already computed prompt prefix)
-    requests continuation prefill of the uncached suffix — see
-    T.lm_prefill."""
+    """batch: {"tokens": [B, S]} (+ "embeds" [B, S, d] for the vision
+    stub, used in place of the token embeddings).  Returns (logits [B,
+    Vp], cache).  ``prefix_kv`` (per-layer K/V of an already computed
+    prompt prefix) requests continuation prefill of the uncached suffix —
+    see T.lm_prefill."""
     return T.lm_prefill(cfg, params, batch["tokens"], cache_len=cache_len,
-                        kv_len=kv_len, prefix_kv=prefix_kv)
+                        kv_len=kv_len, embeds=batch.get("embeds"),
+                        prefix_kv=prefix_kv)
 
 
 @torch.inference_mode()
@@ -59,7 +61,8 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
 def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the architecture's decode cache can live in paged KV blocks:
     every mixer a full-attention GQA layer (no MLA latents, no
-    sliding-window ring buffers, no rwkv recurrent state)."""
+    sliding-window ring buffers, no rwkv recurrent state), whatever its MLP
+    (dense or MoE)."""
     if cfg.mla is not None:
         return False, "MLA decodes from the compressed latent cache"
     for spec in cfg.layer_plan():

@@ -12,8 +12,9 @@ over it through the flash-decoding kernel as well (``attn_decode``).  An
 MLA layer caches the compressed latent and the rope key, expands them for
 the prefill's flash attention and decodes in the latent space with torch
 ops (``_mla_decode_absorbed``), as the reference does outside any Pallas
-kernel.  M-RoPE and the sharded branches raise ``NotImplementedError``
-until their slices land.
+kernel.  M-RoPE layers rotate q and k by three position streams; a decode
+path's single positions are broadcast to the three.  The sharded branches
+raise ``NotImplementedError`` until their slice lands.
 """
 from __future__ import annotations
 
@@ -27,7 +28,8 @@ from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_window_attention)
-from repro_torch.models.common import Dense, apply_dense, apply_rope, softcap
+from repro_torch.models.common import (Dense, apply_dense, apply_mrope,
+                                      apply_rope, softcap)
 
 
 class Attention(nn.Module):
@@ -52,8 +54,6 @@ class Attention(nn.Module):
 
 
 def _check_supported(cfg: ModelConfig, plan) -> None:
-    if cfg.rope == "mrope":
-        raise NotImplementedError("M-RoPE is not ported yet")
     if plan is not None:
         raise NotImplementedError("sharded attention plans are not ported yet")
 
@@ -70,7 +70,9 @@ def _check_paged(cfg: ModelConfig, spec: LayerSpec, plan) -> None:
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
          positions: torch.Tensor):
-    """Project + rope.  x: [B, S, d] -> q [B,S,H,hd], k [B,S,KV,hd], v."""
+    """Project + rope.  x: [B, S, d] -> q [B,S,H,hd], k [B,S,KV,hd], v.
+    positions [B, S], or for M-RoPE [3, B, S] (a [B, S] one is broadcast
+    to the three streams, as every decode path's is)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
     q = apply_dense(p.q, x).reshape(b, s, h, hd)
@@ -79,6 +81,11 @@ def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope == "mrope":
+        pos3 = positions if positions.dim() == 3 else \
+            positions.expand(3, *positions.shape)
+        q = apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections)
     return q, k, v
 
 

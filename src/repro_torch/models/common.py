@@ -1,5 +1,5 @@
 """Shared model primitives: dense and norm modules, the RWKV group norm,
-activations, RoPE, softcap.  Port of ``repro/models/common.py``.
+activations, RoPE and M-RoPE, softcap.  Port of ``repro/models/common.py``.
 
 Parameters keep the JAX package's layouts (a dense weight is [d_in, d_out]
 and applies as ``x @ w``), so a converted JAX tree loads without transposes.
@@ -16,13 +16,15 @@ from repro_torch.configs.base import ModelConfig
 
 class Dense(nn.Module):
     """``x @ w (+ b)`` with ``w`` [d_in, d_out]; normal init with std
-    ``d_in ** -0.5`` drawn from ``generator`` (zero bias)."""
+    ``scale`` (default ``d_in ** -0.5``) drawn from ``generator`` (zero
+    bias)."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, scale: Optional[float] = None):
         super().__init__()
-        w = torch.randn(d_in, d_out, generator=generator) * d_in ** -0.5
+        std = scale if scale is not None else d_in ** -0.5
+        w = torch.randn(d_in, d_out, generator=generator) * std
         self.w = nn.Parameter(w.to(dtype), requires_grad=False)
         self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype),
                               requires_grad=False) if bias else None
@@ -97,6 +99,26 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor
     freqs = rope_freqs(d, theta, device=x.device)            # [D/2]
     angles = pos[..., None].float() * freqs                  # [..., S, D/2]
     cos = torch.cos(angles)[..., None, :]                    # [..., S, 1, D/2]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: [B, S, H, D]; pos3: [3, B, S] (t, h,
+    w).  The D/2 rotary frequency channels are split into ``sections``
+    groups, each rotated by its own position stream; angles in fp32."""
+    d = x.shape[-1]
+    if sum(sections) != d // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not cover "
+                         f"head_dim {d} // 2")
+    freqs = rope_freqs(d, theta, device=x.device)               # [D/2]
+    stream = [i for i, n in enumerate(sections) for _ in range(n)]
+    pos_sel = pos3[stream]                                      # [D/2, B, S]
+    angles = pos_sel.permute(1, 2, 0).float() * freqs           # [B, S, D/2]
+    cos = torch.cos(angles)[..., None, :]                       # [B, S, 1, D/2]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -10,13 +10,17 @@ from repro_torch.models.common import Dense, activation, apply_dense
 
 
 class MLP(nn.Module):
+    """Up, down and (gated) gate projections of ``hidden`` units (default
+    ``cfg.d_ff``)."""
+
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
-                 dtype=torch.float32):
+                 dtype=torch.float32, hidden: int | None = None):
         super().__init__()
+        hidden = hidden or cfg.d_ff
         kw = dict(generator=generator, dtype=dtype)
-        self.up = Dense(cfg.d_model, cfg.d_ff, **kw)
-        self.down = Dense(cfg.d_ff, cfg.d_model, **kw)
-        self.gate = Dense(cfg.d_model, cfg.d_ff, **kw) if cfg.gated_mlp else None
+        self.up = Dense(cfg.d_model, hidden, **kw)
+        self.down = Dense(hidden, cfg.d_model, **kw)
+        self.gate = Dense(cfg.d_model, hidden, **kw) if cfg.gated_mlp else None
 
 
 def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:

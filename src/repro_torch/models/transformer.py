@@ -1,6 +1,6 @@
 """Decoder-only LM assembly.  Port of ``repro/models/transformer.py`` for
-the attention + dense-MLP block and the RWKV-6 time-mix + channel-mix
-block.
+the attention block with a dense or Mixture-of-Experts MLP and the RWKV-6
+time-mix + channel-mix block.
 
 The reference stacks layer groups and runs one ``lax.scan``; here the stack
 is an ``nn.ModuleList`` of ``n_layers`` blocks run by a Python loop.  The
@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import Norm, apply_norm, last_valid, softcap
 from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
@@ -35,9 +36,13 @@ class Block(nn.Module):
         self.norm2 = Norm(cfg, dtype)
         if spec.mixer == "rwkv6":
             self.mixer = rwkv_mod.RWKV(cfg, generator, dtype)
-            self.mlp = ChannelMix(cfg, generator, dtype)
         else:
             self.mixer = attn.Attention(cfg, generator, dtype)
+        if spec.mlp == "moe":
+            self.mlp = moe_mod.MoE(cfg, generator, dtype)
+        elif spec.mixer == "rwkv6":
+            self.mlp = ChannelMix(cfg, generator, dtype)
+        else:
             self.mlp = MLP(cfg, generator, dtype)
         if cfg.post_block_norms:
             self.norm1_post = Norm(cfg, dtype)
@@ -88,7 +93,8 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     decode reads and writes the layer's paged pool (``cache``), and
     ``spec_scatter`` ((blk, off) [B, T]) makes it the multi-token verify
     window.  In prefill mode a ``cache`` entry is a prefix K/V to continue
-    from."""
+    from.  An MoE layer's aux metrics are dropped, as the reference's
+    serve path drops them."""
     h = apply_norm(cfg, p.norm1, x)
     if block_tables is not None and spec.mixer != "attn":
         raise NotImplementedError(
@@ -119,7 +125,9 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
         mx = apply_norm(cfg, p.norm1_post, mx)
     x = x + mx
     h2 = apply_norm(cfg, p.norm2, x)
-    if spec.mixer == "rwkv6":
+    if spec.mlp == "moe":
+        my, _ = moe_mod.moe_apply(cfg, p.mlp, h2)
+    elif spec.mixer == "rwkv6":
         if mode == "decode":
             my = channel_mix_apply(cfg, p.mlp, h2, cache["cm_shift"][:, None])
             c["cm_shift"] = h2[:, 0]
@@ -164,21 +172,33 @@ def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Ten
     return softcap((x @ w).float(), cfg.final_softcap)
 
 
+def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0,
+                      device=None) -> torch.Tensor:
+    """Positions offset..offset+s-1 of every row, [B, S]; for M-RoPE the
+    text mode's three equal streams (t = h = w), [3, B, S]."""
+    pos = offset + torch.arange(s, device=device)[None, :].expand(b, s)
+    if cfg.rope == "mrope":
+        return pos.expand(3, b, s)
+    return pos
+
+
 def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
                cache_len: int, kv_len: Optional[torch.Tensor] = None,
+               embeds: Optional[torch.Tensor] = None,
                prefix_kv: Optional[list] = None):
     """Prompt processing.  tokens [B, S]; kv_len [B] valid prompt lengths of
-    the right-padded rows.  Returns (logits [B, Vp] of each row's last valid
-    token, cache).
+    the right-padded rows; ``embeds`` [B, S, d] (the vision stub's patch
+    embeddings) in place of the tokens' embeddings.  Returns (logits [B,
+    Vp] of each row's last valid token, cache).
 
     ``prefix_kv`` (one {"k": [B, P, KV, hd], "v": ...} per layer) switches
     to continuation prefill: ``tokens`` holds only the uncached suffix at
     positions P.., the prefix K/V is attended through, the returned cache
     covers the suffix only, and ``kv_len`` counts valid suffix tokens."""
-    b, s = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
+    x = embeds if embeds is not None else embed_tokens(cfg, params, tokens)
+    b, s = x.shape[:2]
     p_len = prefix_kv[0]["k"].shape[1] if prefix_kv is not None else 0
-    positions = p_len + torch.arange(s, device=tokens.device)[None, :].expand(b, s)
+    positions = default_positions(cfg, b, s, p_len, device=x.device)
     x, cache = apply_stack(cfg, params, x, positions=positions, mode="prefill",
                            kv_len=kv_len, cache_len=cache_len, cache=prefix_kv)
     x = apply_norm(cfg, params.final_norm, x)

@@ -3,11 +3,12 @@
 candidate plans with it.
 
 Own copy of ``repro/perf/cost_model.py`` with the same formulas, trimmed to
-the families the port serves (dense attention, with windows and MLA, and
-RWKV-6); the MoE, Mamba and encoder-decoder terms come with their slices,
-and so do the reference's plan options that no port plan sets yet (the
-absorbed MLA decode, sequence-sharded attention, unsharded residuals, a
-causal discount, quantized KV).  The default hardware is the port's ``H100``.
+the families the port serves (dense attention, with windows and MLA, MoE
+MLPs, and RWKV-6); the Mamba and encoder-decoder terms come with their
+slices, and so do the reference's plan options that no port plan sets yet
+(expert parallelism, the absorbed MLA decode, sequence-sharded attention,
+unsharded residuals, a causal discount, quantized KV).  The default
+hardware is the port's ``H100``.
 
 Conventions: bf16 params/activations/KV (2 bytes), fp32 accumulation;
 residuals sharded over the model axis between blocks; causal attention
@@ -89,14 +90,32 @@ def _attn_layer_flops(cfg: ModelConfig, b: int, s_q: int, s_kv: int,
     return 2.0 * b * s_q * s_kv * h * (d_qk + d_v) * causal
 
 
+def _layer_param_counts(cfg: ModelConfig) -> dict:
+    """Parameters a layer's part holds, by kind: the mixers, the dense MLP,
+    an MoE layer's active (top-k) routed experts and its shared ones."""
+    m = cfg.moe
+    return {
+        "attn": cfg._attn_params(),
+        "rwkv6": cfg._rwkv_params() if cfg.rwkv else 0,
+        "mlp": cfg._mlp_params(cfg.d_ff),
+        "moe_routed_active": m.top_k * cfg._mlp_params(m.d_expert) if m else 0,
+        "moe_shared": m.n_shared_experts * cfg._mlp_params(m.d_shared_eff)
+        if m else 0,
+    }
+
+
 def _matmul_param_flops(cfg: ModelConfig, tokens: float) -> float:
-    """2 * params * tokens for all projections/MLPs and the LM head (global)."""
-    per_mixer = {"attn": cfg._attn_params(),
-                 "rwkv6": cfg._rwkv_params() if cfg.rwkv else 0}
+    """2 * active params * tokens for all projections/MLPs and the LM head
+    (global); an MoE layer's routed experts at the capacity factor."""
+    pc = _layer_param_counts(cfg)
     total = 0.0
     for spec in cfg.layer_plan():
-        total += per_mixer[spec.mixer]
-        total += cfg._mlp_params(cfg.d_ff)
+        total += pc[spec.mixer]
+        if spec.mlp == "moe":
+            total += pc["moe_routed_active"] * cfg.moe.capacity_factor \
+                + pc["moe_shared"]
+        else:
+            total += pc["mlp"]
     total += cfg.d_model * cfg.padded_vocab
     return 2.0 * total * tokens
 
@@ -150,7 +169,7 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         fwd = _add_attn_flops(_matmul_param_flops(cfg, tokens)
                               + _scan_state_flops(cfg, b, s), cfg, b, s)
         mult = 3.0 + (1.0 if desc.remat else 0.0)
-        ct.model_flops = 6.0 * cfg.param_count() * tokens
+        ct.model_flops = 6.0 * cfg.param_count(active_only=True) * tokens
         total_flops = fwd * mult
         ct.flops = total_flops / desc.n_chips
 
@@ -187,7 +206,7 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         tokens = float(b) * s
         fwd = _add_attn_flops(_matmul_param_flops(cfg, tokens)
                               + _scan_state_flops(cfg, b, s), cfg, b, s)
-        ct.model_flops = 2.0 * cfg.param_count() * tokens
+        ct.model_flops = 2.0 * cfg.param_count(active_only=True) * tokens
         ct.flops = fwd / desc.n_chips
         ct.weight_bytes_chip = weight_bytes(cfg, desc)
         kv_total = cfg.kv_cache_bytes(b, s)
@@ -223,7 +242,7 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
             cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
         extra_hbm = cfg.n_layers * 2.0 * b * s * cfg.n_heads * \
             (m.qk_head_dim + m.v_head_dim) * 2.0 / desc.n_chips
-    ct.model_flops = 2.0 * cfg.param_count() * tokens
+    ct.model_flops = 2.0 * cfg.param_count(active_only=True) * tokens
     ct.flops = fwd / desc.n_chips
     ct.weight_bytes_chip = weight_bytes(cfg, desc)
     kv_total = cfg.kv_cache_bytes(b, s)

@@ -6,6 +6,8 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test needs an NVIDIA GPU and skips without one."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -20,7 +22,7 @@ from repro_torch.kernels.paged_attention import (
     paged_window_attention, paged_window_attention_reference)
 from repro_torch.kernels.paged_attention.ops import paged_splits
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
-from repro_torch.models import api, attention
+from repro_torch.models import api, attention, moe
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
                                  PagedEngineConfig)
 
@@ -46,6 +48,12 @@ FLASH_CASES = [
     # prefill, D = 96, Dv = 64 on 40 heads (the general instance)
     (2, 600, 600, 4, 2, 128, 128, True, 256, 50.0, 0),
     (2, 130, 130, 40, 40, 96, 64, True, None, None, 0),
+    # qwen2-moe-a2.7b's group 1 (16 over 16 heads) and qwen2-vl-7b's group 7
+    # (28 over 4) at D = 128, at the serve prefill and at length
+    (4, 16, 16, 16, 16, 128, 128, True, None, None, 0),
+    (2, 300, 300, 16, 16, 128, 128, True, None, None, 0),
+    (4, 16, 16, 28, 4, 128, 128, True, None, None, 0),
+    (2, 300, 300, 28, 4, 128, 128, True, None, None, 0),
 ]
 
 DECODE_CASES = [
@@ -75,6 +83,11 @@ DECODE_CASES = [
     (4, 1088, 32, 2, 128, 128, None, None, [1041, 1041, 700, 1]),
     (4, 64, 12, 2, 128, 128, None, None, [24, 20, 17, 31]),
     (2, 1088, 12, 2, 128, 128, None, None, [1041, 513]),
+    # qwen2-moe-a2.7b's group 1 and qwen2-vl-7b's group 7 at D = 128
+    (4, 64, 16, 16, 128, 128, None, None, [24, 20, 17, 31]),
+    (4, 1088, 16, 16, 128, 128, None, None, [1041, 1041, 700, 1]),
+    (4, 64, 28, 4, 128, 128, None, None, [24, 20, 17, 31]),
+    (4, 1088, 28, 4, 128, 128, None, None, [1041, 1041, 700, 1]),
 ]
 
 PAGED_CASES = [
@@ -95,6 +108,11 @@ PAGED_CASES = [
     (4, 1, 32, 2, 128, 128, 16, 66, 300, None),
     (4, 1, 12, 2, 128, 128, 8, 8, 40, None),
     (2, 5, 12, 2, 128, 128, 16, 66, 140, None),
+    # qwen2-moe-a2.7b's paged decode and verify window (group 1), qwen2-vl-7b's
+    # paged decode (group 7)
+    (4, 1, 16, 16, 128, 128, 8, 8, 40, None),
+    (4, 5, 16, 16, 128, 128, 8, 8, 40, None),
+    (4, 1, 28, 4, 128, 128, 8, 8, 40, None),
 ]
 
 # K1's page splits: 66 16-token pages give paged_splits(66, 16) = (14, 5),
@@ -512,4 +530,66 @@ def test_window_and_mla_engines_on_card_match_cpu(cuda, arch):
             assert n_fa >= 2 * cfg.n_layers and n_fa % cfg.n_layers == 0
             steps = 0 if cfg.mla is not None else res.steps + cont.steps
             assert decode_attention.launches - n_dec == cfg.n_layers * steps
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+@pytest.mark.parametrize("b, s, shift", [(1, 1, 0.0), (4, 1, 0.0), (4, 5, 2.0),
+                                         (3, 40, 2.0)])
+def test_moe_apply_on_card_matches_cpu(cuda, b, s, shift):
+    """qwen2-moe-a2.7b's MoE block at the published routing (60 experts,
+    top-4, 4 shared) and a narrow width on the card against the CPU on the
+    same weights and input: one token, a decode batch, a verify window and
+    a prefill whose capacity binds (the shared direction skews the
+    router); the same drop fraction, outputs within 1e-4, with the router
+    margin above 1e-6 so no expert can flip."""
+    cfg = get_config("qwen2-moe-a2.7b").reduced()
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=60, top_k=4, d_expert=32, n_shared_experts=4,
+        d_shared=32))
+    p = moe.MoE(cfg, torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(b, s, cfg.d_model, generator=g) \
+        + shift * torch.randn(cfg.d_model, generator=g)
+    assert moe.router_margin(cfg, p, x) > 1e-6
+    y, aux = moe.moe_apply(cfg, p, x)
+    yc, auxc = moe.moe_apply(cfg, p.to(cuda), x.to(cuda))
+    assert (yc.cpu() - y).abs().max().item() <= 1e-4
+    assert auxc["drop_frac"].item() == aux["drop_frac"].item()
+    assert auxc["lb_loss"].item() == pytest.approx(aux["lb_loss"].item(),
+                                                   abs=1e-5)
+    if s == 40:
+        assert aux["drop_frac"].item() > 0
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "qwen2-vl-7b"])
+def test_moe_and_mrope_engines_on_card_match_cpu(cuda, arch):
+    """Greedy outputs of the reduced qwen2-moe-a2.7b and qwen2-vl-7b on the
+    card equal the CPU's, padded, continuous and paged; flash attention ran
+    once per layer and prefill, decode attention once per layer and padded
+    step, paged attention once per layer and paged step."""
+    cfg = get_config(arch).reduced()
+    g = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, tokens=torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=g).tolist(),
+                    input_len=n, slo=1.0, arrival=float(i), true_output_len=6)
+            for i, n in enumerate((5, 14, 9, 3, 11))]
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = api.init_params(cfg, seed=0, device=dev)
+        eng = InferenceEngine(cfg, params, EngineConfig(
+            max_batch=3, cache_len=32, max_new_tokens=6))
+        n_dec, n_pag = decode_attention.launches, \
+            paged_window_attention.launches
+        res = eng.run_batch(Batch(requests=reqs[:3]),
+                            true_lens={r.rid: 6 for r in reqs})
+        cont = eng.run_continuous(reqs)
+        paged = PagedEngine(cfg, params, PagedEngineConfig(
+            max_batch=3, block_size=8, n_blocks=32, max_seq_len=32,
+            max_new_tokens=6)).run_continuous(reqs)
+        outs[str(dev)] = (res.outputs, cont.outputs, paged.outputs)
+        if dev != "cpu":
+            assert decode_attention.launches - n_dec == \
+                cfg.n_layers * (res.steps + cont.steps)
+            assert paged_window_attention.launches - n_pag == \
+                cfg.n_layers * paged.steps
     assert outs["cpu"] == outs[str(cuda)]

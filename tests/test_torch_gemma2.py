@@ -263,7 +263,8 @@ def test_prefix_continuation_over_a_ring_raises(init_weights):
 def test_n_layers_cuts_the_depth_and_keeps_the_pattern():
     """``serve.fit_depth`` (how gemma2-27b fits one card) keeps the width
     and cuts the depth to the deepest whole number of local/global pairs
-    whose f32 weights fit; a model that fits keeps every layer."""
+    whose f32 weights fit; a model that fits keeps every layer, and a
+    budget below one pair raises."""
     full = get_config(ARCH)
     f32 = {n: 4 * dataclasses.replace(full, n_layers=n).param_count()
            for n in (22, 24, 26)}
@@ -275,4 +276,7 @@ def test_n_layers_cuts_the_depth_and_keeps_the_pattern():
         assert (cut.d_model, cut.d_ff, cut.n_heads, cut.vocab_size) == \
             (full.d_model, full.d_ff, full.n_heads, full.vocab_size)
     assert serve.fit_depth(full, 4 * full.param_count()) is full
-    assert serve.fit_depth(full, 0).n_layers == full.window_pattern
+    two = 4 * dataclasses.replace(full, n_layers=2).param_count()
+    assert serve.fit_depth(full, two).n_layers == full.window_pattern
+    with pytest.raises(ValueError, match="one group period"):
+        serve.fit_depth(full, two - 1)

@@ -236,11 +236,13 @@ def test_block_options_match_jax(rng, variant):
 
 @pytest.mark.parametrize("what", ["window", "mrope", "prefix"])
 def test_unported_branches_raise(models, what):
-    """M-RoPE is not ported; a window layer's ring cache can neither be
-    decoded through a paged pool nor continued from a prefix, as in the
-    reference (the window prefill and ring decode themselves are ported:
-    ``tests/test_torch_gemma2.py``)."""
-    cfg, *_ = models
+    """A window layer's ring cache can neither be decoded through a paged
+    pool nor continued from a prefix, as in the reference (the window
+    prefill and ring decode themselves are ported:
+    ``tests/test_torch_gemma2.py``).  M-RoPE, which raised until it was
+    ported, now gives the reference's prefill logits on the same weights
+    (``tests/test_torch_mrope.py`` holds its other cases)."""
+    cfg, jcfg, jparams, model = models
     toks = {"tokens": torch.zeros(1, 4, dtype=torch.long)}
     prefix = None
     if what == "window":
@@ -255,7 +257,16 @@ def test_unported_branches_raise(models, what):
                                   torch.full((1,), 3, dtype=torch.int32))
         return
     elif what == "mrope":
-        cfg = dataclasses.replace(cfg, rope="mrope")
+        cfg, jcfg = (dataclasses.replace(c, rope="mrope",
+                                         mrope_sections=(2, 3, 3))
+                     for c in (cfg, jcfg))
+        toks = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 9))
+        jl, _ = jax_api.prefill(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                                cache_len=0)
+        tl, _ = api.prefill(cfg, model, {"tokens": torch.from_numpy(toks)},
+                            cache_len=0)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        return
     else:           # continuation prefill over a ring cache, as the reference
         cfg = dataclasses.replace(cfg, sliding_window=2)
         kv = torch.zeros(1, 3, cfg.n_kv_heads, cfg.head_dim_eff)

@@ -4,6 +4,7 @@ schedulers, the padded and continuous engines and the whole default serve
 path, on converted weights at the reduced smollm-135m size on the CPU; plus
 the port's structural rules (no JAX, card by default)."""
 import copy
+import dataclasses
 import re
 from pathlib import Path
 
@@ -19,10 +20,11 @@ from repro.core import scheduler as jax_scheduler
 from repro.data import workload as jax_workload
 from repro.launch import serve as jax_serve
 from repro.models import api as jax_api
+from repro.models import transformer as jax_transformer
 from repro.obs.hist import Histogram as JaxHistogram
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import InferenceEngine as JaxInferenceEngine
-from repro_torch.configs import get_config
+from repro_torch.configs import _PORTED, get_config, group_period
 from repro_torch.core import profiler, scheduler
 from repro_torch.core.types import Batch
 from repro_torch.data import workload
@@ -249,6 +251,45 @@ def test_serve_main_runs_on_cpu(capsys):
     assert cont["outputs"] == out["outputs"]
 
 
+@pytest.mark.parametrize("arch", sorted(_PORTED) + ["qwen2-moe-period2"])
+def test_fit_depth_keeps_whole_group_periods(arch):
+    """``serve.fit_depth`` at every budget that fits a whole number of
+    group periods exactly, and one byte below each: the deepest whole
+    number of periods that fits, at the same width; every layer where all
+    fit (``cfg`` itself); ``ValueError`` below one period.  The period is
+    the reference's ``group_period``; "qwen2-moe-period2" is qwen2-moe with
+    MoE on every second layer, whose cuts keep dense/MoE pairs."""
+    name = "qwen2-moe-a2.7b" if arch.endswith("period2") else arch
+    full, jfull = get_config(name), jax_get_config(name)
+    if arch.endswith("period2"):
+        full, jfull = (dataclasses.replace(c, moe=dataclasses.replace(
+            c.moe, moe_period=2)) for c in (full, jfull))
+    period = group_period(full)
+    assert period == jax_transformer.group_period(jfull)
+    assert period == (2 if name == "gemma2-27b" or arch.endswith("period2")
+                      else 1)
+    assert serve.fit_depth(full, 4 * full.param_count()) is full
+    assert serve.fit_depth(full, 1e15) is full
+    f32 = {n: 4 * dataclasses.replace(full, n_layers=n).param_count()
+           for n in range(period, full.n_layers + 1, period)}
+    assert f32[full.n_layers] == 4 * jfull.param_count()
+    for n, nbytes in f32.items():
+        cut = serve.fit_depth(full, nbytes)
+        assert cut.n_layers == n and cut.n_layers % period == 0
+        assert (cut.d_model, cut.d_ff, cut.n_heads, cut.vocab_size, cut.moe) \
+            == (full.d_model, full.d_ff, full.n_heads, full.vocab_size, full.moe)
+        plan = [(s.attn, s.mlp) for s in cut.layer_plan()]
+        assert plan == [(s.attn, s.mlp) for s in full.layer_plan()[:n]]
+        if n == period:
+            with pytest.raises(ValueError,
+                               match=re.escape(f"{nbytes:.4g} bytes")):
+                serve.fit_depth(full, nbytes - 1)
+        else:
+            assert serve.fit_depth(full, nbytes - 1).n_layers == n - period
+    if arch.endswith("period2"):
+        assert [s.mlp for s in full.layer_plan()[:2]] == ["dense", "moe"]
+
+
 def test_serve_cli_flags():
     ap = serve.build_parser()
     assert ap.parse_args([]).reduced is True
@@ -259,12 +300,12 @@ def test_serve_cli_flags():
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
     with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "qwen2-moe-a2.7b", "--device", "cpu"])
+        serve.main(["--arch", "whisper-medium", "--device", "cpu"])
 
 
 def test_get_config_names_the_later_slice():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("qwen2-moe-a2.7b")
+        get_config("whisper-medium")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
