@@ -27,7 +27,9 @@ Phases, in order; any failed check exits non-zero:
    ragged T, T < chunk, chunk 16, strong decay down to w = 1e-6 with finite
    outputs, a given initial state, out and final state both, and Dv 6 and 2,
    where the value columns do not split evenly over the kernel's 4-block
-   cluster and some blocks own none).
+   cluster and some blocks own none; whisper-medium's non-causal encoder
+   and cross-attention prefills (Sq != Skv) and its cross decode over
+   1,536 rows).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
@@ -104,6 +106,22 @@ Phases, in order; any failed check exits non-zero:
    device time, profiles both long prefills and a decode step of each, and
    checks card-vs-CPU logits at full width and 2 layers of each, with the
    smallest router top-k margin of qwen2-moe's inputs beside them.
+11. encoder-decoder (``[encdec]`` lines): whisper-medium at full width and
+   depth (24 encoder + 24 decoder layers, d_model 1024, 16 over 16 heads of
+   64, d_ff 4096, vocab 51,865; 3.0 GB of f32 weights, kept whole by
+   ``serve.fit_depth``), drawn once and driven through the model API on
+   seeded frames [4, 1,536, 1024] x 0.02, as the reference's tests drive it
+   (its serve engine passes no frames): a short batch (4-token decoder
+   prompts, 16 greedy new tokens, cache_len 20) and a long right-padded
+   batch (prompts of 448, 300, 64 and 4 tokens, 32 new, cache_len 480).
+   Checks that flash attention ran exactly 3 x 24 times a prefill (the
+   non-causal encoder over 1,536 frames, the causal decoder, the
+   non-causal cross-attention) and decode attention 2 x 24 times a step
+   (self, and cross over all 1,536 memory rows), no other kernel, finite
+   logits and the cache's shapes; prints prefill ms, decode ms a step,
+   tok/s and a digest of each batch, profiles the long prefill and a long
+   decode step, and checks card-vs-CPU logits at 2 encoder + 2 decoder
+   layers.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  A ``[phase]`` line gives each phase's seconds.  The last three
@@ -170,6 +188,14 @@ LONG_PROMPT, LONG_NEW, LONG_CACHE = 1024, 32, 1088
 # wide enough for 32 new tokens (its local layers keep a ring of 4,096)
 GEMMA2_WINDOW = 4096
 GEMMA2_LONG, GEMMA2_CACHE = (4608, 4300), 4640
+# whisper-medium: 1,536 memory frames; a short batch of 4-token decoder
+# prompts (the start-of-transcript prefix) with 16 new tokens, and a long
+# batch of right-padded prompts up to the decoder's 448-token context with
+# 32 new
+WHISPER_FRAMES = 1536
+WHISPER_SHORT, WHISPER_SHORT_NEW, WHISPER_SHORT_CACHE = 4, 16, 20
+WHISPER_LONG, WHISPER_LONG_NEW, WHISPER_LONG_CACHE = (448, 300, 64, 4), 32, 480
+WHISPER_PARITY_LAYERS = 2      # card vs CPU: 2 encoder + 2 decoder layers
 N_TIMED = 25
 PAD_SPINS, SPIN = 128, "spin_kernel"   # see device_kernels
 # profiled windows, the most spin kernels one of them lost, and the windows
@@ -222,6 +248,18 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
      True, None, None, 0),
     ("qwen2_moe_serve_prefill", 4, 16, 16, 16, 16, 128, 128, True, None, None, 0),
     ("qwen2_vl_serve_prefill", 4, 16, 16, 28, 4, 128, 128, True, None, None, 0),
+    # whisper-medium (group 1, D = 64): the encoder over 1,536 frames and
+    # the cross-attention prefill over them (non-causal, Sq != Skv) from
+    # the long batch's 448-row and the short batch's 4-row decoder
+    # prompts; the long batch's causal decoder self-attention
+    ("whisper_encoder", 4, WHISPER_FRAMES, WHISPER_FRAMES, 16, 16, 64, 64,
+     False, None, None, 0),
+    ("whisper_cross_prefill", 4, WHISPER_LONG[0], WHISPER_FRAMES, 16, 16, 64,
+     64, False, None, None, 0),
+    ("whisper_short_cross_prefill", 4, WHISPER_SHORT, WHISPER_FRAMES, 16, 16,
+     64, 64, False, None, None, 0),
+    ("whisper_self_prefill", 4, WHISPER_LONG[0], WHISPER_LONG[0], 16, 16, 64,
+     64, True, None, None, 0),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
@@ -230,7 +268,8 @@ FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "gemma2_serve_prefill", "minicpm3_long_prefill",
                "minicpm3_serve_prefill", "qwen2_moe_long_prefill",
                "qwen2_vl_long_prefill", "qwen2_moe_serve_prefill",
-               "qwen2_vl_serve_prefill")
+               "qwen2_vl_serve_prefill", "whisper_encoder",
+               "whisper_cross_prefill", "whisper_short_cross_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -271,12 +310,23 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      [24, 20, 17, 31]),
     ("qwen2_vl_serve_decode", 4, 64, 28, 4, 128, 128, None, None,
      [24, 20, 17, 31]),
+    # gemma2-27b's serve decode (global layers at cache_len 64, softcap 50)
+    ("gemma2_serve_decode", 4, 64, 32, 16, 128, 128, 50.0, None,
+     [24, 20, 17, 31]),
+    # whisper-medium (group 1, D = 64): cross-attention over all 1,536
+    # memory rows, and the long batch's first self-attention step
+    ("whisper_cross_decode", 4, WHISPER_FRAMES, 16, 16, 64, 64, None, None,
+     [WHISPER_FRAMES] * 4),
+    ("whisper_self_decode", 4, WHISPER_LONG_CACHE, 16, 16, 64, 64, None, None,
+     [n + 1 for n in WHISPER_LONG]),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
                 "qwen2_serve_decode", "gemma2_long_decode",
                 "qwen2_moe_long_decode", "qwen2_vl_long_decode",
-                "qwen2_moe_serve_decode", "qwen2_vl_serve_decode")
+                "qwen2_moe_serve_decode", "qwen2_vl_serve_decode",
+                "gemma2_serve_decode", "whisper_cross_decode",
+                "whisper_self_decode")
 # gemma2-27b's local layers in the long batch's decode: a ring of 4,096
 # slots after the wrap, as DECODE_CASES but with kv_len the query's
 # position; K3 over the first min(kv_len + 1, w) slots (``ring_kernel``)
@@ -794,7 +844,7 @@ def phase_times() -> dict:
         args, kw = flash_inputs(case, torch.float32, gen)
         lib_args = [t.transpose(1, 2).contiguous() for t in args]
         # SDPA's causal mask is aligned top left: past a prefix, a mask
-        lib_kw = {"is_causal": True} if not kw["q_offset"] else {
+        lib_kw = {"is_causal": kw["causal"]} if not kw["q_offset"] else {
             "attn_mask": attention_mask(case[2], case[3], causal=True,
                                         window=None, q_offset=kw["q_offset"],
                                         device="cuda")}
@@ -914,6 +964,13 @@ def step_breakdown(what: str, fn, reps: int = 5) -> dict:
     return rec
 
 
+def read_launches() -> dict:
+    return {"flash_attention": flash_attention.launches,
+            "decode_attention": decode_attention.launches,
+            "paged_attention": paged_window_attention.launches,
+            "wkv6": wkv6.launches}
+
+
 def reset_launches() -> None:
     flash_attention.launches = 0
     decode_attention.launches = 0
@@ -930,10 +987,7 @@ def check_launches(what: str, prefills: int, steps: int, n_layers: int,
     never; on an MLA path no decode kernel (it decodes in the latent space
     with torch ops); on an rwkv path WKV6 once per layer and prefill call
     and no attention kernel."""
-    got = {"flash_attention": flash_attention.launches,
-           "decode_attention": decode_attention.launches,
-           "paged_attention": paged_window_attention.launches,
-           "wkv6": wkv6.launches}
+    got = read_launches()
     want = {"flash_attention": n_layers * prefills,
             "decode_attention": 0 if paged else n_layers * steps,
             "paged_attention": n_layers * steps if paged else 0, "wkv6": 0}
@@ -1654,6 +1708,209 @@ def phase_moe_vlm() -> dict:
             "launches": launches}
 
 
+def encdec_prompts(cfg, lengths, rng) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded decoder prompts of ``lengths`` tokens, right-padded: (the rows
+    [B, max] and the lengths [B] int32, on the card)."""
+    toks = torch.zeros((len(lengths), max(lengths)), dtype=torch.long)
+    for i, n in enumerate(lengths):
+        toks[i, :n] = torch.from_numpy(rng.integers(2, cfg.vocab_size, n))
+    return toks.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
+
+
+def encdec_generate(what: str, cfg, params, frames, toks, kv_len, n_new: int,
+                    cache_len: int) -> dict:
+    """Greedy generation through the model API as the reference's tests
+    drive an encoder-decoder (``api.prefill`` with the frames, then
+    ``api.decode_step``), each new token decoded as the padded engine
+    decodes it (``n_new`` steps at positions kv_len + step): a warm-up
+    run, then a run whose prefill and decode loop each run with the launch
+    counts set to 0 just before and read just after.  Checks the launches
+    (flash attention 3 x 24 a prefill: encoder, decoder self, cross; the
+    decode kernel 2 x 24 a step: self, cross; no other kernel), finite
+    logits and the cache's shapes.  Returns the record, the outputs and
+    the launches of the prefill and of the decode loop."""
+    def run():
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = api.prefill(cfg, params, {"frames": frames,
+                                                  "tokens": toks},
+                                    cache_len=cache_len, kv_len=kv_len)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        pre = read_launches()
+        first = (logits, cache)
+        outs = [[] for _ in range(toks.shape[0])]
+        finite = bool(torch.isfinite(logits).all())
+        reset_launches()
+        t0 = time.perf_counter()
+        for step in range(n_new):
+            nxt = greedy(logits, cfg.vocab_size)
+            for i, t in enumerate(nxt.tolist()):
+                outs[i].append(t)
+            logits, cache = api.decode_step(cfg, params, nxt[:, None].long(),
+                                            cache, kv_len + step)
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        dec = read_launches()
+        finite = finite and bool(torch.isfinite(logits).all())
+        return prefill_s, decode_s, pre, dec, outs, first, finite
+    run()                                                   # warm-up
+    prefill_s, decode_s, pre, dec, outs, (lg, cache), finite = run()
+    n_dec, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    want_pre = {"flash_attention": n_enc + 2 * n_dec, "decode_attention": 0,
+                "paged_attention": 0, "wkv6": 0}
+    want_dec = {"flash_attention": 0, "decode_attention": 2 * n_dec * n_new,
+                "paged_attention": 0, "wkv6": 0}
+    print(f"[encdec] {what} launches: prefill {pre} (expected {want_pre}); "
+          f"{n_new} decode steps {dec} (expected {want_dec})", flush=True)
+    if pre != want_pre or dec != want_dec:
+        fail(f"whisper {what}: launches {pre}, {dec}; expected {want_pre}, "
+             f"{want_dec}")
+    b, f = frames.shape[:2]
+    kv, hd = cfg.n_kv_heads, cfg.head_dim_eff
+    shapes = {(tuple(c["self"]["k"].shape), tuple(c["self"]["v"].shape),
+               tuple(c["cross"]["ck"].shape), tuple(c["cross"]["cv"].shape))
+              for c in cache}
+    want_shapes = {((b, cache_len, kv, hd),) * 2 + ((b, f, kv, hd),) * 2}
+    if not finite or tuple(lg.shape) != (b, cfg.padded_vocab) \
+            or len(cache) != n_dec or shapes != want_shapes:
+        fail(f"whisper {what}: finite {finite}, logits {tuple(lg.shape)}, "
+             f"{len(cache)} cache layers of {shapes}")
+    outputs = dict(enumerate(outs))
+    check_outputs(f"whisper {what}", cfg, outputs, n=b)
+    digest = serve.outputs_digest(outputs)
+    tokens = b * n_new
+    rec = {"prompt_lengths": kv_len.tolist(), "cache_len": cache_len,
+           "new_tokens": n_new, "prefill_ms": prefill_s * 1e3,
+           "decode_ms": decode_s * 1e3,
+           "decode_ms_per_step": decode_s * 1e3 / n_new,
+           "decode_tok_per_s": tokens / decode_s, "digest": digest,
+           "launches_prefill": pre, "launches_decode": dec,
+           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(f"[encdec] {what} {kv_len.tolist()} over {f} frames: prefill "
+          f"{rec['prefill_ms']:.2f} ms, decode {n_new} steps in "
+          f"{rec['decode_ms']:.2f} ms ({rec['decode_ms_per_step']:.2f} ms a "
+          f"step, {rec['decode_tok_per_s']:.1f} tok/s), digest {digest}; "
+          f"peak device memory {rec['peak_device_gib']:.2f} GiB", flush=True)
+    return {"rec": rec, "outputs": outputs, "launches": [pre, dec]}
+
+
+def encdec_logits_parity(cfg, frames, toks, kv_len) -> dict:
+    """Prefill and first decode-step logits of ``cfg`` (cut to
+    WHISPER_PARITY_LAYERS encoder and decoder layers) on the card vs the
+    CPU (plain kernel versions; the same seeded weights, drawn on the CPU
+    once and a copy moved to the card), on the same frames and prompts."""
+    cut = replace(cfg, n_layers=WHISPER_PARITY_LAYERS,
+                  n_encoder_layers=WHISPER_PARITY_LAYERS)
+    cpu_params = api.init_params(cut, seed=0, dtype=torch.float32, device="cpu")
+    got = {}
+    for device in ("cuda", "cpu"):
+        params = copy.deepcopy(cpu_params).to(device) if device == "cuda" \
+            else cpu_params
+        batch = {"frames": frames.to(device), "tokens": toks.to(device)}
+        lg, cache = api.prefill(cut, params, batch, cache_len=toks.shape[1] + 1,
+                                kv_len=kv_len.to(device))
+        nxt = greedy(lg, cut.vocab_size) if device == "cuda" \
+            else got["nxt"].cpu()
+        lg2, _ = api.decode_step(cut, params, nxt[:, None].long(), cache,
+                                 kv_len.to(device))
+        got[device] = (lg.float().cpu(), lg2.float().cpu())
+        got["nxt"] = nxt
+        del params, cache
+    errs = {name: (got["cuda"][i] - got["cpu"][i]).abs().max().item()
+            for i, name in enumerate(("prefill", "decode"))}
+    for name, err in errs.items():
+        print(f"[encdec] card vs CPU {name} logits at {WHISPER_PARITY_LAYERS} "
+              f"encoder + {WHISPER_PARITY_LAYERS} decoder layers, full width: "
+              f"max_abs_err {err:.3e} (tol {TOL_LOGITS})", flush=True)
+        if not err <= TOL_LOGITS:
+            fail(f"whisper card vs CPU {name} logits differ by {err}")
+    return errs
+
+
+def phase_encdec() -> dict:
+    """whisper-medium at full width and depth (``serve.fit_depth`` must
+    keep it whole), drawn once, run through the model API on seeded frames:
+    a short batch and a long right-padded batch, ``[profile]`` lines of the
+    long prefill and a long decode step, and card-vs-CPU logits at 2 + 2
+    layers."""
+    torch.cuda.empty_cache()
+    full = get_config("whisper-medium")
+    cfg = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
+    if cfg is not full:
+        fail(f"whisper-medium: fit_depth cut it to {cfg.n_layers} of "
+             f"{full.n_layers} layers; the card should hold it whole")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    init_s = time.perf_counter() - t0
+    plan = helr_mesh(cfg, SHAPES["decode_32k"]).name
+    print(f"[encdec] whisper-medium at full width and depth "
+          f"({cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} "
+          f"of {cfg.head_dim_eff}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size} "
+          f"padded to {cfg.padded_vocab}, {WHISPER_FRAMES} frames): "
+          f"{cfg.param_count():.4g} parameters, "
+          f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn once "
+          f"and moved in {init_s:.1f} s; plan for production mesh: {plan}",
+          flush=True)
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(
+        (rng.standard_normal((4, WHISPER_FRAMES, cfg.d_model)) * 0.02
+         ).astype(np.float32)).cuda()
+    launches = {k: 0 for k in TIMED}
+    runs, inputs = {}, {}
+    for what, lengths, n_new, cache_len in (
+            ("short batch", [WHISPER_SHORT] * 4, WHISPER_SHORT_NEW,
+             WHISPER_SHORT_CACHE),
+            ("long batch", WHISPER_LONG, WHISPER_LONG_NEW, WHISPER_LONG_CACHE)):
+        toks, kv_len = encdec_prompts(cfg, lengths, rng)
+        inputs[what] = (toks, kv_len)
+        got = encdec_generate(what, cfg, params, frames, toks, kv_len, n_new,
+                              cache_len)
+        runs[what] = got["rec"]
+        for part in got["launches"]:
+            for k in launches:
+                launches[k] += part[k]
+    toks, kv_len = inputs["long batch"]
+    profile = {"whisper long prefill": step_breakdown(
+        f"whisper long prefill (frames {tuple(frames.shape)}, prompts "
+        f"{kv_len.tolist()})",
+        lambda: api.prefill(cfg, params, {"frames": frames, "tokens": toks},
+                            cache_len=WHISPER_LONG_CACHE, kv_len=kv_len))}
+    lg, cache = api.prefill(cfg, params, {"frames": frames, "tokens": toks},
+                            cache_len=WHISPER_LONG_CACHE, kv_len=kv_len)
+    nxt = greedy(lg, cfg.vocab_size)[:, None].long()
+    profile["whisper long decode step"] = step_breakdown(
+        "whisper long decode step",
+        lambda: api.decode_step(cfg, params, nxt, cache, kv_len))
+    # a decode step reads the decoder's weights (the embedding table's 4
+    # rows aside, the tied head whole) and the cross caches
+    dec_params = cfg.param_count() - cfg.n_encoder_layers * (
+        cfg._attn_params() + cfg._mlp_params(cfg.d_ff) + 2 * cfg.d_model)
+    cross_bytes = 4 * cfg.n_layers * 4 * WHISPER_FRAMES * 2 * cfg.n_kv_heads \
+        * cfg.head_dim_eff
+    step_bytes = 4 * dec_params + cross_bytes
+    step = profile["whisper long decode step"]
+    print(f"[encdec] a decode step reads {4 * dec_params / 1e9:.2f} GB of "
+          f"decoder weights and {cross_bytes / 1e9:.2f} GB of cross cache: at "
+          f"least {step_bytes / H100.hbm_bw * 1e3:.3f} ms at "
+          f"{H100.hbm_bw / 1e12:.2f} TB/s; the long decode step took "
+          f"{step['device_busy_ms']:.3f} ms of device time "
+          f"({step['wall_ms']:.2f} wall)", flush=True)
+    del params, cache, lg
+    torch.cuda.empty_cache()
+    toks, kv_len = inputs["short batch"]
+    errs = encdec_logits_parity(cfg, frames, toks, kv_len)
+    return {"runs": runs, "plan": plan, "init_s": init_s,
+            "weight_bytes": 4 * cfg.param_count(),
+            "decode_step_bytes": step_bytes,
+            "decode_step_bound_ms": step_bytes / H100.hbm_bw * 1e3,
+            "profile": profile, "logits_max_abs_err": errs,
+            "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -1674,12 +1931,14 @@ def main() -> None:
     dense = run("dense", phase_dense)
     window_mla = run("window_mla", phase_window_mla)
     moe_vlm = run("moe_vlm", phase_moe_vlm)
+    encdec = run("encdec", phase_encdec)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
                 + dense["launches"][k] + window_mla["launches"][k]
-                + moe_vlm["launches"][k] for k in TIMED}
+                + moe_vlm["launches"][k] + encdec["launches"][k]
+                for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -1708,7 +1967,7 @@ def main() -> None:
     record = {"device": dev, "build": built, "parity": parity, "times": times,
               "profiler": PROFILER,
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
-              "window_mla": window_mla, "moe_vlm": moe_vlm,
+              "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -14,6 +14,7 @@ from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _QWEN2_MOE_A2_7B
 from repro_torch.configs.qwen2_vl_7b import CONFIG as _QWEN2_VL_7B
 from repro_torch.configs.rwkv6_3b import CONFIG as _RWKV6_3B
 from repro_torch.configs.smollm_135m import CONFIG as _SMOLLM_135M
+from repro_torch.configs.whisper_medium import CONFIG as _WHISPER_MEDIUM
 
 _PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M,
                                    "rwkv6-3b": _RWKV6_3B,
@@ -22,13 +23,13 @@ _PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M,
                                    "gemma2-27b": _GEMMA2_27B,
                                    "minicpm3-4b": _MINICPM3_4B,
                                    "qwen2-moe-a2.7b": _QWEN2_MOE_A2_7B,
-                                   "qwen2-vl-7b": _QWEN2_VL_7B}
+                                   "qwen2-vl-7b": _QWEN2_VL_7B,
+                                   "whisper-medium": _WHISPER_MEDIUM}
 
 # arch id -> the ROADMAP queue-1 item that ports it
 _LATER: dict[str, str] = {
     "llama4-maverick-400b-a17b": "item 3 (model-family breadth: MoE)",
     "jamba-1.5-large-398b": "item 3 (model-family breadth: Mamba)",
-    "whisper-medium": "item 3 (model-family breadth: encoder-decoder)",
 }
 
 

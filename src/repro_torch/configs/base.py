@@ -7,8 +7,10 @@ RoPE or M-RoPE, softcaps, sliding-window layers, Multi-head Latent
 Attention (``mla``), the capacity-dispatched Mixture-of-Experts MLP
 (``moe``), norm kind, activation, gating, tied or scaled embeddings,
 post-block norms, the vision stub's embedding input) run as in the
-reference, and RWKV-6 (``rwkv``).  The Mamba and encoder-decoder
-extensions, and their terms of ``param_count``, come with their slices.
+reference, RWKV-6 (``rwkv``), and the encoder-decoder family
+(``n_encoder_layers`` > 0: an encoder stack over stubbed frame embeddings,
+cross-attention over its ``cross_kv_len`` memory rows).  The Mamba
+extension, and its terms of ``param_count``, come with its slice.
 """
 from __future__ import annotations
 
@@ -91,8 +93,10 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     rwkv: Optional[RWKVConfig] = None
-    # --- multimodal ---
+    # --- enc-dec / multimodal ---
+    n_encoder_layers: int = 0              # >0 -> encoder-decoder
     frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
+    cross_kv_len: int = 1536               # stubbed encoder-memory length for decode shapes
     # --- misc ---
     norm: Literal["rmsnorm", "layernorm"] = "rmsnorm"
     norm_eps: float = 1e-5
@@ -120,6 +124,10 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         return pad_to(self.vocab_size, self.vocab_pad_mult)
+
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_encoder_layers > 0
 
     @property
     def is_subquadratic(self) -> bool:
@@ -169,9 +177,10 @@ class ModelConfig:
 
     def param_count(self, active_only: bool = False) -> int:
         """Parameter count as the reference's accounting makes it (embedding,
-        head unless tied, norms, mixers and MLPs; no bias term); with
-        ``active_only`` an MoE layer counts its top-k routed experts, not
-        all of them."""
+        head unless tied, norms, mixers and MLPs, an encoder stack and the
+        decoder's cross-attention; no bias term, no encoder final norm);
+        with ``active_only`` an MoE layer counts its top-k routed experts,
+        not all of them."""
         total = self.padded_vocab * self.d_model
         if not self.tie_embeddings:
             total += self.padded_vocab * self.d_model
@@ -187,13 +196,20 @@ class ModelConfig:
             else:
                 total += self._mlp_params(self.d_ff)
             total += 2 * self.d_model  # 2 norms
+        # encoder stack (attention + dense mlp, plus decoder cross-attn)
+        if self.n_encoder_layers:
+            per_enc = self._attn_params() + self._mlp_params(self.d_ff) \
+                + 2 * self.d_model
+            total += self.n_encoder_layers * per_enc
+            total += self.n_layers * (self._attn_params() + self.d_model)
         return int(total)
 
     def kv_cache_bytes(self, batch: int, seq: int, bytes_per: int = 2) -> int:
         """Paper §1 cost model: K and V of every attention layer (a window
         layer holds at most its window; an MLA layer the latent and the
-        rope key); for RWKV the recurrent state and the two token-shift
-        rows of every layer, whatever the sequence length."""
+        rope key; an encoder-decoder's cross K/V over ``cross_kv_len``
+        memory rows too); for RWKV the recurrent state and the two
+        token-shift rows of every layer, whatever the sequence length."""
         if self.rwkv is not None:
             per_layer = self.n_heads * self.rwkv.head_size ** 2 + 2 * self.d_model
             return int(self.n_layers * batch * per_layer * bytes_per)
@@ -207,6 +223,9 @@ class ModelConfig:
             else:
                 width = 2 * self.n_kv_heads * self.head_dim_eff
             total += batch * eff_seq * width
+        if self.is_encdec:
+            total += (self.n_layers * batch * self.cross_kv_len
+                      * 2 * self.n_kv_heads * self.head_dim_eff)
         return int(total * bytes_per)
 
     def reduced(self, *, n_layers: int | None = None) -> "ModelConfig":
@@ -232,6 +251,8 @@ class ModelConfig:
             d_model=64, n_heads=n_heads,
             n_kv_heads=max(1, n_heads // min(kv_ratio, n_heads)),
             head_dim=0 if self.mla is not None else 16, d_ff=128, vocab_size=512, vocab_pad_mult=64,
+            n_encoder_layers=2 if self.is_encdec else 0,
+            cross_kv_len=16 if self.is_encdec else self.cross_kv_len,
             sliding_window=8 if self.sliding_window else None, **kw)
 
 
@@ -274,7 +295,7 @@ SHAPES: dict[str, ShapeConfig] = {
 
 def cell_is_runnable(model: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
     """Whether (arch × shape) is a defined cell, and why not when skipped
-    (every arch of the port is a decoder, so only the long-context shape
+    (every arch of the port has a decoder, so only the long-context shape
     can be skipped)."""
     if shape.needs_subquadratic and not model.is_subquadratic:
         return False, "long_500k skipped: pure full-attention arch"

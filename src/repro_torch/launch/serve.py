@@ -27,7 +27,11 @@ minicpm3-4b, whose Multi-head Latent Attention caches the compressed
 latent, or rwkv6-3b, whose prefill runs through the WKV6 kernel.  These
 three serve padded and ``--continuous``; ``--paged`` refuses them (ring
 caches, latents and recurrent state are not paged KV blocks), as the
-reference does.  The
+reference does.  ``--arch whisper-medium`` (the encoder-decoder) resolves
+and then fails where the reference's CLI fails: its engine passes no
+frame embeddings, so the model API's prefill raises ``KeyError:
+'frames'``; whisper runs through the model API (``api.prefill`` with
+``batch["frames"]``, ``api.decode_step``) instead.  The
 ``serving`` line names the plan the LLM deployer (HELR-mesh) picks for the
 full-width arch at ``decode_32k`` on the production mesh, which is still
 the reference's TPU mesh (256 chips as data=16 × model=16), priced at the
@@ -41,7 +45,7 @@ model's f32 weights the port keeps the width and cuts the depth to whole
 group periods (``fit_depth``) and says what it kept: gemma2-27b's 46
 layers take 108.9 GB, so on one 80 GB H100 it serves its first 24 layers
 (59.1 GB); qwen2-moe-a2.7b (57.25 GB) and qwen2-vl-7b (30.46 GB) serve
-whole.  The cluster,
+whole, and so does whisper-medium (3.0 GB, the encoder counted).  The cluster,
 fault and profile flags exit with "not ported yet".
 """
 from __future__ import annotations
@@ -99,8 +103,9 @@ WEIGHT_SHARE = 0.7
 def fit_depth(cfg: ModelConfig, nbytes: float) -> ModelConfig:
     """``cfg`` cut to the deepest whole number of its group periods
     (``group_period``: the layers that repeat its layer plan) whose f32
-    weights take at most ``nbytes``, at the same width; ``cfg`` itself
-    where every layer fits.  Raises ``ValueError`` when not even one
+    weights take at most ``nbytes``, at the same width (an
+    encoder-decoder's encoder stays whole, and its bytes count); ``cfg``
+    itself where every layer fits.  Raises ``ValueError`` when not even one
     period fits."""
     step = group_period(cfg)
     n = cfg.n_layers
@@ -238,8 +243,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     help="smollm-135m, chatglm2-6b, qwen2-1.5b, gemma2-27b, "
-                         "minicpm3-4b, qwen2-moe-a2.7b, qwen2-vl-7b or "
-                         "rwkv6-3b")
+                         "minicpm3-4b, qwen2-moe-a2.7b, qwen2-vl-7b, "
+                         "rwkv6-3b or whisper-medium (whose serve path "
+                         "fails as the reference's: no frames)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the reduced config (--no-reduced: full width)")

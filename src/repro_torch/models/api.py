@@ -1,38 +1,53 @@
-"""Model API of the port: init / prefill / decode and the paged decode and
-verify steps for the decoder-only family (the vision stub's prefill takes
-embeddings).  Port of ``repro/models/api.py`` (the encoder-decoder dispatch
-and the dry-run specs come with their slices)."""
+"""Model API of the port: init / prefill / decode, dispatched on the family
+(decoder-only, or encoder-decoder, whose prefill takes the audio stub's
+frame embeddings), and the paged decode and verify steps of the
+decoder-only family (the vision stub's prefill takes embeddings).  Port of
+``repro/models/api.py`` (the dry-run specs come with their slice)."""
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device: str | torch.device = "cuda") -> Transformer:
+                device: str | torch.device = "cuda") -> Transformer | EncDec:
+    if cfg.is_encdec:
+        return E.init_params(cfg, seed, dtype, device)
     return T.init_params(cfg, seed, dtype, device)
 
 
 @torch.inference_mode()
-def prefill(cfg: ModelConfig, params: Transformer, batch: dict, *,
+def prefill(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
             cache_len: int, kv_len=None, prefix_kv=None):
     """batch: {"tokens": [B, S]} (+ "embeds" [B, S, d] for the vision
-    stub, used in place of the token embeddings).  Returns (logits [B,
-    Vp], cache).  ``prefix_kv`` (per-layer K/V of an already computed
-    prompt prefix) requests continuation prefill of the uncached suffix —
-    see T.lm_prefill."""
+    stub, used in place of the token embeddings; + "frames" [B, F, d], the
+    audio stub's frame embeddings, which an encoder-decoder needs).
+    Returns (logits [B, Vp], cache).  ``prefix_kv`` (per-layer K/V of an
+    already computed prompt prefix) requests continuation prefill of the
+    uncached suffix — see T.lm_prefill."""
+    if cfg.is_encdec:
+        if prefix_kv is not None:
+            raise NotImplementedError(
+                "prefix-continuation prefill: enc-dec uses cross caches")
+        return E.encdec_prefill(cfg, params, batch["frames"], batch["tokens"],
+                                cache_len=cache_len, kv_len=kv_len)
     return T.lm_prefill(cfg, params, batch["tokens"], cache_len=cache_len,
                         kv_len=kv_len, embeds=batch.get("embeds"),
                         prefix_kv=prefix_kv)
 
 
 @torch.inference_mode()
-def decode_step(cfg: ModelConfig, params: Transformer, tokens, cache, kv_len):
+def decode_step(cfg: ModelConfig, params: Transformer | EncDec, tokens, cache,
+                kv_len):
     """tokens [B, 1]; kv_len [B] int32.  Returns (logits [B, Vp], cache)."""
+    if cfg.is_encdec:
+        return E.encdec_decode_step(cfg, params, tokens, cache, kv_len)
     return T.lm_decode_step(cfg, params, tokens, cache, kv_len)
 
 
@@ -42,6 +57,8 @@ def paged_decode_step(cfg: ModelConfig, params: Transformer, tokens, pools,
     """Decode one token per sequence against the paged pools (updated in
     place).  tokens [B, 1]; block_tables [B, nb] int32; kv_len [B] int32.
     Returns (logits [B, Vp], pools)."""
+    if cfg.is_encdec:
+        raise NotImplementedError("paged decode: enc-dec uses cross caches")
     return T.lm_paged_decode_step(cfg, params, tokens, pools, block_tables,
                                   kv_len)
 
@@ -54,6 +71,8 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
     pass.  tokens [B, T]; blk/off [B, T] scatter targets (the null block
     where a position is invalid); kv_len [B] history before the window.
     Returns (logits [B, T, Vp], pools)."""
+    if cfg.is_encdec:
+        raise NotImplementedError("paged decode: enc-dec uses cross caches")
     return T.lm_paged_spec_step(cfg, params, tokens, pools, block_tables,
                                 kv_len, blk, off)
 
@@ -61,8 +80,10 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
 def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the architecture's decode cache can live in paged KV blocks:
     every mixer a full-attention GQA layer (no MLA latents, no
-    sliding-window ring buffers, no rwkv recurrent state), whatever its MLP
-    (dense or MoE)."""
+    sliding-window ring buffers, no rwkv recurrent state, no enc-dec cross
+    cache), whatever its MLP (dense or MoE)."""
+    if cfg.is_encdec:
+        return False, "enc-dec cross-attention cache is not paged"
     if cfg.mla is not None:
         return False, "MLA decodes from the compressed latent cache"
     for spec in cfg.layer_plan():

@@ -13,8 +13,11 @@ MLA layer caches the compressed latent and the rope key, expands them for
 the prefill's flash attention and decodes in the latent space with torch
 ops (``_mla_decode_absorbed``), as the reference does outside any Pallas
 kernel.  M-RoPE layers rotate q and k by three position streams; a decode
-path's single positions are broadcast to the three.  The sharded branches
-raise ``NotImplementedError`` until their slice lands.
+path's single positions are broadcast to the three.  An encoder-decoder's
+cross-attention runs the flash-attention kernel non-causally over the
+projected encoder memory at prefill and keeps that memory's K/V as its
+cache; each decode step runs the flash-decoding kernel over all of it.  The
+sharded branches raise ``NotImplementedError`` until their slice lands.
 """
 from __future__ import annotations
 
@@ -375,3 +378,38 @@ def attn_paged_spec(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     out = paged_window_attention(q, pool["k"], pool["v"], block_tables, kv_len,
                                  softcap=cfg.attn_softcap)
     return apply_dense(p.o, out.reshape(b, t, -1)), pool
+
+
+# ------------------------------------------------------------ cross-attention
+
+def cross_attn_prefill(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                       memory: torch.Tensor):
+    """Decoder cross-attention over the encoder output.  x: [B, S, d];
+    memory: [B, F, d].  Every query row (right-padded ones too, whose
+    outputs are never read) attends to all F memory rows: the
+    flash-attention kernel, non-causal.  Returns (y [B, S, d], cache
+    {"ck": [B, F, KV, hd], "cv": [B, F, KV, dv]}, the memory's projected
+    K/V)."""
+    b, s, _ = x.shape
+    f = memory.shape[1]
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
+    q = apply_dense(p.q, x).reshape(b, s, h, hd)
+    k = apply_dense(p.k, memory).reshape(b, f, kv, hd)
+    v = apply_dense(p.v, memory).reshape(b, f, kv, cfg.v_head_dim_eff)
+    out = flash_attention(q, k, v, causal=False)
+    y = apply_dense(p.o, out.reshape(b, s, -1))
+    return y, {"ck": k, "cv": v}
+
+
+def cross_attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
+                      cache: dict) -> torch.Tensor:
+    """One decode token's cross-attention over the cached memory K/V
+    (``cross_attn_prefill``'s cache, read only): the flash-decoding kernel
+    with every row's length the memory's F.  x: [B, 1, d] -> [B, 1, d]."""
+    b = x.shape[0]
+    q = apply_dense(p.q, x).reshape(b, cfg.n_heads, cfg.head_dim_eff)
+    mem_len = torch.full((b,), cache["ck"].shape[1], dtype=torch.int32,
+                         device=x.device)
+    out = decode_attention(q, cache["ck"], cache["cv"], mem_len)
+    y = apply_dense(p.o, out.reshape(b, -1))
+    return y.reshape(b, 1, -1)

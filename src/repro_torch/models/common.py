@@ -1,11 +1,12 @@
 """Shared model primitives: dense and norm modules, the RWKV group norm,
-activations, RoPE and M-RoPE, softcap.  Port of ``repro/models/common.py``.
+activations, RoPE and M-RoPE, sinusoidal positions, softcap.  Port of ``repro/models/common.py``.
 
 Parameters keep the JAX package's layouts (a dense weight is [d_in, d_out]
 and applies as ``x @ w``), so a converted JAX tree loads without transposes.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -123,6 +124,18 @@ def apply_mrope(x: torch.Tensor, pos3: torch.Tensor, theta: float,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_positions(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings [..., S, d_model] (f32) of the
+    positions ``pos`` [..., S]: sin then cos of pos * exp(-ln(1e4) * i /
+    (half - 1)), i < half, as the reference's formula (not HF Whisper's)."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32, device=pos.device)
+                      / max(half - 1, 1))
+    ang = pos[..., None].float() * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:

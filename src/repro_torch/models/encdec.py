@@ -1,0 +1,173 @@
+"""Encoder-decoder assembly (the Whisper backbone).  Port of
+``repro/models/encdec.py`` (its training loss comes with the training
+slice).
+
+The conv/mel frontend is a stub, as in the reference: callers give
+precomputed frame embeddings [B, F, d].  Both stacks add the reference's
+sinusoidal positions (its documented departure from Whisper's learned
+decoder positions).  The encoder runs the flash-attention kernel
+non-causally over the frames; each decoder block runs causal
+self-attention, cross-attention over the encoder memory and a plain MLP.
+The cross-attention K/V are projected once from the memory at prefill and
+cached; a decode step reads them unchanged.
+
+The reference stacks each stack's blocks and runs ``lax.scan``; here each
+is an ``nn.ModuleList`` run by a Python loop.  The decode cache is a list
+with one {"self": {"k", "v"} [B, cache_len, KV, hd], "cross": {"ck",
+"cv"} [B, F, KV, hd]} per decoder layer; the self part is updated in place
+at each step.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (Norm, apply_norm, last_valid,
+                                       sinusoidal_positions)
+from repro_torch.models.mlp import MLP, mlp_apply
+from repro_torch.models.transformer import embed_tokens, lm_head
+
+_FULL = LayerSpec(mixer="attn", attn="full", mlp="dense")
+
+
+class EncBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype=torch.float32):
+        super().__init__()
+        self.norm1 = Norm(cfg, dtype)
+        self.norm2 = Norm(cfg, dtype)
+        self.attn = attn.Attention(cfg, generator, dtype)
+        self.mlp = MLP(cfg, generator, dtype)
+
+
+class DecBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype=torch.float32):
+        super().__init__()
+        self.norm1 = Norm(cfg, dtype)
+        self.norm2 = Norm(cfg, dtype)
+        self.norm3 = Norm(cfg, dtype)
+        self.self_attn = attn.Attention(cfg, generator, dtype)
+        self.cross_attn = attn.Attention(cfg, generator, dtype)
+        self.mlp = MLP(cfg, generator, dtype)
+
+
+class EncDec(nn.Module):
+    """Parameters of the encoder-decoder: ``embed.w`` [Vp, d] (the tied
+    head), ``enc_blocks.{i}.*``, ``dec_blocks.{i}.*``, ``enc_norm`` and
+    ``final_norm``.  Each part is drawn from ``generator`` on the CPU and
+    moved to ``device`` before the next is drawn, so the host holds one
+    block at a time."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 dtype=torch.float32, device: torch.device = torch.device("cpu")):
+        super().__init__()
+        self.cfg = cfg
+        g = generator
+        self.embed = nn.Module()
+        self.embed.w = nn.Parameter(
+            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g)
+             * 0.02).to(dtype).to(device), requires_grad=False)
+        self.enc_blocks = nn.ModuleList(EncBlock(cfg, g, dtype).to(device)
+                                        for _ in range(cfg.n_encoder_layers))
+        self.dec_blocks = nn.ModuleList(DecBlock(cfg, g, dtype).to(device)
+                                        for _ in range(cfg.n_layers))
+        self.enc_norm = Norm(cfg, dtype).to(device)
+        self.final_norm = Norm(cfg, dtype).to(device)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
+                device: str | torch.device = "cuda") -> EncDec:
+    """Seeded random weights, the reference's shapes and scales, on the
+    card unless ``device`` says otherwise; drawn on the CPU and then moved,
+    so a seed gives the same weights on every device."""
+    return EncDec(cfg, torch.Generator().manual_seed(seed), dtype,
+                  resolve_device(device))
+
+
+def encode(cfg: ModelConfig, params: EncDec,
+           frames: torch.Tensor) -> torch.Tensor:
+    """frames: [B, F, d] stubbed frame embeddings -> memory [B, F, d]."""
+    f = frames.shape[1]
+    x = frames + sinusoidal_positions(
+        torch.arange(f, device=frames.device), cfg.d_model).to(frames.dtype)[None]
+    for bp in params.enc_blocks:
+        h = apply_norm(cfg, bp.norm1, x)
+        y, _ = attn.attn_prefill(cfg, _FULL, bp.attn, h, positions=None,
+                                 causal=False)
+        x = x + y
+        x = x + mlp_apply(cfg, bp.mlp, apply_norm(cfg, bp.norm2, x))
+    return apply_norm(cfg, params.enc_norm, x)
+
+
+def _dec_stack(cfg: ModelConfig, params: EncDec, x: torch.Tensor,
+               memory: Optional[torch.Tensor], *, mode: str,
+               cache: Optional[list] = None, kv_len=None, cache_len: int = 0):
+    """Every decoder block.  Prefill (``memory`` given) builds each layer's
+    {"self", "cross"} cache when ``cache_len`` > 0; decode reads and
+    updates ``cache`` (self part in place, cross part passed through).
+    Returns (final-normed x, cache list or None)."""
+    new_cache = []
+    for i, bp in enumerate(params.dec_blocks):
+        nc = {}
+        h = apply_norm(cfg, bp.norm1, x)
+        if mode == "decode":
+            y, c = attn.attn_decode(cfg, _FULL, bp.self_attn, h,
+                                    cache[i]["self"], kv_len)
+        else:
+            y, c = attn.attn_prefill(cfg, _FULL, bp.self_attn, h,
+                                     positions=None, cache_len=cache_len,
+                                     kv_len=kv_len)
+        if c is not None:
+            nc["self"] = c
+        x = x + y
+        h = apply_norm(cfg, bp.norm2, x)
+        if mode == "decode":
+            y = attn.cross_attn_decode(cfg, bp.cross_attn, h, cache[i]["cross"])
+            nc["cross"] = cache[i]["cross"]
+        else:
+            y, cc = attn.cross_attn_prefill(cfg, bp.cross_attn, h, memory)
+            if cache_len:
+                nc["cross"] = cc
+        x = x + y
+        x = x + mlp_apply(cfg, bp.mlp, apply_norm(cfg, bp.norm3, x))
+        new_cache.append(nc or None)
+    cache_out = new_cache if any(c is not None for c in new_cache) else None
+    return apply_norm(cfg, params.final_norm, x), cache_out
+
+
+def _dec_embed(cfg: ModelConfig, params: EncDec,
+               tokens: torch.Tensor) -> torch.Tensor:
+    x = embed_tokens(cfg, params, tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
+
+
+def encdec_prefill(cfg: ModelConfig, params: EncDec, frames: torch.Tensor,
+                   tokens: torch.Tensor, *, cache_len: int,
+                   kv_len: Optional[torch.Tensor] = None):
+    """Encode the frames [B, F, d], then run the right-padded decoder
+    prompts tokens [B, S] (``kv_len`` [B] valid lengths).  Returns (logits
+    [B, Vp] of each row's last valid token, cache)."""
+    memory = encode(cfg, params, frames)
+    x = _dec_embed(cfg, params, tokens)
+    x, cache = _dec_stack(cfg, params, x, memory, mode="prefill",
+                          kv_len=kv_len, cache_len=cache_len)
+    return lm_head(cfg, params, last_valid(x, kv_len)), cache
+
+
+def encdec_decode_step(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor,
+                       cache: list, kv_len: torch.Tensor):
+    """One decode step.  tokens [B, 1]; kv_len [B] int32, the new token's
+    position.  Returns (logits [B, Vp], cache) — the self caches are
+    updated in place."""
+    x = embed_tokens(cfg, params, tokens)
+    x = x + sinusoidal_positions(kv_len, cfg.d_model)[:, None].to(x.dtype)
+    x, cache = _dec_stack(cfg, params, x, None, mode="decode",
+                          cache=cache, kv_len=kv_len)
+    return lm_head(cfg, params, x[:, 0]), cache

@@ -4,10 +4,11 @@ candidate plans with it.
 
 Own copy of ``repro/perf/cost_model.py`` with the same formulas, trimmed to
 the families the port serves (dense attention, with windows and MLA, MoE
-MLPs, and RWKV-6); the Mamba and encoder-decoder terms come with their
-slices, and so do the reference's plan options that no port plan sets yet
-(expert parallelism, the absorbed MLA decode, sequence-sharded attention,
-unsharded residuals, a causal discount, quantized KV).  The default
+MLPs, RWKV-6, and the encoder-decoder's encoder stack and cross-attention);
+the Mamba terms come with their slice, and so do the reference's plan
+options that no port plan sets yet (expert parallelism, the absorbed MLA
+decode, sequence-sharded attention, unsharded residuals, a causal
+discount, quantized KV).  The default
 hardware is the port's ``H100``.
 
 Conventions: bf16 params/activations/KV (2 bytes), fp32 accumulation;
@@ -116,6 +117,9 @@ def _matmul_param_flops(cfg: ModelConfig, tokens: float) -> float:
                 + pc["moe_shared"]
         else:
             total += pc["mlp"]
+    if cfg.is_encdec:
+        total += cfg.n_encoder_layers * (pc["attn"] + pc["mlp"])
+        total += cfg.n_layers * pc["attn"]          # cross attention
     total += cfg.d_model * cfg.padded_vocab
     return 2.0 * total * tokens
 
@@ -168,6 +172,10 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         tokens = float(b) * s
         fwd = _add_attn_flops(_matmul_param_flops(cfg, tokens)
                               + _scan_state_flops(cfg, b, s), cfg, b, s)
+        if cfg.is_encdec:
+            fwd += cfg.n_encoder_layers * _attn_layer_flops(cfg, b, s, s, 1.0)
+            fwd += cfg.n_layers * _attn_layer_flops(cfg, b, s,
+                                                    cfg.cross_kv_len, 1.0)
         mult = 3.0 + (1.0 if desc.remat else 0.0)
         ct.model_flops = 6.0 * cfg.param_count(active_only=True) * tokens
         total_flops = fwd * mult
@@ -206,6 +214,8 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         tokens = float(b) * s
         fwd = _add_attn_flops(_matmul_param_flops(cfg, tokens)
                               + _scan_state_flops(cfg, b, s), cfg, b, s)
+        if cfg.is_encdec:   # the encoder; the reference prices no cross term
+            fwd += cfg.n_encoder_layers * _attn_layer_flops(cfg, b, s, s, 1.0)
         ct.model_flops = 2.0 * cfg.param_count(active_only=True) * tokens
         ct.flops = fwd / desc.n_chips
         ct.weight_bytes_chip = weight_bytes(cfg, desc)
@@ -232,6 +242,8 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
             continue
         s_kv = min(s, cfg.sliding_window) if spec.attn == "window" else s
         fwd += _attn_layer_flops(cfg, b, 1, s_kv, 1.0)
+    if cfg.is_encdec:
+        fwd += cfg.n_layers * _attn_layer_flops(cfg, b, 1, cfg.cross_kv_len, 1.0)
     extra_hbm = 0.0
     if cfg.mla is not None:
         # every plan expands the latent each step (none plans the absorbed

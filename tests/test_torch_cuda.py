@@ -54,6 +54,11 @@ FLASH_CASES = [
     (2, 300, 300, 16, 16, 128, 128, True, None, None, 0),
     (4, 16, 16, 28, 4, 128, 128, True, None, None, 0),
     (2, 300, 300, 28, 4, 128, 128, True, None, None, 0),
+    # whisper-medium (group 1, D = 64, non-causal): the encoder over 1,536
+    # frames, and the cross-attention prefill from 448 and 4 decoder rows
+    (4, 1536, 1536, 16, 16, 64, 64, False, None, None, 0),
+    (4, 448, 1536, 16, 16, 64, 64, False, None, None, 0),
+    (4, 4, 1536, 16, 16, 64, 64, False, None, None, 0),
 ]
 
 DECODE_CASES = [
@@ -88,6 +93,11 @@ DECODE_CASES = [
     (4, 1088, 16, 16, 128, 128, None, None, [1041, 1041, 700, 1]),
     (4, 64, 28, 4, 128, 128, None, None, [24, 20, 17, 31]),
     (4, 1088, 28, 4, 128, 128, None, None, [1041, 1041, 700, 1]),
+    # gemma2-27b's serve decode (D = 128, softcap 50); whisper-medium's
+    # cross decode over all 1,536 memory rows and its self decode
+    (4, 64, 32, 16, 128, 128, 50.0, None, [24, 20, 17, 31]),
+    (4, 1536, 16, 16, 64, 64, None, None, [1536] * 4),
+    (4, 480, 16, 16, 64, 64, None, None, [449, 301, 65, 5]),
 ]
 
 PAGED_CASES = [
@@ -593,3 +603,35 @@ def test_moe_and_mrope_engines_on_card_match_cpu(cuda, arch):
             assert paged_window_attention.launches - n_pag == \
                 cfg.n_layers * paged.steps
     assert outs["cpu"] == outs[str(cuda)]
+
+
+def test_encdec_on_card_matches_cpu(cuda):
+    """The reduced whisper-medium on the card equals the CPU: prefill
+    logits of right-padded prompts over 16 frames, and four greedy decode
+    steps token for token; flash attention ran 3 x 2 times a prefill
+    (encoder, decoder self, cross) and decode attention 2 x 2 times a
+    step."""
+    cfg = get_config("whisper-medium").reduced()
+    g = torch.Generator().manual_seed(0)
+    frames = torch.randn(3, 16, cfg.d_model, generator=g) * 0.02
+    toks = torch.randint(2, cfg.vocab_size, (3, 6), generator=g)
+    kv_len = torch.tensor([6, 3, 1], dtype=torch.int32)
+    got = {}
+    for dev in ("cpu", cuda):
+        params = api.init_params(cfg, seed=0, device=dev)
+        n_fa, n_dec = flash_attention.launches, decode_attention.launches
+        lg, cache = api.prefill(cfg, params, {"frames": frames.to(dev),
+                                              "tokens": toks.to(dev)},
+                                cache_len=10, kv_len=kv_len.to(dev))
+        first, outs = lg.float().cpu(), []
+        for step in range(4):
+            nxt = lg[:, :cfg.vocab_size].argmax(-1)
+            outs.append(nxt.cpu())
+            lg, cache = api.decode_step(cfg, params, nxt[:, None], cache,
+                                        kv_len.to(dev) + step)
+        got[str(dev)] = (first, torch.stack(outs))
+        if dev != "cpu":
+            assert flash_attention.launches - n_fa == 3 * cfg.n_layers
+            assert decode_attention.launches - n_dec == 2 * cfg.n_layers * 4
+    assert (got["cpu"][0] - got[str(cuda)][0]).abs().max().item() <= 1e-4
+    assert torch.equal(got["cpu"][1], got[str(cuda)][1])

@@ -28,7 +28,7 @@ from repro_torch.perf import cost_model
 from repro_torch.sharding import ShardingPlan
 
 ARCHS = ["smollm-135m", "rwkv6-3b", "chatglm2-6b", "qwen2-1.5b", "gemma2-27b",
-         "minicpm3-4b", "qwen2-moe-a2.7b", "qwen2-vl-7b"]
+         "minicpm3-4b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "whisper-medium"]
 REL = 1e-12
 
 # The reference's TPU-v5e constants as the port's HWSpec.  The reference

@@ -34,6 +34,7 @@ FLASH_CASES = [
     (2, 33, 65, 4, 2, 16, 16, True, None, None, 32),
     (2, 40, 40, 4, 2, 24, 16, True, None, None, 0),        # D != Dv
     (1, 33, 33, 3, 3, 8, 8, True, None, None, 0),          # ragged edges
+    (2, 5, 48, 4, 4, 16, 16, False, None, None, 0),        # cross-attention
 ]
 
 DECODE_CASES = [

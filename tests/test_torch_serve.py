@@ -24,7 +24,7 @@ from repro.models import transformer as jax_transformer
 from repro.obs.hist import Histogram as JaxHistogram
 from repro.serving import EngineConfig as JaxEngineConfig
 from repro.serving import InferenceEngine as JaxInferenceEngine
-from repro_torch.configs import _PORTED, get_config, group_period
+from repro_torch.configs import H100, _PORTED, get_config, group_period
 from repro_torch.core import profiler, scheduler
 from repro_torch.core.types import Batch
 from repro_torch.data import workload
@@ -276,8 +276,10 @@ def test_fit_depth_keeps_whole_group_periods(arch):
     for n, nbytes in f32.items():
         cut = serve.fit_depth(full, nbytes)
         assert cut.n_layers == n and cut.n_layers % period == 0
-        assert (cut.d_model, cut.d_ff, cut.n_heads, cut.vocab_size, cut.moe) \
-            == (full.d_model, full.d_ff, full.n_heads, full.vocab_size, full.moe)
+        assert (cut.d_model, cut.d_ff, cut.n_heads, cut.vocab_size, cut.moe,
+                cut.n_encoder_layers) == (full.d_model, full.d_ff, full.n_heads,
+                                          full.vocab_size, full.moe,
+                                          full.n_encoder_layers)
         plan = [(s.attn, s.mlp) for s in cut.layer_plan()]
         assert plan == [(s.attn, s.mlp) for s in full.layer_plan()[:n]]
         if n == period:
@@ -288,9 +290,13 @@ def test_fit_depth_keeps_whole_group_periods(arch):
             assert serve.fit_depth(full, nbytes - 1).n_layers == n - period
     if arch.endswith("period2"):
         assert [s.mlp for s in full.layer_plan()[:2]] == ["dense", "moe"]
+    if arch == "whisper-medium":
+        # whole on one 80 GB H100, the encoder's 24 layers counted
+        assert full.n_encoder_layers == 24
+        assert serve.fit_depth(full, serve.WEIGHT_SHARE * H100.hbm_bytes) is full
 
 
-def test_serve_cli_flags():
+def test_serve_cli_flags(monkeypatch):
     ap = serve.build_parser()
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
@@ -299,13 +305,20 @@ def test_serve_cli_flags():
                  ["--trace", "t.json"], ["--profile-in", "p.json"]):
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "whisper-medium", "--device", "cpu"])
+    # whisper-medium resolves, then fails where the reference's CLI fails:
+    # its engine passes no frame embeddings to the model API's prefill
+    with pytest.raises(KeyError, match="frames"):
+        serve.main(["--arch", "whisper-medium", "--device", "cpu",
+                    "--requests", "2", "--max-new", "2"])
+    monkeypatch.setattr("sys.argv", ["serve", "--arch", "whisper-medium",
+                                     "--requests", "2", "--max-new", "2"])
+    with pytest.raises(KeyError, match="frames"):
+        jax_serve.main()
 
 
 def test_get_config_names_the_later_slice():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("whisper-medium")
+        get_config("llama4-maverick-400b-a17b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
