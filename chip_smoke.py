@@ -29,7 +29,8 @@ Phases, in order; any failed check exits non-zero:
    where the value columns do not split evenly over the kernel's 4-block
    cluster and some blocks own none; whisper-medium's non-causal encoder
    and cross-attention prefills (Sq != Skv) and its cross decode over
-   1,536 rows).
+   1,536 rows; llama4-maverick's group 5, 40 over 8 heads at D = 128, at its
+   serve and long shapes for all three attention kernels).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
@@ -37,7 +38,9 @@ Phases, in order; any failed check exits non-zero:
    call; every kernel also with a cold L2 (64 MB written between launches,
    only the kernel's own activities summed).  A bound prices fp32
    operations at the TF32 tensor cores' rate over three (3xTF32, the
-   card's fastest route to fp32-accurate products).
+   card's fastest route to fp32-accurate products).  llama4-maverick's
+   shapes are timed in bf16, its main path's dtype, and bounded at the
+   bf16 tensor cores' rate.
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
@@ -74,10 +77,9 @@ Phases, in order; any failed check exits non-zero:
 9. window and MLA serve (``[window]`` and ``[mla]`` lines): gemma2-27b at
    full width (d_model 4608, 32 heads over 16 KV heads of 128, d_ff 36,864,
    vocab 256,000, local layers with a 4,096-token window and softcap 50),
-   its depth cut from 46 as ``serve.main`` cuts it on this card
-   (``serve.fit_depth``: the deepest even count whose f32 weights take at
-   most 0.7 of the card's memory; 24, 59.1 GB, on an 80 GB card), drawn
-   once and served through ``serve.serve``
+   its depth cut from 46 to 12 layers (6 local/global pairs; ``serve.main``
+   would keep 24 on an 80 GB card, ``serve.fit_depth``, which is checked
+   on the host), drawn once and served through ``serve.serve``
    padded and ``--continuous`` (cache_len 64: every local layer keeps a
    ring of 64), then one long padded batch of prompts of 4,608 and 4,300
    tokens (32 new, cache_len 4,640: the local layers keep a ring of 4,096
@@ -91,10 +93,11 @@ Phases, in order; any failed check exits non-zero:
    long prefills and a decode step of each, and checks card-vs-CPU logits
    at full width and 2 layers of each (gemma2-27b: one local, one global).
 10. MoE and M-RoPE serve (``[moe]`` and ``[vlm]`` lines): qwen2-moe-a2.7b at
-   full width and depth (24 layers, d_model 2048, 16 heads over 16 KV heads
-   of 128, 60 routed experts top-4 and 4 shared ones of 1,408 units, vocab
-   151,936; 57.25 GB of f32 weights, which ``serve.fit_depth`` keeps
-   whole), then qwen2-vl-7b at full width and depth (28 layers, d_model
+   full width (d_model 2048, 16 heads over 16 KV heads of 128, 60 routed
+   experts top-4 and 4 shared ones of 1,408 units, vocab 151,936) and 12 of
+   its 24 layers (``serve.fit_depth`` would keep all 24, 57.25 GB of f32
+   weights, which is checked on the host), then qwen2-vl-7b at full width
+   and depth (28 layers, d_model
    3584, 28 heads over 4 KV heads of 128, M-RoPE; 30.46 GB), each drawn
    once and served through ``serve.serve`` padded, ``--continuous`` and
    ``--paged`` (a 1.1e8-byte pool: 34 pages of 8 tokens for qwen2-moe),
@@ -122,6 +125,24 @@ Phases, in order; any failed check exits non-zero:
    tok/s and a digest of each batch, profiles the long prefill and a long
    decode step, and checks card-vs-CPU logits at 2 encoder + 2 decoder
    layers.
+12. llama4-maverick (``[llama4]`` lines, and ``[moe]`` lines of its MoE
+   layer): ``serve.fit_depth`` must raise in f32 (one group period, a dense
+   layer and a layer of 128 experts, with the embeddings: 74.2 GB) and keep
+   that one period, 2 layers, in bf16 (37.1 GB), the reference's
+   deployment dtype; the period at full width (d_model 5120, 40 heads over
+   8 KV heads of 128, d_ff 8192, 128 routed experts of 8192 top-1 and a
+   shared one, vocab 202,048) drawn once in bf16 on the host (its seconds
+   and the process's peak host memory printed) and served through
+   ``serve.serve`` padded, ``--continuous`` and ``--paged`` (bf16 pools of
+   64 KiB pages, 4e6 bytes), then a 4 x 1024 padded batch with
+   ``[profile]`` lines; the largest prefill drop fraction, the expert
+   GEMMs' device time at T = 4,096 and T = 4, a decode step's 35.0 GB of
+   weights against its device time; the HELR plan at ``decode_32k``; K2
+   exactly 2 a prefill, K3 2 a padded step, K1 2 a paged step, K4 never;
+   then card-vs-CPU logits at full width and both layers, the CPU running
+   on the card's own weights moved back, within 3e-2 of the largest logit
+   (bf16), the argmax equal wherever the top two logits are further apart
+   than that, the router margin beside.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  A ``[phase]`` line gives each phase's seconds.  The last three
@@ -136,10 +157,12 @@ import contextlib
 import copy
 import json
 import math
+import resource
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from dataclasses import replace
 from pathlib import Path
 
@@ -150,7 +173,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import H100, SHAPES, get_config  # noqa: E402
+from repro_torch.configs import (H100, SHAPES, get_config,  # noqa: E402
+                                 group_period)
 from repro_torch.core import helr_mesh  # noqa: E402
 from repro_torch.core.types import Batch, Request  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -182,12 +206,25 @@ PEAK_FLOPS = {torch.float32: H100.peak_flops_tf32 / 3,
 TOL_F32 = 1e-4            # fp32 kernel vs fp32 plain: summation order only
 TOL_BF16 = 2e-2           # x max|ref|: both round the output to bf16
 TOL_LOGITS = 1e-3         # card vs CPU logits, f32, 30 layers
+# card vs CPU logits in bf16, x max|logits|: both round every product and
+# the residual adds to bf16, in different orders (the reference's own bf16
+# kernel tests allow 3e-2)
+TOL_BF16_LOGITS = 3e-2
 SERVE_ARGS = ["--no-reduced", "--device", "cuda"]
 LONG_PROMPT, LONG_NEW, LONG_CACHE = 1024, 32, 1088
 # gemma2-27b's long batch: two prompts past its 4,096-token window, a cache
 # wide enough for 32 new tokens (its local layers keep a ring of 4,096)
 GEMMA2_WINDOW = 4096
 GEMMA2_LONG, GEMMA2_CACHE = (4608, 4300), 4640
+# the depths phases 9 and 10 run at full width: 6 of gemma2-27b's
+# local/global pairs (fit_depth keeps 24 of 46 layers on an 80 GB card), 12
+# of qwen2-moe-a2.7b's 24 MoE layers (fit_depth keeps all 24): the host's
+# draws of their f32 weights took most of those phases' time
+GEMMA2_LAYERS, QWEN2_MOE_LAYERS = 12, 12
+LLAMA4 = "llama4-maverick-400b-a17b"
+# phase 12's paged pool: a bf16 page of 8 tokens is 8 x 2 layers x (K, V)
+# x 8 KV heads x 128 x 2 B = 64 KiB; 4e6 B buy 61, 4 slots of 8 and more
+LLAMA4_BUDGET = "4e6"
 # whisper-medium: 1,536 memory frames; a short batch of 4-token decoder
 # prompts (the start-of-transcript prefix) with 16 new tokens, and a long
 # batch of right-padded prompts up to the decoder's 448-token context with
@@ -260,6 +297,11 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
      64, 64, False, None, None, 0),
     ("whisper_self_prefill", 4, WHISPER_LONG[0], WHISPER_LONG[0], 16, 16, 64,
      64, True, None, None, 0),
+    # llama4-maverick (group 5: 40 over 8 heads, D = 128; bf16 on its main
+    # path): the long batch's 4 x 1024 and the serve prefill
+    ("llama4_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 40, 8, 128, 128,
+     True, None, None, 0),
+    ("llama4_serve_prefill", 4, 16, 16, 40, 8, 128, 128, True, None, None, 0),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
@@ -269,7 +311,8 @@ FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "minicpm3_serve_prefill", "qwen2_moe_long_prefill",
                "qwen2_vl_long_prefill", "qwen2_moe_serve_prefill",
                "qwen2_vl_serve_prefill", "whisper_encoder",
-               "whisper_cross_prefill", "whisper_short_cross_prefill")
+               "whisper_cross_prefill", "whisper_short_cross_prefill",
+               "llama4_long_prefill", "llama4_serve_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -319,6 +362,12 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      [WHISPER_FRAMES] * 4),
     ("whisper_self_decode", 4, WHISPER_LONG_CACHE, 16, 16, 64, 64, None, None,
      [n + 1 for n in WHISPER_LONG]),
+    # llama4-maverick (group 5, D = 128): the long batch's decode and the
+    # serve decode
+    ("llama4_long_decode", 4, LONG_CACHE, 40, 8, 128, 128, None, None,
+     [1041] * 4),
+    ("llama4_serve_decode", 4, 64, 40, 8, 128, 128, None, None,
+     [24, 20, 17, 31]),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
@@ -326,7 +375,8 @@ DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "qwen2_moe_long_decode", "qwen2_vl_long_decode",
                 "qwen2_moe_serve_decode", "qwen2_vl_serve_decode",
                 "gemma2_serve_decode", "whisper_cross_decode",
-                "whisper_self_decode")
+                "whisper_self_decode", "llama4_long_decode",
+                "llama4_serve_decode")
 # gemma2-27b's local layers in the long batch's decode: a ring of 4,096
 # slots after the wrap, as DECODE_CASES but with kv_len the query's
 # position; K3 over the first min(kv_len + 1, w) slots (``ring_kernel``)
@@ -378,11 +428,18 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
      55, None, [24, 20, 17, 31]),
     ("qwen2_vl_paged_serve_decode", "decode", 4, 1, 28, 4, 128, 128, 8, 4, 55,
      None, [24, 20, 17, 31]),
+    # llama4-maverick's paged decode (group 5, D = 128) over 8-token pages
+    ("llama4_paged_serve_decode", "decode", 4, 1, 40, 8, 128, 128, 8, 4, 55,
+     None, [24, 20, 17, 31]),
 ]
 PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window",
                "chatglm2_paged_serve_decode", "chatglm2_paged_long_decode",
                "qwen2_paged_serve_decode", "qwen2_moe_paged_serve_decode",
-               "qwen2_vl_paged_serve_decode")
+               "qwen2_vl_paged_serve_decode", "llama4_paged_serve_decode")
+# cases timed in bf16, the dtype of their main path (every other one in f32)
+BF16_TIMED = ("llama4_long_prefill", "llama4_serve_prefill",
+              "llama4_long_decode", "llama4_serve_decode",
+              "llama4_paged_serve_decode")
 WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     ("rwkv_serve_prefill", 4, 16, 40, 64, 64, 32, 2.0, None, False),
     ("rwkv_long_prefill", 4, LONG_PROMPT, 40, 64, 64, 32, 2.0, None, False),
@@ -837,11 +894,16 @@ def wkv6_parity(case, dtype, gen) -> dict:
             "finite": finite, "ok": ok}
 
 
+def timed_dtype(case) -> torch.dtype:
+    return torch.bfloat16 if case[0] in BF16_TIMED else torch.float32
+
+
 def phase_times() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1)
     out = {}
     for case in (c for c in FLASH_CASES if c[0] in FLASH_TIMED):
-        args, kw = flash_inputs(case, torch.float32, gen)
+        dt = timed_dtype(case)
+        args, kw = flash_inputs(case, dt, gen)
         lib_args = [t.transpose(1, 2).contiguous() for t in args]
         # SDPA's causal mask is aligned top left: past a prefix, a mask
         lib_kw = {"is_causal": kw["causal"]} if not kw["q_offset"] else {
@@ -855,9 +917,10 @@ def phase_times() -> dict:
         out[f"flash_attention/{case[0]}"] = time_three(
             f"flash_attention/{case[0]}", lambda: flash_attention(*args, **kw),
             lambda: flash_attention_reference(*args, **kw), library,
-            flash_cost(case, torch.float32), COLD["flash_attention"])
+            flash_cost(case, dt), COLD["flash_attention"], dt)
     for case in (c for c in DECODE_CASES if c[0] in DECODE_TIMED):
-        (q, k, v, kl), kw = decode_inputs(case, torch.float32, gen)
+        dt = timed_dtype(case)
+        (q, k, v, kl), kw = decode_inputs(case, dt, gen)
         mask = (torch.arange(k.shape[1], device="cuda")[None, :]
                 < kl[:, None])[:, None, None, :]
         lq, lk, lv = q[:, :, None], k.transpose(1, 2).contiguous(), \
@@ -868,7 +931,7 @@ def phase_times() -> dict:
         out[f"decode_attention/{case[0]}"] = time_three(
             f"decode_attention/{case[0]}", lambda: decode_attention(q, k, v, kl, **kw),
             lambda: decode_attention_reference(q, k, v, kl, **kw), library,
-            decode_cost(case, torch.float32), COLD["decode_attention"])
+            decode_cost(case, dt), COLD["decode_attention"], dt)
         out[f"decode_attention/{case[0]}"]["splits"] = decode_splits(case[2])
     for case in RING_CASES:
         (q, k, v, kl), kw = decode_inputs(case, torch.float32, gen)
@@ -883,13 +946,14 @@ def phase_times() -> dict:
     for case in PAGED_CASES:
         if case[0] not in PAGED_TIMED:
             continue
-        args, kw = paged_inputs(case, torch.float32, gen)
+        dt = timed_dtype(case)
+        args, kw = paged_inputs(case, dt, gen)
         fn, ref = paged_fns(case)
         # no PyTorch call reads K/V through a block table: library_ms null
         out[f"paged_attention/{case[0]}"] = time_three(
             f"paged_attention/{case[0]}", lambda: fn(*args, **kw),
             lambda: ref(*args, **kw), None,
-            paged_cost(case, torch.float32), COLD["paged_attention"])
+            paged_cost(case, dt), COLD["paged_attention"], dt)
         out[f"paged_attention/{case[0]}"]["splits"] = paged_splits(case[9], case[8])[0]
     for case in WKV6_CASES[:2]:
         args, kw = wkv6_inputs(case, torch.float32, gen)
@@ -899,10 +963,11 @@ def phase_times() -> dict:
             lambda: wkv6_chunked(*args, **kw), None,
             wkv6_cost(case, torch.float32), COLD["wkv6"])
     for tag, r in out.items():
+        dt = "bf16, " if r["dtype"] == "bfloat16" else ""
         lib = "none" if r["library_ms"] is None else \
             f"{r['library_ms']:.4f} ms (call {r['library_call_ms']:.4f})"
         cold = "" if r["cold_ms"] is None else f", cold L2 {r['cold_ms']:.4f} ms"
-        print(f"[times] {tag}: kernel {r['ms']:.4f} ms (CUDA events "
+        print(f"[times] {tag}: {dt}kernel {r['ms']:.4f} ms (CUDA events "
               f"{r['call_ms']:.4f}"
               f"{cold}), "
               f"plain {r['plain_ms']:.4f} ms (call {r['plain_call_ms']:.4f}), "
@@ -913,14 +978,15 @@ def phase_times() -> dict:
     return out
 
 
-def time_three(tag, kernel, plain, library, cost, cold: str | None = None) -> dict:
+def time_three(tag, kernel, plain, library, cost, cold: str | None = None,
+               dtype=torch.float32) -> dict:
     """Kernel, plain version and library call (None: there is none) on the
     same inputs, with the bound of the function from its bytes and
-    operations.  Each wrapper launches its kernel once a call: the profiler
-    must see one device activity for one call.  ``cold``: the kernel's
-    symbol, to time it with a cold L2 as well."""
+    operations at ``dtype``'s peak rate.  Each wrapper launches its kernel
+    once a call: the profiler must see one device activity for one call.
+    ``cold``: the kernel's symbol, to time it with a cold L2 as well."""
     nbytes, ops = cost
-    b_ms, b_by = bound(nbytes, ops, torch.float32)
+    b_ms, b_by = bound(nbytes, ops, dtype)
     seen = len(device_kernels(kernel))
     if seen != 1:
         fail(f"{tag}: the profiler saw {seen} device activities for one "
@@ -932,7 +998,8 @@ def time_three(tag, kernel, plain, library, cost, cold: str | None = None) -> di
     return {**k, "plain_ms": p["ms"], "plain_call_ms": p["call_ms"],
             "plain_launches": p["launches_per_call"],
             "library_ms": lib["ms"], "library_call_ms": lib["call_ms"],
-            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops}
+            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+            "dtype": str(dtype)[6:]}
 
 
 def step_breakdown(what: str, fn, reps: int = 5) -> dict:
@@ -1473,7 +1540,7 @@ def serve_modes(tag: str, name: str, cfg, params,
 
 
 def phase_window_mla() -> dict:
-    """gemma2-27b at full width, its depth cut to fit the card, drawn once:
+    """gemma2-27b at full width and 12 of its 46 layers, drawn once:
     served padded and continuous (cache_len 64, so every local layer keeps
     a ring of 64), then a long padded batch whose prompts pass the 4,096
     window (the local layers' rings wrap), card-vs-CPU logits at 2 layers
@@ -1489,8 +1556,13 @@ def phase_window_mla() -> dict:
 
     torch.cuda.empty_cache()
     full = get_config("gemma2-27b")
-    # the depth cut ``serve.main`` makes on this card
-    cfg = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
+    # the depth cut ``serve.main`` makes on this card, checked on the host;
+    # the phase runs 6 of its local/global pairs
+    kept = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
+    if kept.n_layers < GEMMA2_LAYERS or GEMMA2_LAYERS % group_period(full):
+        fail(f"gemma2-27b: fit_depth keeps {kept.n_layers} layers; the phase "
+             f"runs {GEMMA2_LAYERS}")
+    cfg = replace(full, n_layers=GEMMA2_LAYERS)
     gemma2_layers = cfg.n_layers
     nbytes = 4 * cfg.param_count()
     torch.cuda.reset_peak_memory_stats()
@@ -1502,7 +1574,8 @@ def phase_window_mla() -> dict:
           f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim_eff}, "
           f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, window "
           f"{cfg.sliding_window}), depth cut {full.n_layers} -> "
-          f"{cfg.n_layers} layers to fit the card: {cfg.param_count():.4g} "
+          f"{cfg.n_layers} layers (fit_depth keeps {kept.n_layers} on this "
+          f"card): {cfg.param_count():.4g} "
           f"parameters, {nbytes / 1e9:.2f} GB of f32 weights (all "
           f"{full.n_layers}: {4 * full.param_count() / 1e9:.1f} GB), drawn "
           f"and moved in {init_s['gemma2']:.1f} s; plan for production mesh: "
@@ -1560,7 +1633,7 @@ def phase_window_mla() -> dict:
         replace(cfg, n_layers=DENSE_PARITY_LAYERS),
         [reqs[rid].tokens for rid in first], "mla")
     return {"runs": runs, "plan": plan, "init_s": init_s,
-            "gemma2_layers": gemma2_layers,
+            "gemma2_layers": gemma2_layers, "gemma2_fit_depth": kept.n_layers,
             "gemma2_weight_bytes": nbytes, "long_batch": long,
             "profile": profile, "logits_max_abs_err": errs,
             "launches": launches}
@@ -1592,12 +1665,12 @@ def expert_gemms(cfg, p, tokens: int) -> dict:
     """Device time of one MoE layer's three batched expert products at the
     capacity of a call over ``tokens`` tokens ([E, C, d] x [E, d, f] twice,
     [E, C, f] x [E, f, d]) on layer ``p``'s banks, mean of 5, and the
-    kernels that run them."""
+    kernels that run them (in the banks' dtype)."""
     c = moe.expert_capacity(cfg, tokens)
     gen = torch.Generator(device="cuda").manual_seed(3)
     e, d, f = p.up.shape
-    buf = torch.randn(e, c, d, generator=gen, device="cuda")
-    hid = torch.randn(e, c, f, generator=gen, device="cuda")
+    buf = torch.randn(e, c, d, generator=gen, device="cuda").to(p.up.dtype)
+    hid = torch.randn(e, c, f, generator=gen, device="cuda").to(p.up.dtype)
 
     def run():
         torch.matmul(buf, p.up)
@@ -1609,9 +1682,76 @@ def expert_gemms(cfg, p, tokens: int) -> dict:
             "kernels": sorted({name[:60] for name, _ in kern})}
 
 
+def moe_syncs(cfg, p, tokens: int) -> int:
+    """Host waits for the card inside one ``moe.moe_apply`` over ``tokens``
+    tokens on the MoE layer ``p`` (after a warm-up call): the synchronizing
+    CUDA calls PyTorch warns of in its sync-debug mode (a prototype, which
+    says it does not yet see every such call)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(1, tokens, cfg.d_model, generator=gen,
+                    device="cuda").to(p.up.dtype)
+    moe.moe_apply(cfg, p, x)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            moe.moe_apply(cfg, p, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def moe_report(name: str, cfg, params, seen, step: dict) -> dict:
+    """``[moe]`` lines of a served MoE model: the largest fraction of (token,
+    expert) entries its capacity dropped at a prefill (``moe_watch``'s
+    record ``seen``), the expert GEMMs' device time at the long prefill's
+    and a decode step's token counts on its first MoE layer's banks, and
+    the bytes of weights a decode step reads against the long decode
+    step's profile ``step``."""
+    rec = {}
+    drops = torch.stack(seen["drop_frac"]).float().cpu()
+    rec["max_prefill_drop_frac"] = drops.max().item()
+    rec["prefill_calls"] = len(drops)
+    print(f"[moe] {name}: largest fraction of (token, expert) entries "
+          f"dropped past capacity at a prefill: {drops.max().item():.4f} "
+          f"(mean {drops.mean().item():.4f} over {len(drops)} MoE layer "
+          "calls at prefill)", flush=True)
+    specs = cfg.layer_plan()
+    n_moe = sum(sp.mlp == "moe" for sp in specs)
+    p = next(b.mlp for b, sp in zip(params.blocks, specs) if sp.mlp == "moe")
+    for what, tokens in (("long prefill", 4 * LONG_PROMPT), ("decode step", 4)):
+        rec[f"expert_gemms {what}"] = g = expert_gemms(cfg, p, tokens)
+        g["host_syncs"] = moe_syncs(cfg, p, tokens)
+        print(f"[moe] {name}: expert GEMMs at the {what} (T = {tokens}, "
+              f"capacity {g['capacity']}): {g['ms']:.3f} ms of device time "
+              f"a layer, x {n_moe} = {g['ms'] * n_moe:.2f} ms; kernels "
+              f"{g['kernels']}; host waits inside one MoE call "
+              f"{g['host_syncs']}", flush=True)
+        if g["host_syncs"]:
+            fail(f"{name}: the MoE dispatch waits for the card "
+                 f"{g['host_syncs']} times at T = {tokens}")
+    # a decode step reads every weight but the embedding table (its 4 rows
+    # aside), the routers included
+    size = params.embed.w.element_size()
+    nbytes = size * (cfg.param_count() - cfg.padded_vocab * cfg.d_model
+                     + n_moe * cfg.d_model * cfg.moe.n_experts)
+    rec["decode_weight_bytes"] = nbytes
+    rec["decode_bound_ms"] = nbytes / H100.hbm_bw * 1e3
+    print(f"[moe] {name}: a decode step reads {nbytes / 1e9:.2f} GB of "
+          f"{str(params.embed.w.dtype)[6:]} weights (every expert bank): at "
+          f"least {rec['decode_bound_ms']:.2f} ms at "
+          f"{H100.hbm_bw / 1e12:.2f} TB/s; the long decode step took "
+          f"{step['device_busy_ms']:.2f} ms of device time "
+          f"({step['wall_ms']:.2f} wall)", flush=True)
+    return rec
+
+
 def phase_moe_vlm() -> dict:
-    """qwen2-moe-a2.7b, then qwen2-vl-7b, each at full width and depth
-    (``serve.fit_depth`` must keep every layer), drawn once: served padded,
+    """qwen2-moe-a2.7b at full width and 12 of its 24 layers, then
+    qwen2-vl-7b at full width and depth (``serve.fit_depth`` must keep
+    every layer of both), drawn once: served padded,
     continuous and paged, a 4 x 1024 padded batch, card-vs-CPU logits at 2
     layers; for qwen2-moe the largest drop fraction at a prefill, the
     expert GEMMs' device time, the weight bytes a decode step reads against
@@ -1627,10 +1767,11 @@ def phase_moe_vlm() -> dict:
                             ("vlm", "qwen2-vl", "qwen2-vl-7b")):
         torch.cuda.empty_cache()
         full = get_config(arch)
-        cfg = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
-        if cfg is not full:
-            fail(f"{arch}: fit_depth cut it to {cfg.n_layers} of "
+        kept = serve.fit_depth(full, serve.card_weight_bytes("cuda"))
+        if kept is not full:
+            fail(f"{arch}: fit_depth cut it to {kept.n_layers} of "
                  f"{full.n_layers} layers; the card should hold it whole")
+        cfg = replace(full, n_layers=QWEN2_MOE_LAYERS) if full.moe else full
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
@@ -1639,8 +1780,9 @@ def phase_moe_vlm() -> dict:
         experts = "" if cfg.moe is None else (
             f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} and "
             f"{cfg.moe.n_shared_experts} shared of {cfg.moe.d_expert}")
-        print(f"[{tag}] {arch} at full width and depth ({cfg.n_layers} "
-              f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+        print(f"[{tag}] {arch} at full width, {cfg.n_layers} of "
+              f"{full.n_layers} layers (fit_depth keeps all {kept.n_layers}; "
+              f"d_model {cfg.d_model}, {cfg.n_heads} heads over "
               f"{cfg.n_kv_heads} of {cfg.head_dim_eff}{experts}, rope "
               f"{cfg.rope}): {cfg.param_count():.4g} parameters, "
               f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn once "
@@ -1660,35 +1802,8 @@ def phase_moe_vlm() -> dict:
         for rec in list(got.values()) + [long[name]]:
             add(rec["launches"])
         if cfg.moe is not None:
-            drops = torch.stack(seen["drop_frac"]).float().cpu()
-            moe_rec["max_prefill_drop_frac"] = drops.max().item()
-            moe_rec["prefill_calls"] = len(drops)
-            print(f"[moe] largest fraction of (token, expert) entries dropped "
-                  f"past capacity at a prefill: {drops.max().item():.4f} "
-                  f"(mean {drops.mean().item():.4f} over {len(drops)} MoE layer "
-                  "calls at prefill)", flush=True)
-            for what, tokens in (("long prefill", 4 * LONG_PROMPT),
-                                 ("decode step", 4)):
-                moe_rec[f"expert_gemms {what}"] = rec = expert_gemms(
-                    cfg, params.blocks[0].mlp, tokens)
-                print(f"[moe] expert GEMMs at the {what} (T = {tokens}, "
-                      f"capacity {rec['capacity']}): {rec['ms']:.3f} ms of "
-                      f"device time a layer, x {cfg.n_layers} = "
-                      f"{rec['ms'] * cfg.n_layers:.2f} ms; kernels "
-                      f"{rec['kernels']}", flush=True)
-            # a decode step reads every weight but the embedding table (its
-            # 4 rows aside), the routers included
-            nbytes = 4 * (cfg.param_count() - cfg.padded_vocab * cfg.d_model
-                          + cfg.n_layers * cfg.d_model * cfg.moe.n_experts)
-            step = profile[f"{name} long decode step"]
-            moe_rec["decode_weight_bytes"] = nbytes
-            moe_rec["decode_bound_ms"] = nbytes / H100.hbm_bw * 1e3
-            print(f"[moe] a decode step reads {nbytes / 1e9:.2f} GB of f32 "
-                  f"weights (every expert bank): at least "
-                  f"{moe_rec['decode_bound_ms']:.2f} ms at "
-                  f"{H100.hbm_bw / 1e12:.2f} TB/s; the long decode step took "
-                  f"{step['device_busy_ms']:.2f} ms of device time "
-                  f"({step['wall_ms']:.2f} wall)", flush=True)
+            moe_rec = moe_report(name, cfg, params, seen,
+                                 profile[f"{name} long decode step"])
         del params
         torch.cuda.empty_cache()
         reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
@@ -1705,7 +1820,7 @@ def phase_moe_vlm() -> dict:
             moe_rec["logits_min_router_margin"] = min(seen["margin"])
     return {"runs": runs, "plan": plan, "init_s": init_s, "long_batch": long,
             "profile": profile, "logits_max_abs_err": errs, "moe": moe_rec,
-            "launches": launches}
+            "qwen2_moe_layers": QWEN2_MOE_LAYERS, "launches": launches}
 
 
 def encdec_prompts(cfg, lengths, rng) -> tuple[torch.Tensor, torch.Tensor]:
@@ -1911,6 +2026,122 @@ def phase_encdec() -> dict:
             "launches": launches}
 
 
+def llama4_logits_parity(cfg, params, prompts) -> dict:
+    """Prefill and first decode-step logits of one padded batch on the card,
+    then on the CPU (plain kernel versions) with the card's own weights
+    moved back (``params`` ends on the CPU): within TOL_BF16_LOGITS x the
+    largest logit, the argmax equal in every row whose top two logits lie
+    further apart than that tolerance; the smallest router margin of the
+    card's MoE inputs beside them."""
+    got = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        if device == "cpu":
+            params.to("cpu")
+        moved_s = time.perf_counter() - t0
+        eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4,
+                                                        cache_len=64))
+        toks, kv_len = eng._pad_prompts(prompts)
+        with moe_watch(margins=device == "cuda") as seen:
+            lg, cache = eng._prefill(toks, kv_len)
+            nxt = greedy(lg, cfg.vocab_size) if device == "cuda" \
+                else got["nxt"].cpu()
+            lg2, _ = eng._decode(nxt[:, None].long(), cache, kv_len)
+        got[device] = (lg.float().cpu(), lg2.float().cpu())
+        got["nxt"] = nxt
+        if device == "cuda":
+            margin = min(seen["margin"])
+        print(f"[llama4] logits on {device}"
+              + (f" after moving the weights back in {moved_s:.1f} s"
+                 if device == "cpu" else "")
+              + f" in {time.perf_counter() - t0:.1f} s", flush=True)
+        del eng, cache
+    errs, flips = {}, {}
+    for i, name in enumerate(("prefill", "decode")):
+        card, cpu = got["cuda"][i][:, :cfg.vocab_size], \
+            got["cpu"][i][:, :cfg.vocab_size]
+        tol = TOL_BF16_LOGITS * cpu.abs().max().item()
+        errs[name] = (card - cpu).abs().max().item()
+        top2 = cpu.topk(2, dim=-1).values
+        clear = (top2[:, 0] - top2[:, 1]) > tol
+        flips[name] = int((card.argmax(-1) != cpu.argmax(-1))[clear].sum())
+        print(f"[llama4] card vs CPU {name} logits at full width, both "
+              f"layers, bf16: max_abs_err {errs[name]:.3e} (tol {tol:.3e} = "
+              f"{TOL_BF16_LOGITS} x max |logit|); argmax differs in "
+              f"{flips[name]} of the {int(clear.sum())} rows whose top two "
+              f"are further apart than the tol; smallest router top-k "
+              f"margin of its MoE inputs {margin:.3e}", flush=True)
+        if not errs[name] <= tol or flips[name]:
+            fail(f"llama4 card vs CPU {name} logits: max_abs_err "
+                 f"{errs[name]} (tol {tol}), {flips[name]} argmax flips")
+    return {"max_abs_err": errs, "argmax_flips": flips,
+            "min_router_margin": margin}
+
+
+def phase_llama4() -> dict:
+    """llama4-maverick-400b-a17b at full width: ``serve.fit_depth`` raises
+    in f32 and keeps one group period (2 layers) in bf16; that period drawn
+    once in bf16 and served padded, continuous and paged, a 4 x 1024
+    padded batch, the MoE's ``[moe]`` lines, the HELR plan, and card-vs-CPU
+    logits at both layers on the card's own weights."""
+    torch.cuda.empty_cache()
+    full = get_config(LLAMA4)
+    budget = serve.card_weight_bytes("cuda")
+    try:
+        serve.fit_depth(full, budget)
+    except ValueError as e:
+        print(f"[llama4] f32 weights: fit_depth raises: {e}", flush=True)
+    else:
+        fail("llama4: fit_depth kept layers in f32; not one period fits")
+    cfg = serve.fit_depth(full, budget, bytes_per_param=2)
+    if cfg.n_layers != 2 or [sp.mlp for sp in cfg.layer_plan()] != \
+            ["dense", "moe"]:
+        fail(f"llama4: fit_depth keeps {cfg.n_layers} layers in bf16; one "
+             "period (dense, MoE) should fit")
+    nbytes = 2 * cfg.param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    init_s = time.perf_counter() - t0
+    host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    plan = helr_mesh(full, SHAPES["decode_32k"]).name
+    m = cfg.moe
+    print(f"[llama4] {LLAMA4} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim_eff}, "
+          f"d_ff {cfg.d_ff}, {m.n_experts} experts of {m.d_expert} top-"
+          f"{m.top_k} and {m.n_shared_experts} shared, vocab "
+          f"{cfg.vocab_size} padded to {cfg.padded_vocab}), one group "
+          f"period of {cfg.n_layers} of {full.n_layers} layers in bf16 "
+          f"(fit_depth at {budget / 1e9:.1f} GB): {cfg.param_count():.4g} "
+          f"parameters, {nbytes / 1e9:.2f} GB, drawn on the host and moved "
+          f"in {init_s:.1f} s (peak host memory of the process "
+          f"{host_gib:.1f} GiB); plan for production mesh at decode_32k: "
+          f"{plan}", flush=True)
+    reqs = serve.make_requests(cfg, 12, 16)
+    pcfg = serve.paged_config(cfg, reqs, 16, float(LLAMA4_BUDGET),
+                              dtype_bytes=2)
+    if pcfg.usable_blocks < 4 * pcfg.max_blocks:
+        fail(f"llama4 paged: {pcfg.usable_blocks} pages at {LLAMA4_BUDGET} B "
+             f"for 4 slots of {pcfg.max_blocks}")
+    with moe_watch() as seen:
+        runs, first = serve_modes("llama4", "llama4", cfg, params, pcfg)
+        long, profile, _ = long_batch("llama4", "llama4", cfg, params,
+                                      [LONG_PROMPT] * 4, LONG_CACHE)
+    launches = {k: sum(r["launches"][k] for r in list(runs.values()) + [long])
+                for k in TIMED}
+    moe_rec = moe_report("llama4", cfg, params, seen,
+                         profile["llama4 long decode step"])
+    reqs = {r.rid: r for r in reqs}
+    parity = llama4_logits_parity(cfg, params,
+                                  [reqs[rid].tokens for rid in first])
+    del params
+    torch.cuda.empty_cache()
+    return {"runs": runs, "plan": plan, "init_s": init_s,
+            "host_peak_gib": host_gib, "weight_bytes": nbytes,
+            "n_layers": cfg.n_layers, "long_batch": long, "profile": profile,
+            "moe": moe_rec, "logits": parity, "launches": launches}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -1932,13 +2163,14 @@ def main() -> None:
     window_mla = run("window_mla", phase_window_mla)
     moe_vlm = run("moe_vlm", phase_moe_vlm)
     encdec = run("encdec", phase_encdec)
+    llama4 = run("llama4", phase_llama4)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
                 + dense["launches"][k] + window_mla["launches"][k]
                 + moe_vlm["launches"][k] + encdec["launches"][k]
-                for k in TIMED}
+                + llama4["launches"][k] for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -1968,6 +2200,7 @@ def main() -> None:
               "profiler": PROFILER,
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
+              "llama4": llama4,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -8,6 +8,8 @@ from repro_torch.configs.base import (  # noqa: F401
     RWKVConfig, ShapeConfig, cell_is_runnable, group_period, pad_to)
 from repro_torch.configs.chatglm2_6b import CONFIG as _CHATGLM2_6B
 from repro_torch.configs.gemma2_27b import CONFIG as _GEMMA2_27B
+from repro_torch.configs.llama4_maverick_400b_a17b import \
+    CONFIG as _LLAMA4_MAVERICK
 from repro_torch.configs.minicpm3_4b import CONFIG as _MINICPM3_4B
 from repro_torch.configs.qwen2_1_5b import CONFIG as _QWEN2_1_5B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as _QWEN2_MOE_A2_7B
@@ -24,11 +26,12 @@ _PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M,
                                    "minicpm3-4b": _MINICPM3_4B,
                                    "qwen2-moe-a2.7b": _QWEN2_MOE_A2_7B,
                                    "qwen2-vl-7b": _QWEN2_VL_7B,
-                                   "whisper-medium": _WHISPER_MEDIUM}
+                                   "whisper-medium": _WHISPER_MEDIUM,
+                                   "llama4-maverick-400b-a17b":
+                                       _LLAMA4_MAVERICK}
 
 # arch id -> the ROADMAP queue-1 item that ports it
 _LATER: dict[str, str] = {
-    "llama4-maverick-400b-a17b": "item 3 (model-family breadth: MoE)",
     "jamba-1.5-large-398b": "item 3 (model-family breadth: Mamba)",
 }
 

@@ -260,11 +260,9 @@ def candidate_plans(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
     """Enumerate the parallelism plans expressible on the production mesh
     ((pod,)data=16, model=16), score each with the analytic cost model at
     ``hw``, and mark memory feasibility.  An MoE arch whose experts split
-    16 ways would also get the reference's expert-parallel plans, which
-    are not ported yet: it raises."""
-    if cfg.moe is not None and cfg.moe.n_experts % 16 == 0:
-        raise NotImplementedError(
-            f"{cfg.name}: the expert-parallel (ep16) plans are not ported yet")
+    16 ways also gets the reference's expert-parallel plans: experts over
+    the data axis, tensor parallelism over the model axis."""
+    ep16 = cfg.moe is not None and cfg.moe.n_experts % 16 == 0
     pods = 2 if multi_pod else 1
     chips = 256 * pods
     data_axes = ("pod", "data") if multi_pod else ("data",)
@@ -283,6 +281,14 @@ def candidate_plans(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
     if decode and shape.global_batch % 16 != 0:
         # long-context decode (batch 1): batch replicated, the KV/state
         # sequence sharded across the whole mesh, weights TP over model
+        if ep16:
+            # MoE: experts over data, sequence over model only
+            add("longctx_ep16",
+                ShardingPlan(batch_axes=(), model_axis="model",
+                             mla_absorbed=False, ep_axis="data",
+                             seq_axes=("model",)),
+                ParallelismDesc(n_chips=chips, tp=16, dp=1, ep=16,
+                                seq_shard_decode=16))
         add("longctx_seqshard",
             ShardingPlan(batch_axes=(), model_axis="model", mla_absorbed=False,
                          seq_axes=data_axes + ("model",)),
@@ -303,6 +309,23 @@ def candidate_plans(cfg: ModelConfig, shape: ShapeConfig, *, multi_pod: bool,
                 ParallelismDesc(n_chips=chips, tp=16, dp=16 * pods, fsdp=fsdp,
                                 seq_shard_decode=16 if decode else 1,
                                 remat=train, microbatches=mb, optimizer=opt))
+    # EP over data + TP over model (MoE archs with E % 16 == 0)
+    if ep16:
+        for fsdp in ((False, True) if train else (False,)):
+            for mb in micro_opts:
+                add("ep16_tp16" + ("_fsdp" if fsdp else "")
+                    + (f"_mb{mb}" if mb > 1 else ""),
+                    ShardingPlan(batch_axes=data_axes, model_axis="model",
+                                 ep_axis="data",
+                                 fsdp_axes=data_axes if fsdp else (),
+                                 seq_axes=("model",) if decode else (),
+                                 seq_parallel=not decode, mla_absorbed=False,
+                                 remat=train, microbatches=mb),
+                    ParallelismDesc(n_chips=chips, tp=16, dp=16 * pods, ep=16,
+                                    fsdp=fsdp,
+                                    seq_shard_decode=16 if decode else 1,
+                                    remat=train, microbatches=mb,
+                                    optimizer=opt))
     # pure DP: batch over (pod, data, model) — only when batch divides
     if shape.global_batch % chips == 0:
         add(f"dp{chips}",

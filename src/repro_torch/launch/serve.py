@@ -20,7 +20,8 @@ resident for recompute under block pressure, and ``--speculate`` verifies
 
 ``--arch`` picks smollm-135m (the default), the dense chatglm2-6b (the
 paper's own model), qwen2-1.5b, qwen2-moe-a2.7b (a Mixture-of-Experts MLP
-with capacity-dropping dispatch on every layer) or qwen2-vl-7b (M-RoPE),
+with capacity-dropping dispatch on every layer), llama4-maverick-400b-a17b
+(dense and MoE layers in turn, 128 experts top-1) or qwen2-vl-7b (M-RoPE),
 which serve on every path above;
 gemma2-27b, whose local layers keep a ring of their 4,096-token window,
 minicpm3-4b, whose Multi-head Latent Attention caches the compressed
@@ -45,7 +46,11 @@ model's f32 weights the port keeps the width and cuts the depth to whole
 group periods (``fit_depth``) and says what it kept: gemma2-27b's 46
 layers take 108.9 GB, so on one 80 GB H100 it serves its first 24 layers
 (59.1 GB); qwen2-moe-a2.7b (57.25 GB) and qwen2-vl-7b (30.46 GB) serve
-whole, and so does whisper-medium (3.0 GB, the encoder counted).  The cluster,
+whole, and so does whisper-medium (3.0 GB, the encoder counted).  Not one
+two-layer period of llama4-maverick-400b-a17b fits in f32 (74.2 GB), so
+``--no-reduced`` raises ``ValueError`` there; in bf16, its deployment dtype,
+the period takes 37.1 GB, and a caller that draws bf16 weights cuts with
+``fit_depth(cfg, budget, bytes_per_param=2)``.  The cluster,
 fault and profile flags exit with "not ported yet".
 """
 from __future__ import annotations
@@ -94,34 +99,38 @@ def outputs_digest(done: dict) -> str:
     return hashlib.sha1(blob.encode()).hexdigest()[:12]
 
 
-# The share of a card's memory the f32 weights may take; caches and
+# The share of a card's memory the weights may take; caches and
 # activations get the rest (gemma2-27b's long batch of 4,608 + 4,300 tokens
 # took 8 GiB beyond its weights on the H100)
 WEIGHT_SHARE = 0.7
 
 
-def fit_depth(cfg: ModelConfig, nbytes: float) -> ModelConfig:
+def fit_depth(cfg: ModelConfig, nbytes: float,
+              bytes_per_param: int = 4) -> ModelConfig:
     """``cfg`` cut to the deepest whole number of its group periods
-    (``group_period``: the layers that repeat its layer plan) whose f32
-    weights take at most ``nbytes``, at the same width (an
-    encoder-decoder's encoder stays whole, and its bytes count); ``cfg``
-    itself where every layer fits.  Raises ``ValueError`` when not even one
-    period fits."""
+    (``group_period``: the layers that repeat its layer plan) whose
+    weights, at ``bytes_per_param`` bytes a parameter (4: f32, as the
+    serve CLI draws them; 2: bf16), take at most ``nbytes``, at the same
+    width (an encoder-decoder's encoder stays whole, and its bytes count);
+    ``cfg`` itself where every layer fits.  Raises ``ValueError`` when not
+    even one period fits."""
     step = group_period(cfg)
     n = cfg.n_layers
-    while n > 0 and 4 * replace(cfg, n_layers=n).param_count() > nbytes:
+    while n > 0 and bytes_per_param * replace(cfg, n_layers=n).param_count() \
+            > nbytes:
         n -= step
     if n == 0:
-        one = 4 * replace(cfg, n_layers=step).param_count()
+        one = bytes_per_param * replace(cfg, n_layers=step).param_count()
         raise ValueError(
             f"{cfg.name}: one group period ({step} layers, with the "
-            f"embeddings) takes {one:.4g} bytes of f32 weights, over the "
-            f"budget of {nbytes:.4g} bytes")
+            f"embeddings) takes {one:.4g} bytes of weights at "
+            f"{bytes_per_param} bytes a parameter, over the budget of "
+            f"{nbytes:.4g} bytes")
     return cfg if n == cfg.n_layers else replace(cfg, n_layers=n)
 
 
 def card_weight_bytes(device) -> float:
-    """The bytes of f32 weights the card ``device`` is given."""
+    """The bytes of weights the card ``device`` is given."""
     return WEIGHT_SHARE * torch.cuda.get_device_properties(device).total_memory
 
 
@@ -176,7 +185,8 @@ def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
           paged: PagedEngineConfig | None = None, drafter=None) -> dict:
     """Profile -> schedule -> execute -> monitor, on the device the
     parameters live on; ``paged`` serves the queue through the paged engine
-    (``drafter`` its speculation proposer, None: the config's default).
+    (``drafter`` its speculation proposer, None: the config's default), its
+    pools in the parameters' dtype.
     Returns the outputs, their digest, the engine results, the elapsed
     seconds and the monitor."""
     engine = InferenceEngine(cfg, params,
@@ -188,8 +198,8 @@ def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
     results = []
     t0 = time.perf_counter()
     if paged is not None:
-        res = PagedEngine(cfg, params, paged, monitor=mon,
-                          drafter=drafter).run_continuous(
+        res = PagedEngine(cfg, params, paged, monitor=mon, drafter=drafter,
+                          dtype=params.embed.w.dtype).run_continuous(
             sorted(reqs, key=lambda r: r.arrival))
         results.append(res)
         done = res.outputs
@@ -243,7 +253,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="smollm-135m",
                     help="smollm-135m, chatglm2-6b, qwen2-1.5b, gemma2-27b, "
-                         "minicpm3-4b, qwen2-moe-a2.7b, qwen2-vl-7b, "
+                         "minicpm3-4b, qwen2-moe-a2.7b, "
+                         "llama4-maverick-400b-a17b, qwen2-vl-7b, "
                          "rwkv6-3b or whisper-medium (whose serve path "
                          "fails as the reference's: no frames)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,

@@ -35,7 +35,9 @@ class MoE(nn.Module):
                             scale=0.02)
 
         def bank(*shape, std):
-            return nn.Parameter((torch.randn(*shape, generator=g) * std)
+            # scaled in place: the host holds one f32 bank at a time (21.5
+            # GB at llama4-maverick's 128 experts of 5120 x 8192)
+            return nn.Parameter(torch.randn(*shape, generator=g).mul_(std)
                                 .to(dtype), requires_grad=False)
         self.up = bank(m.n_experts, d, f, std=d ** -0.5)
         self.down = bank(m.n_experts, f, d, std=f ** -0.5)

@@ -6,9 +6,9 @@ Own copy of ``repro/perf/cost_model.py`` with the same formulas, trimmed to
 the families the port serves (dense attention, with windows and MLA, MoE
 MLPs, RWKV-6, and the encoder-decoder's encoder stack and cross-attention);
 the Mamba terms come with their slice, and so do the reference's plan
-options that no port plan sets yet (expert parallelism, the absorbed MLA
-decode, sequence-sharded attention, unsharded residuals, a causal
-discount, quantized KV).  The default
+options that no port plan sets yet (the absorbed MLA decode,
+sequence-sharded attention, unsharded residuals, a causal discount,
+quantized KV).  The default
 hardware is the port's ``H100``.
 
 Conventions: bf16 params/activations/KV (2 bytes), fp32 accumulation;
@@ -31,6 +31,7 @@ class ParallelismDesc:
     tp: int = 1                 # tensor parallel degree (model axis)
     dp: int = 1                 # data parallel degree (incl. pod axis)
     fsdp: bool = False          # params/opt-state sharded over dp
+    ep: int = 1                 # expert parallel degree
     seq_shard_decode: int = 1   # flash-decoding shards
     remat: bool = True
     microbatches: int = 1       # gradient accumulation (live activations / n)
@@ -151,10 +152,16 @@ def _add_attn_flops(fwd: float, cfg: ModelConfig, b: int, s: int) -> float:
 
 
 def weight_bytes(cfg: ModelConfig, desc: ParallelismDesc) -> float:
-    """Per-chip parameter bytes under the plan: sharded over tp (× dp when
-    FSDP)."""
+    """Per-chip parameter bytes under the plan.  Routed expert banks shard
+    over ep × tp; the dense remainder over tp (× dp when FSDP)."""
+    total = cfg.param_count() * 2.0
     dense_shards = desc.tp * (desc.dp if desc.fsdp else 1)
-    return cfg.param_count() * 2.0 / max(dense_shards, 1)
+    if desc.ep > 1 and cfg.moe is not None:
+        expert = sum(cfg.moe.n_experts * cfg._mlp_params(cfg.moe.d_expert)
+                     for sp in cfg.layer_plan() if sp.mlp == "moe") * 2.0
+        dense = total - expert
+        return dense / max(dense_shards, 1) + expert / (desc.ep * desc.tp)
+    return total / max(dense_shards, 1)
 
 
 def optimizer_bytes(cfg: ModelConfig, desc: ParallelismDesc) -> float:
@@ -197,7 +204,8 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         ct.hbm_bytes = 3.0 * ct.weight_bytes_chip + 2.0 * act_traffic \
             + 2.0 * ct.opt_bytes_chip
         # collectives: TP 4 allreduce/layer of local activation slab,
-        # DP grad reduce-scatter+allgather, FSDP weight allgather
+        # DP grad reduce-scatter+allgather, FSDP weight allgather, the EP
+        # all-to-all of each MoE layer's dispatch and combine
         coll = ct.coll_parts
         if desc.tp > 1:
             ring = 2.0 * (desc.tp - 1) / desc.tp
@@ -207,6 +215,10 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
             coll.append((desc.dp, 2.0 * grad_bytes * (desc.dp - 1) / desc.dp))
             if desc.fsdp:  # extra allgather
                 coll.append((desc.dp, grad_bytes * (desc.dp - 1) / desc.dp))
+        if desc.ep > 1 and cfg.moe is not None:
+            n_moe = sum(1 for sp in cfg.layer_plan() if sp.mlp == "moe")
+            coll.append((desc.ep, 2.0 * tokens_local * d * 2.0
+                         * cfg.moe.top_k * n_moe))
         ct.kv_bytes_chip = 0.0
         return ct
 

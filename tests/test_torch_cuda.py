@@ -59,6 +59,10 @@ FLASH_CASES = [
     (4, 1536, 1536, 16, 16, 64, 64, False, None, None, 0),
     (4, 448, 1536, 16, 16, 64, 64, False, None, None, 0),
     (4, 4, 1536, 16, 16, 64, 64, False, None, None, 0),
+    # llama4-maverick's group 5 (40 over 8 heads) at D = 128, at the serve
+    # prefill and at length (its main path runs them in bf16)
+    (4, 16, 16, 40, 8, 128, 128, True, None, None, 0),
+    (2, 300, 300, 40, 8, 128, 128, True, None, None, 0),
 ]
 
 DECODE_CASES = [
@@ -98,6 +102,10 @@ DECODE_CASES = [
     (4, 64, 32, 16, 128, 128, 50.0, None, [24, 20, 17, 31]),
     (4, 1536, 16, 16, 64, 64, None, None, [1536] * 4),
     (4, 480, 16, 16, 64, 64, None, None, [449, 301, 65, 5]),
+    # llama4-maverick's group 5 at D = 128: the serve decode and the long
+    # batch's
+    (4, 64, 40, 8, 128, 128, None, None, [24, 20, 17, 31]),
+    (4, 1088, 40, 8, 128, 128, None, None, [1041, 1041, 700, 1]),
 ]
 
 PAGED_CASES = [
@@ -123,6 +131,9 @@ PAGED_CASES = [
     (4, 1, 16, 16, 128, 128, 8, 8, 40, None),
     (4, 5, 16, 16, 128, 128, 8, 8, 40, None),
     (4, 1, 28, 4, 128, 128, 8, 8, 40, None),
+    # llama4-maverick's paged decode and verify window (group 5)
+    (4, 1, 40, 8, 128, 128, 8, 8, 40, None),
+    (4, 5, 40, 8, 128, 128, 8, 8, 40, None),
 ]
 
 # K1's page splits: 66 16-token pages give paged_splits(66, 16) = (14, 5),
@@ -635,3 +646,44 @@ def test_encdec_on_card_matches_cpu(cuda):
             assert decode_attention.launches - n_dec == 2 * cfg.n_layers * 4
     assert (got["cpu"][0] - got[str(cuda)][0]).abs().max().item() <= 1e-4
     assert torch.equal(got["cpu"][1], got[str(cuda)][1])
+
+
+def test_llama4_bf16_engines_on_card_match_cpu(cuda):
+    """The reduced llama4-maverick at group 5 (10 over 2 heads; a dense
+    layer, then a top-1 MoE layer) in bf16, its deployment dtype: prefill
+    logits on the card against the CPU within 3e-2 of the largest logit,
+    and the padded and paged engines run with bf16 caches and pools; K2
+    once per layer and prefill, K3 once per layer and padded step, K1 once
+    per layer and paged step."""
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b").reduced(),
+                              n_heads=10, n_kv_heads=2)
+    g = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, tokens=torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=g).tolist(),
+                    input_len=n, slo=1.0, arrival=float(i), true_output_len=6)
+            for i, n in enumerate((5, 14, 9, 3, 11))]
+    cpu = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    card = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device=cuda)
+    toks = torch.randint(2, cfg.vocab_size, (3, 12), generator=g)
+    kv_len = torch.tensor([12, 7, 3], dtype=torch.int32)
+    lg, _ = api.prefill(cfg, cpu, {"tokens": toks}, cache_len=16, kv_len=kv_len)
+    lgc, cache = api.prefill(cfg, card, {"tokens": toks.to(cuda)},
+                             cache_len=16, kv_len=kv_len.to(cuda))
+    assert cache[0]["k"].dtype == torch.bfloat16
+    assert (lgc.cpu() - lg).abs().max().item() <= \
+        3e-2 * lg.abs().max().item()
+    eng = InferenceEngine(cfg, card, EngineConfig(max_batch=3, cache_len=32,
+                                                  max_new_tokens=6))
+    n_fa, n_dec, n_pag = flash_attention.launches, decode_attention.launches, \
+        paged_window_attention.launches
+    res = eng.run_batch(Batch(requests=reqs[:3]),
+                        true_lens={r.rid: 6 for r in reqs})
+    paged = PagedEngine(cfg, card, PagedEngineConfig(
+        max_batch=3, block_size=8, n_blocks=32, max_seq_len=32,
+        max_new_tokens=6), dtype=torch.bfloat16).run_continuous(reqs)
+    assert len(res.outputs) == 3 and len(paged.outputs) == 5
+    assert decode_attention.launches - n_dec == cfg.n_layers * res.steps
+    assert paged_window_attention.launches - n_pag == \
+        cfg.n_layers * paged.steps
+    assert flash_attention.launches - n_fa == \
+        cfg.n_layers * (1 + paged.prefill_chunks)

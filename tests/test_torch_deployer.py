@@ -28,7 +28,8 @@ from repro_torch.perf import cost_model
 from repro_torch.sharding import ShardingPlan
 
 ARCHS = ["smollm-135m", "rwkv6-3b", "chatglm2-6b", "qwen2-1.5b", "gemma2-27b",
-         "minicpm3-4b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "whisper-medium"]
+         "minicpm3-4b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "whisper-medium",
+         "llama4-maverick-400b-a17b"]
 REL = 1e-12
 
 # The reference's TPU-v5e constants as the port's HWSpec.  The reference
@@ -140,13 +141,13 @@ def _terms(ct, ref=None):
 
 def _port_fields(jdesc):
     """The reference desc's fields that the port's ParallelismDesc keeps;
-    those it drops (expert parallelism, absorbed MLA, sequence-sharded
-    attention, unsharded residuals, a causal discount, quantized KV) must
-    be at the values the port folds in."""
+    those it drops (absorbed MLA, sequence-sharded attention, unsharded
+    residuals, a causal discount, quantized KV) must be at the values the
+    port folds in."""
     kept = {f.name for f in dataclasses.fields(cost_model.ParallelismDesc)}
     fields = dataclasses.asdict(jdesc)
     assert {k: v for k, v in fields.items() if k not in kept} == \
-        {"ep": 1, "mla_absorbed": False, "attn_mode": "tp",
+        {"mla_absorbed": False, "attn_mode": "tp",
          "seq_parallel_resid": True, "causal_discount": 1.0,
          "kv_bytes_per": 2}
     return {k: v for k, v in fields.items() if k in kept}
@@ -289,3 +290,81 @@ def test_mla_decode_cost_matches_jax(kw):
         jax_cost_model.ParallelismDesc(mla_absorbed=True, **kw))
     assert absorbed.flops < got.flops and absorbed.hbm_bytes < got.hbm_bytes
     assert absorbed.kv_bytes_chip == got.kv_bytes_chip
+
+
+LLAMA4 = "llama4-maverick-400b-a17b"
+# a long-context decode at batch 1 (the reference's longctx plans): the
+# port's SHAPES have none for a full-attention arch (long_500k is skipped)
+LONGCTX_B1 = dict(name="decode_32k_b1", seq_len=32_768, global_batch=1,
+                  kind="decode")
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k",
+                                   "decode_32k_b1"])
+def test_ep16_plans_match_jax_at_tpu_v5e(shape):
+    """llama4-maverick's 128 experts split 16 ways, so ``candidate_plans``
+    offers the reference's expert-parallel plans (``ep16_tp16`` and its
+    ``_fsdp`` / ``_mbN`` variants when training, ``longctx_ep16`` at batch
+    1), in the reference's order, with its plans, descs, fits and step
+    times at TPU v5e."""
+    if shape == "decode_32k_b1":
+        sh = dataclasses.replace(SHAPES["decode_32k"], **LONGCTX_B1)
+        jsh = dataclasses.replace(JAX_SHAPES["decode_32k"], **LONGCTX_B1)
+    else:
+        sh, jsh = SHAPES[shape], JAX_SHAPES[shape]
+    cfg, jcfg = get_config(LLAMA4), jax_get_config(LLAMA4)
+    for multi_pod in (False, True):
+        got = deployer.candidate_plans(cfg, sh, multi_pod=multi_pod,
+                                       hw=TPU_V5E)
+        want = jax_deployer.candidate_plans(jcfg, jsh, multi_pod=multi_pod)
+        names = [c.name for c in got]
+        assert names == [c.name for c in want]
+        ep = [c for c in got if "ep16" in c.name]
+        assert ep and all((c.plan.ep_axis, c.desc.ep) == ("data", 16)
+                          for c in ep)
+        if shape == "decode_32k_b1":
+            assert names == ["longctx_ep16", "longctx_seqshard"]
+        if shape == "train_4k":
+            assert {"ep16_tp16_fsdp_mb8", "ep16_tp16_mb4"} <= set(names)
+        for a, b in zip(got, want):
+            assert (a.fits, a.hbm_used, a.step_time) == \
+                (b.fits, b.hbm_used, b.step_time)
+            assert _plan_fields(a.plan) == _plan_fields(b.plan)
+            assert dataclasses.asdict(a.desc) == _port_fields(b.desc)
+            assert _terms(a.cost, b.cost) == _terms(b.cost)
+        pick = deployer.helr_mesh(cfg, sh, multi_pod=multi_pod, hw=TPU_V5E)
+        jpick = jax_deployer.helr_mesh(jcfg, jsh, multi_pod=multi_pod)
+        assert (pick.name, pick.step_time) == (jpick.name, jpick.step_time)
+
+
+def test_ep_weights_and_all_to_all():
+    """Under ep16 × tp16 the routed banks shard 256 ways and the rest 16;
+    a training step's expert all-to-all (dispatch and combine of every MoE
+    layer) is a collective of the 16-chip expert group, so on H100s it
+    crosses InfiniBand, as every 16-wide group does."""
+    cfg = get_config(LLAMA4)
+    desc = cost_model.ParallelismDesc(n_chips=256, tp=16, dp=16, ep=16)
+    plain = cost_model.ParallelismDesc(n_chips=256, tp=16, dp=16)
+    n_moe = sum(1 for s in cfg.layer_plan() if s.mlp == "moe")
+    banks = 2.0 * n_moe * cfg.moe.n_experts * cfg._mlp_params(cfg.moe.d_expert)
+    total = 2.0 * cfg.param_count()
+    assert cost_model.weight_bytes(cfg, desc) == pytest.approx(
+        (total - banks) / 16 + banks / 256, rel=REL)
+    assert cost_model.weight_bytes(cfg, plain) == total / 16
+    train = SHAPES["train_4k"]
+    ct = cost_model.step_cost(cfg, train, desc)
+    base = cost_model.step_cost(cfg, train, plain)
+    assert len(ct.coll_parts) == len(base.coll_parts) + 1
+    group, nbytes = ct.coll_parts[-1]
+    tokens_local = train.global_batch * train.seq_len / 16
+    assert group == 16
+    assert nbytes == pytest.approx(
+        2.0 * tokens_local * cfg.d_model * 2.0 * cfg.moe.top_k * n_moe, rel=REL)
+    assert ct.times(H100)["collective_s"] - base.times(H100)["collective_s"] \
+        == pytest.approx(nbytes / H100.dcn_bw, rel=1e-9)
+    # serving steps have no all-to-all term in the reference's model
+    for shape in ("prefill_32k", "decode_32k"):
+        assert [g for g, _ in cost_model.step_cost(
+            cfg, SHAPES[shape], desc).coll_parts] == \
+            [g for g, _ in cost_model.step_cost(
+                cfg, SHAPES[shape], plain).coll_parts]

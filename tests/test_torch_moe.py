@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import SHAPES as JAX_SHAPES
 from repro.configs import get_config as jax_get_config
+from repro.core import deployer as jax_deployer
 from repro.core.types import Request as JaxRequest
 from repro.launch import serve as jax_serve
 from repro.models import api as jax_api
@@ -282,14 +284,24 @@ def test_paged_engine_matches_jax(init_weights, flags):
 
 def test_paged_serve_runs_and_candidate_plans_gate_ep16():
     """``serve --paged`` serves qwen2-moe (every mixer is full GQA
-    attention, as the reference's ``paged_compatible`` says), and an MoE
-    arch whose experts split 16 ways is refused by ``candidate_plans``,
-    whose expert-parallel plans are not ported."""
+    attention, as the reference's ``paged_compatible`` says), and
+    ``candidate_plans`` offers the expert-parallel ep16 plans only to an
+    MoE arch whose experts split 16 ways: none to qwen2-moe's 60, and
+    ``ep16_tp16`` to a 64-expert variant, as the reference does."""
     assert api.paged_compatible(get_config(ARCH)) == (True, "")
     out = serve.main(["--arch", ARCH, "--device", "cpu", "--paged",
                       "--requests", "4", "--max-new", "4"])
     assert len(out["outputs"]) == 4
-    cfg = get_config(ARCH)
-    e64 = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, n_experts=64))
-    with pytest.raises(NotImplementedError, match="ep16"):
-        deployer.candidate_plans(e64, SHAPES["decode_32k"], multi_pod=False)
+    cfg, jcfg = get_config(ARCH), jax_get_config(ARCH)
+    names = [c.name for c in deployer.candidate_plans(
+        cfg, SHAPES["decode_32k"], multi_pod=False)]
+    assert not any("ep16" in n for n in names)
+    e64, je64 = (dataclasses.replace(c, moe=dataclasses.replace(
+        c.moe, n_experts=64)) for c in (cfg, jcfg))
+    got = deployer.candidate_plans(e64, SHAPES["decode_32k"], multi_pod=False)
+    want = jax_deployer.candidate_plans(je64, JAX_SHAPES["decode_32k"],
+                                        multi_pod=False)
+    assert [c.name for c in got] == [c.name for c in want]
+    assert "ep16_tp16" in [c.name for c in got]
+    ep = next(c for c in got if c.name == "ep16_tp16")
+    assert (ep.plan.ep_axis, ep.desc.ep) == ("data", 16)

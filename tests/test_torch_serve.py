@@ -266,8 +266,8 @@ def test_fit_depth_keeps_whole_group_periods(arch):
             c.moe, moe_period=2)) for c in (full, jfull))
     period = group_period(full)
     assert period == jax_transformer.group_period(jfull)
-    assert period == (2 if name == "gemma2-27b" or arch.endswith("period2")
-                      else 1)
+    assert period == (2 if name in ("gemma2-27b", "llama4-maverick-400b-a17b")
+                      or arch.endswith("period2") else 1)
     assert serve.fit_depth(full, 4 * full.param_count()) is full
     assert serve.fit_depth(full, 1e15) is full
     f32 = {n: 4 * dataclasses.replace(full, n_layers=n).param_count()
@@ -296,6 +296,28 @@ def test_fit_depth_keeps_whole_group_periods(arch):
         assert serve.fit_depth(full, serve.WEIGHT_SHARE * H100.hbm_bytes) is full
 
 
+@pytest.mark.parametrize("bytes_per_param", [4, 2], ids=["f32", "bf16"])
+def test_fit_depth_llama4_at_the_weights_element_size(bytes_per_param):
+    """llama4-maverick-400b-a17b on one 80 GB H100 (0.7 of its memory for
+    the weights): not one two-layer period (a dense layer, then 128
+    experts) fits in f32, 74.2 GB, and ``fit_depth`` raises naming it; in
+    bf16 the period takes 37.1 GB, and it keeps those 2 layers."""
+    full = get_config("llama4-maverick-400b-a17b")
+    budget = serve.WEIGHT_SHARE * H100.hbm_bytes
+    one = bytes_per_param * dataclasses.replace(full, n_layers=2).param_count()
+    assert round(one / 1e8) == (742 if bytes_per_param == 4 else 371)
+    if bytes_per_param == 4:
+        for args in ((), (4,)):       # 4 bytes a parameter is the default
+            with pytest.raises(ValueError,
+                               match=re.escape(f"{one:.4g} bytes")):
+                serve.fit_depth(full, budget, *args)
+        return
+    cut = serve.fit_depth(full, budget, bytes_per_param)
+    assert cut.n_layers == 2 and cut.d_model == full.d_model
+    assert [s.mlp for s in cut.layer_plan()] == ["dense", "moe"]
+    assert one <= budget < 2 * one
+
+
 def test_serve_cli_flags(monkeypatch):
     ap = serve.build_parser()
     assert ap.parse_args([]).reduced is True
@@ -318,7 +340,7 @@ def test_serve_cli_flags(monkeypatch):
 
 def test_get_config_names_the_later_slice():
     with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("llama4-maverick-400b-a17b")
+        get_config("jamba-1.5-large-398b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
