@@ -64,28 +64,28 @@ Phases, in order; any failed check exits non-zero:
    4 of the 32 layers (so the host holds no second full copy).
 8. dense serve: ``serve --arch qwen2-1.5b`` at full width (28 layers,
    d_model 1536, 12 heads over 2 KV heads of 128, vocab 151,936) on the
-   padded path; then chatglm2-6b, the paper's own model, at full width (28
-   layers, d_model 4096, 32 heads over 2 KV heads of 128), its weights drawn
-   once and served through ``serve.serve`` padded, ``--continuous`` and
-   ``--paged`` (a 2e7-byte pool), then one long padded batch (4 x 1024-token
-   prompts, 32 new tokens); checks that flash attention ran once per layer
+   padded path; then chatglm2-6b, the paper's own model, at full width
+   (d_model 4096, 32 heads over 2 KV heads of 128) and 14 of its 28
+   layers, its weights drawn once and served through ``serve.serve``
+   padded, ``--continuous`` and ``--paged`` (a 2e7-byte pool), then one
+   long padded batch (4 x 1024-token prompts, 32 new tokens); checks that flash attention ran once per layer
    on every prefill, decode attention once per layer on every padded
    decode step and paged attention on every paged step (and WKV6 never),
    profiles the long prefill and a decode step, and checks the first
    batch's logits on the card against the CPU at full width and the first
-   2 of the 28 layers, for both models.
+   2 layers, for both models.
 9. window and MLA serve (``[window]`` and ``[mla]`` lines): gemma2-27b at
    full width (d_model 4608, 32 heads over 16 KV heads of 128, d_ff 36,864,
    vocab 256,000, local layers with a 4,096-token window and softcap 50),
-   its depth cut from 46 to 12 layers (6 local/global pairs; ``serve.main``
+   its depth cut from 46 to 6 layers (3 local/global pairs; ``serve.main``
    would keep 24 on an 80 GB card, ``serve.fit_depth``, which is checked
    on the host), drawn once and served through ``serve.serve``
    padded and ``--continuous`` (cache_len 64: every local layer keeps a
    ring of 64), then one long padded batch of prompts of 4,608 and 4,300
    tokens (32 new, cache_len 4,640: the local layers keep a ring of 4,096
-   that wraps); then minicpm3-4b (Multi-head Latent Attention, 62 layers,
-   d_model 2560, 40 heads, D = 96, Dv = 64) at full width and depth, padded
-   and ``--continuous``, and a 4 x 1024 padded batch.  Checks that flash
+   that wraps); then minicpm3-4b (Multi-head Latent Attention, d_model
+   2560, 40 heads, D = 96, Dv = 64) at full width and 31 of its 62 layers,
+   padded and ``--continuous``, and a 4 x 1024 padded batch.  Checks that flash
    attention ran once per layer on every prefill, decode attention once per
    layer on every gemma2-27b decode step (its local layers through the
    ring) and never on minicpm3-4b (latent-space decode with torch ops),
@@ -94,11 +94,11 @@ Phases, in order; any failed check exits non-zero:
    at full width and 2 layers of each (gemma2-27b: one local, one global).
 10. MoE and M-RoPE serve (``[moe]`` and ``[vlm]`` lines): qwen2-moe-a2.7b at
    full width (d_model 2048, 16 heads over 16 KV heads of 128, 60 routed
-   experts top-4 and 4 shared ones of 1,408 units, vocab 151,936) and 12 of
+   experts top-4 and 4 shared ones of 1,408 units, vocab 151,936) and 6 of
    its 24 layers (``serve.fit_depth`` would keep all 24, 57.25 GB of f32
    weights, which is checked on the host), then qwen2-vl-7b at full width
-   and depth (28 layers, d_model
-   3584, 28 heads over 4 KV heads of 128, M-RoPE; 30.46 GB), each drawn
+   (d_model 3584, 28 heads over 4 KV heads of 128, M-RoPE) and 14 of its
+   28 layers (all 28, 30.46 GB, would fit), each drawn
    once and served through ``serve.serve`` padded, ``--continuous`` and
    ``--paged`` (a 1.1e8-byte pool: 34 pages of 8 tokens for qwen2-moe),
    then one long padded batch (4 x 1024-token prompts, 32 new tokens).
@@ -143,6 +143,25 @@ Phases, in order; any failed check exits non-zero:
    on the card's own weights moved back, within 3e-2 of the largest logit
    (bf16), the argmax equal wherever the top two logits are further apart
    than that, the router margin beside.
+13. jamba (``[jamba]`` lines, and ``[moe] jamba:`` ones): ``serve.fit_depth``
+   must raise in f32 and in bf16 (one group period of 8 layers with the
+   embeddings is 90.2 GB in bf16), and so must ``serve --no-reduced`` and
+   ``serve --paged`` (the Mamba state is recurrent, not a KV cache, as the
+   reference says); the first five layers (Mamba with a dense MLP, Mamba
+   with 16 experts top-2, twice, then the attention layer; 23.98 G
+   parameters, 47.96 GB in bf16) at full width (d_model 8192, 64 heads over
+   8 KV heads of 128 with no positions, Mamba d_inner 16,384, d_state 16,
+   d_ff 24,576, experts of 24,576, vocab 65,536) drawn once in bf16 and
+   served through ``serve.serve`` padded and ``--continuous``, then a 4 x
+   1024 padded batch with ``[profile]`` lines; one Mamba layer's prefill
+   and its scan at T = 4,096 against the scan's bytes; the largest prefill
+   drop fraction, the expert GEMMs, a decode step's bytes against its
+   device time; the HELR plan at ``decode_32k``; K2 exactly 1 a prefill,
+   K3 1 a step (only layer 4 attends), K1 and K4 never; card-vs-CPU logits
+   at all five layers on the card's weights moved back, within 3e-2 of the
+   largest logit, the argmax equal wherever the top two are further apart.
+   jamba's group-8 shapes of K2 and K3 (64 over 8 heads, D = 128) are
+   timed in bf16, as llama4's are.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  A ``[phase]`` line gives each phase's seconds.  The last three
@@ -191,7 +210,7 @@ from repro_torch.kernels.paged_attention.ops import paged_splits  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve  # noqa: E402
-from repro_torch.models import api, moe  # noqa: E402
+from repro_torch.models import api, mamba, moe  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
@@ -216,12 +235,22 @@ LONG_PROMPT, LONG_NEW, LONG_CACHE = 1024, 32, 1088
 # wide enough for 32 new tokens (its local layers keep a ring of 4,096)
 GEMMA2_WINDOW = 4096
 GEMMA2_LONG, GEMMA2_CACHE = (4608, 4300), 4640
-# the depths phases 9 and 10 run at full width: 6 of gemma2-27b's
-# local/global pairs (fit_depth keeps 24 of 46 layers on an 80 GB card), 12
-# of qwen2-moe-a2.7b's 24 MoE layers (fit_depth keeps all 24): the host's
-# draws of their f32 weights took most of those phases' time
-GEMMA2_LAYERS, QWEN2_MOE_LAYERS = 12, 12
+# the depths phases 8-10 run at full width, in whole group periods, so
+# that the script, jamba's phase 13 included, stays within 900 s: the
+# host's draws of their f32 weights take most of those phases' time.  3 of
+# gemma2-27b's local/global pairs (fit_depth keeps 24 of 46 layers on an
+# 80 GB card), 6 of qwen2-moe-a2.7b's 24 MoE layers and 14 of qwen2-vl-7b's
+# 28 (fit_depth keeps all of either), 31 of minicpm3-4b's 62, 14 of
+# chatglm2-6b's 28
+GEMMA2_LAYERS, QWEN2_MOE_LAYERS, QWEN2_VL_LAYERS = 6, 6, 14
+MINICPM3_LAYERS, CHATGLM2_LAYERS = 31, 14
 LLAMA4 = "llama4-maverick-400b-a17b"
+# phase 13: jamba's first five layers (Mamba/dense, Mamba/MoE, Mamba/dense,
+# Mamba/MoE, attention/dense) at full width in bf16: one group period of
+# 8 layers is 90.2 GB in bf16
+JAMBA, JAMBA_LAYERS = "jamba-1.5-large-398b", 5
+JAMBA_PLAN = [("mamba", "dense"), ("mamba", "moe"), ("mamba", "dense"),
+              ("mamba", "moe"), ("attn", "dense")]
 # phase 12's paged pool: a bf16 page of 8 tokens is 8 x 2 layers x (K, V)
 # x 8 KV heads x 128 x 2 B = 64 KiB; 4e6 B buy 61, 4 slots of 8 and more
 LLAMA4_BUDGET = "4e6"
@@ -302,6 +331,11 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("llama4_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 40, 8, 128, 128,
      True, None, None, 0),
     ("llama4_serve_prefill", 4, 16, 16, 40, 8, 128, 128, True, None, None, 0),
+    # jamba-1.5-large (group 8: 64 over 8 heads, D = 128, no window; bf16 on
+    # its main path): the long batch's 4 x 1024 and the serve prefill
+    ("jamba_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 64, 8, 128, 128,
+     True, None, None, 0),
+    ("jamba_serve_prefill", 4, 16, 16, 64, 8, 128, 128, True, None, None, 0),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
@@ -312,7 +346,8 @@ FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "qwen2_vl_long_prefill", "qwen2_moe_serve_prefill",
                "qwen2_vl_serve_prefill", "whisper_encoder",
                "whisper_cross_prefill", "whisper_short_cross_prefill",
-               "llama4_long_prefill", "llama4_serve_prefill")
+               "llama4_long_prefill", "llama4_serve_prefill",
+               "jamba_long_prefill", "jamba_serve_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -368,6 +403,12 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      [1041] * 4),
     ("llama4_serve_decode", 4, 64, 40, 8, 128, 128, None, None,
      [24, 20, 17, 31]),
+    # jamba-1.5-large (group 8, D = 128): the long batch's first decode step
+    # (4 x kv 1041) and the serve decode
+    ("jamba_long_decode", 4, LONG_CACHE, 64, 8, 128, 128, None, None,
+     [1041] * 4),
+    ("jamba_serve_decode", 4, 64, 64, 8, 128, 128, None, None,
+     [24, 20, 17, 31]),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
@@ -376,7 +417,8 @@ DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "qwen2_moe_serve_decode", "qwen2_vl_serve_decode",
                 "gemma2_serve_decode", "whisper_cross_decode",
                 "whisper_self_decode", "llama4_long_decode",
-                "llama4_serve_decode")
+                "llama4_serve_decode", "jamba_long_decode",
+                "jamba_serve_decode")
 # gemma2-27b's local layers in the long batch's decode: a ring of 4,096
 # slots after the wrap, as DECODE_CASES but with kv_len the query's
 # position; K3 over the first min(kv_len + 1, w) slots (``ring_kernel``)
@@ -439,7 +481,8 @@ PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window",
 # cases timed in bf16, the dtype of their main path (every other one in f32)
 BF16_TIMED = ("llama4_long_prefill", "llama4_serve_prefill",
               "llama4_long_decode", "llama4_serve_decode",
-              "llama4_paged_serve_decode")
+              "llama4_paged_serve_decode", "jamba_long_prefill",
+              "jamba_serve_prefill", "jamba_long_decode", "jamba_serve_decode")
 WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     ("rwkv_serve_prefill", 4, 16, 40, 64, 64, 32, 2.0, None, False),
     ("rwkv_long_prefill", 4, LONG_PROMPT, 40, 64, 64, 32, 2.0, None, False),
@@ -1045,15 +1088,22 @@ def reset_launches() -> None:
     wkv6.launches = 0
 
 
+def kernel_layers(cfg) -> int:
+    """The layers whose mixer runs a kernel: the attention and RWKV-6 ones
+    (a Mamba layer runs torch ops)."""
+    return sum(sp.mixer in ("attn", "rwkv6") for sp in cfg.layer_plan())
+
+
 def check_launches(what: str, prefills: int, steps: int, n_layers: int,
                    paged: bool = False, rwkv: bool = False,
                    mla: bool = False) -> dict:
-    """Launches of the path just run: flash attention once per layer and
-    prefill call, the decode kernel (paged attention on a paged path) once
-    per layer and decode or verify step, the other decode kernel and WKV6
-    never; on an MLA path no decode kernel (it decodes in the latent space
-    with torch ops); on an rwkv path WKV6 once per layer and prefill call
-    and no attention kernel."""
+    """Launches of the path just run: flash attention once per attention
+    layer (``n_layers`` of them) and prefill call, the decode kernel (paged
+    attention on a paged path) once per attention layer and decode or
+    verify step, the other decode kernel and WKV6 never; on an MLA path no
+    decode kernel (it decodes in the latent space with torch ops); on an
+    rwkv path WKV6 once per layer and prefill call and no attention
+    kernel."""
     got = read_launches()
     want = {"flash_attention": n_layers * prefills,
             "decode_attention": 0 if paged else n_layers * steps,
@@ -1389,7 +1439,7 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
         prefills = results[0].prefill_chunks
     elif mode == "padded" and prefills != len(results):
         fail(f"{what}: {prefills} prefills for {len(results)} batches")
-    got = check_launches(what, prefills, steps, cfg.n_layers,
+    got = check_launches(what, prefills, steps, kernel_layers(cfg),
                          paged=mode == "paged", rwkv=cfg.rwkv is not None,
                          mla=cfg.mla is not None)
     check_outputs(what, cfg, out["outputs"])
@@ -1404,9 +1454,10 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
 
 
 def phase_dense() -> dict:
-    """qwen2-1.5b through ``serve.main`` (padded), then chatglm2-6b drawn
-    once and served padded, continuous and paged through ``serve.serve``,
-    and its long padded batch; card-vs-CPU logits at 2 of 28 layers."""
+    """qwen2-1.5b through ``serve.main`` (padded), then chatglm2-6b at full
+    width and 14 of its 28 layers, drawn once and served padded,
+    continuous and paged through ``serve.serve``, and its long padded
+    batch; card-vs-CPU logits at 2 layers."""
     runs, launches = {}, {k: 0 for k in TIMED}
 
     def add(got):
@@ -1422,12 +1473,13 @@ def phase_dense() -> dict:
     del out
     torch.cuda.empty_cache()
 
-    cfg = get_config("chatglm2-6b")
+    cfg = replace(get_config("chatglm2-6b"), n_layers=CHATGLM2_LAYERS)
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     init_s = time.perf_counter() - t0
-    plan = helr_mesh(cfg, SHAPES["decode_32k"]).name
-    print(f"[dense] chatglm2-6b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+    plan = helr_mesh(get_config("chatglm2-6b"), SHAPES["decode_32k"]).name
+    print(f"[dense] chatglm2-6b ({cfg.n_layers} of 28 layers, d_model "
+          f"{cfg.d_model}, "
           f"{cfg.param_count():.4g} parameters) drawn and moved in "
           f"{init_s:.1f} s; plan for production mesh: {plan}", flush=True)
     reqs = serve.make_requests(cfg, 12, 16)
@@ -1476,7 +1528,8 @@ def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
     eng.run_batch(batch, true_lens=true_lens)
     reset_launches()
     long = eng.run_batch(batch, true_lens=true_lens)
-    got = check_launches(f"{name} long batch", 1, long.steps, cfg.n_layers,
+    got = check_launches(f"{name} long batch", 1, long.steps,
+                         kernel_layers(cfg),
                          rwkv=cfg.rwkv is not None, mla=cfg.mla is not None)
     check_outputs(f"{name} long batch", cfg, long.outputs, n=len(prompts))
     tokens = sum(len(v) for v in long.outputs.values())
@@ -1540,13 +1593,13 @@ def serve_modes(tag: str, name: str, cfg, params,
 
 
 def phase_window_mla() -> dict:
-    """gemma2-27b at full width and 12 of its 46 layers, drawn once:
+    """gemma2-27b at full width and 6 of its 46 layers, drawn once:
     served padded and continuous (cache_len 64, so every local layer keeps
     a ring of 64), then a long padded batch whose prompts pass the 4,096
     window (the local layers' rings wrap), card-vs-CPU logits at 2 layers
-    (one local, one global); then minicpm3-4b at full width and depth, the
-    same serve paths, a 4 x 1024 batch, and card-vs-CPU logits at 2 of 62
-    layers."""
+    (one local, one global); then minicpm3-4b at full width and 31 of its
+    62 layers, the same serve paths, a 4 x 1024 batch, and card-vs-CPU
+    logits at 2 layers."""
     launches = {k: 0 for k in TIMED}
     runs, long, profile, errs = {}, {}, {}, {}
 
@@ -1603,13 +1656,14 @@ def phase_window_mla() -> dict:
         replace(full, n_layers=WINDOW_PARITY_LAYERS),
         [reqs[rid].tokens for rid in first], "window")
 
-    cfg = get_config("minicpm3-4b")
+    cfg = replace(get_config("minicpm3-4b"), n_layers=MINICPM3_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
     init_s["minicpm3"] = time.perf_counter() - t0
-    plan["minicpm3"] = helr_mesh(cfg, SHAPES["decode_32k"]).name
-    print(f"[mla] minicpm3-4b at full width and depth ({cfg.n_layers} layers, "
+    plan["minicpm3"] = helr_mesh(get_config("minicpm3-4b"),
+                                 SHAPES["decode_32k"]).name
+    print(f"[mla] minicpm3-4b at full width ({cfg.n_layers} of 62 layers, "
           f"d_model {cfg.d_model}, {cfg.n_heads} heads, latent "
           f"{cfg.mla.kv_lora_rank} + rope {cfg.mla.qk_rope_head_dim}, D "
           f"{cfg.head_dim_eff}, Dv {cfg.v_head_dim_eff}): "
@@ -1749,9 +1803,9 @@ def moe_report(name: str, cfg, params, seen, step: dict) -> dict:
 
 
 def phase_moe_vlm() -> dict:
-    """qwen2-moe-a2.7b at full width and 12 of its 24 layers, then
-    qwen2-vl-7b at full width and depth (``serve.fit_depth`` must keep
-    every layer of both), drawn once: served padded,
+    """qwen2-moe-a2.7b at full width and 6 of its 24 layers, then
+    qwen2-vl-7b at full width and 14 of its 28 (``serve.fit_depth`` must
+    keep every layer of both), drawn once: served padded,
     continuous and paged, a 4 x 1024 padded batch, card-vs-CPU logits at 2
     layers; for qwen2-moe the largest drop fraction at a prefill, the
     expert GEMMs' device time, the weight bytes a decode step reads against
@@ -1771,12 +1825,13 @@ def phase_moe_vlm() -> dict:
         if kept is not full:
             fail(f"{arch}: fit_depth cut it to {kept.n_layers} of "
                  f"{full.n_layers} layers; the card should hold it whole")
-        cfg = replace(full, n_layers=QWEN2_MOE_LAYERS) if full.moe else full
+        cfg = replace(full, n_layers=QWEN2_MOE_LAYERS if full.moe
+                      else QWEN2_VL_LAYERS)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
         init_s[name] = time.perf_counter() - t0
-        plan[name] = helr_mesh(cfg, SHAPES["decode_32k"]).name
+        plan[name] = helr_mesh(full, SHAPES["decode_32k"]).name
         experts = "" if cfg.moe is None else (
             f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} and "
             f"{cfg.moe.n_shared_experts} shared of {cfg.moe.d_expert}")
@@ -2026,13 +2081,13 @@ def phase_encdec() -> dict:
             "launches": launches}
 
 
-def llama4_logits_parity(cfg, params, prompts) -> dict:
+def bf16_logits_parity(tag: str, cfg, params, prompts) -> dict:
     """Prefill and first decode-step logits of one padded batch on the card,
     then on the CPU (plain kernel versions) with the card's own weights
     moved back (``params`` ends on the CPU): within TOL_BF16_LOGITS x the
     largest logit, the argmax equal in every row whose top two logits lie
     further apart than that tolerance; the smallest router margin of the
-    card's MoE inputs beside them."""
+    card's MoE inputs beside them.  ``tag`` heads the printed lines."""
     got = {}
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
@@ -2051,7 +2106,7 @@ def llama4_logits_parity(cfg, params, prompts) -> dict:
         got["nxt"] = nxt
         if device == "cuda":
             margin = min(seen["margin"])
-        print(f"[llama4] logits on {device}"
+        print(f"[{tag}] logits on {device}"
               + (f" after moving the weights back in {moved_s:.1f} s"
                  if device == "cpu" else "")
               + f" in {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2065,14 +2120,14 @@ def llama4_logits_parity(cfg, params, prompts) -> dict:
         top2 = cpu.topk(2, dim=-1).values
         clear = (top2[:, 0] - top2[:, 1]) > tol
         flips[name] = int((card.argmax(-1) != cpu.argmax(-1))[clear].sum())
-        print(f"[llama4] card vs CPU {name} logits at full width, both "
-              f"layers, bf16: max_abs_err {errs[name]:.3e} (tol {tol:.3e} = "
-              f"{TOL_BF16_LOGITS} x max |logit|); argmax differs in "
-              f"{flips[name]} of the {int(clear.sum())} rows whose top two "
-              f"are further apart than the tol; smallest router top-k "
-              f"margin of its MoE inputs {margin:.3e}", flush=True)
+        print(f"[{tag}] card vs CPU {name} logits at full width, all "
+              f"{cfg.n_layers} layers, bf16: max_abs_err {errs[name]:.3e} "
+              f"(tol {tol:.3e} = {TOL_BF16_LOGITS} x max |logit|); argmax "
+              f"differs in {flips[name]} of the {int(clear.sum())} rows whose "
+              f"top two are further apart than the tol; smallest router "
+              f"top-k margin of its MoE inputs {margin:.3e}", flush=True)
         if not errs[name] <= tol or flips[name]:
-            fail(f"llama4 card vs CPU {name} logits: max_abs_err "
+            fail(f"{tag} card vs CPU {name} logits: max_abs_err "
                  f"{errs[name]} (tol {tol}), {flips[name]} argmax flips")
     return {"max_abs_err": errs, "argmax_flips": flips,
             "min_router_margin": margin}
@@ -2132,13 +2187,149 @@ def phase_llama4() -> dict:
     moe_rec = moe_report("llama4", cfg, params, seen,
                          profile["llama4 long decode step"])
     reqs = {r.rid: r for r in reqs}
-    parity = llama4_logits_parity(cfg, params,
-                                  [reqs[rid].tokens for rid in first])
+    parity = bf16_logits_parity("llama4", cfg, params,
+                                [reqs[rid].tokens for rid in first])
     del params
     torch.cuda.empty_cache()
     return {"runs": runs, "plan": plan, "init_s": init_s,
             "host_peak_gib": host_gib, "weight_bytes": nbytes,
             "n_layers": cfg.n_layers, "long_batch": long, "profile": profile,
+            "moe": moe_rec, "logits": parity, "launches": launches}
+
+
+def mamba_prefill_times(cfg, params, b: int, t: int) -> dict:
+    """Device time of one Mamba mixer's prefill (the first layer's weights)
+    over seeded x [b, t, d] in the weights' dtype, and of its scan alone
+    (``mamba.selective_scan`` on the same layer's f32 inputs), beside two
+    bounds of the scan's bytes: the f32 [b, t, d_in, N] decays and states
+    that the torch-ops scan makes, each written once and read once; and a
+    fused scan's, which keeps the state on chip and moves only x and dt
+    ([b, t, d_in] f32), B and C ([b, t, N] f32) and y ([b, t, d_in] f32)."""
+    p = next(blk.mixer for blk, sp in zip(params.blocks, cfg.layer_plan())
+             if sp.mixer == "mamba")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(b, t, cfg.d_model, generator=gen,
+                    device="cuda").to(p.in_proj.w.dtype)
+    d_in, n = cfg.mamba.expand * cfg.d_model, cfg.mamba.d_state
+    with torch.inference_mode():
+        xz = x @ p.in_proj.w
+        xc = mamba._causal_conv(p, xz.chunk(2, dim=-1)[0])
+        dt, b_ssm, c_ssm = mamba._selective_inputs(p, xc, n)
+        a, xf = -torch.exp(p.a_log), xc.float()
+        torch.cuda.reset_peak_memory_stats()
+        whole = timed(lambda: mamba.mamba_prefill(cfg, p, x))
+        scan = timed(lambda: mamba.selective_scan(xf, dt, a, b_ssm, c_ssm,
+                                                  min(256, t)))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    state = 4 * b * t * d_in * n
+    rec = {"tokens": b * t, "mixer_ms": whole["ms"],
+           "mixer_launches": whole["launches_per_call"], "scan_ms": scan["ms"],
+           "scan_call_ms": scan["call_ms"],
+           "scan_launches": scan["launches_per_call"],
+           "scan_bytes_unfused": 4 * state,
+           "scan_bound_unfused_ms": 4 * state / H100.hbm_bw * 1e3,
+           "scan_bytes_fused": 4 * b * t * (3 * d_in + 2 * n),
+           "peak_device_gib": peak}
+    rec["scan_bound_fused_ms"] = rec["scan_bytes_fused"] / H100.hbm_bw * 1e3
+    print(f"[jamba] Mamba prefill of one layer at B x T = {b} x {t} (d_in "
+          f"{d_in}, d_state {n}, chunks of 256): {whole['ms']:.2f} ms of "
+          f"device time ({whole['launches_per_call']} device activities; "
+          f"CUDA events {whole['call_ms']:.2f} ms), of which the scan "
+          f"{scan['ms']:.2f} ms ({scan['launches_per_call']} activities, "
+          f"events {scan['call_ms']:.2f} ms); the scan's f32 [B, T, d_in, N] "
+          f"decays and states, each written and read once, "
+          f"{4 * state / 1e9:.2f} GB: at least "
+          f"{rec['scan_bound_unfused_ms']:.2f} ms at "
+          f"{H100.hbm_bw / 1e12:.2f} TB/s; a fused scan's "
+          f"{rec['scan_bytes_fused'] / 1e9:.3f} GB: "
+          f"{rec['scan_bound_fused_ms']:.3f} ms; peak device memory "
+          f"{peak:.1f} GiB", flush=True)
+    return rec
+
+
+def phase_jamba() -> dict:
+    """jamba-1.5-large-398b at full width: ``serve.fit_depth`` raises in f32
+    and in bf16 (one 8-layer group period is 90.2 GB in bf16), so the phase
+    takes its first five layers (every kind of layer: Mamba with a dense
+    MLP and with the MoE, and the attention layer, 48.0 GB in bf16), draws
+    them once in bf16 and serves them padded and continuous (``--paged``
+    and ``--no-reduced`` raise), a 4 x 1024 padded batch with ``[profile]``
+    lines, the Mamba prefill's time at T = 4,096 against its bytes, the
+    MoE's ``[moe]`` lines, the HELR plan, and card-vs-CPU logits at all
+    five layers on the card's own weights."""
+    torch.cuda.empty_cache()
+    full = get_config(JAMBA)
+    budget = serve.card_weight_bytes("cuda")
+    for bytes_per_param in (4, 2):
+        try:
+            serve.fit_depth(full, budget, bytes_per_param)
+        except ValueError as e:
+            print(f"[jamba] {bytes_per_param} bytes a parameter: fit_depth "
+                  f"raises: {e}", flush=True)
+        else:
+            fail(f"jamba: fit_depth kept layers at {bytes_per_param} bytes a "
+                 "parameter; not one 8-layer period fits")
+    for argv, what in ((["--no-reduced"], "fit_depth"),
+                       (["--paged", "--requests", "2"], "the paged engine")):
+        try:
+            serve.main(["--arch", JAMBA, "--device", "cuda"] + argv)
+        except ValueError as e:
+            print(f"[jamba] serve {' '.join(argv)}: {what} raises: {e}",
+                  flush=True)
+        else:
+            fail(f"jamba: serve {' '.join(argv)} did not raise")
+    cfg = replace(full, n_layers=JAMBA_LAYERS)
+    plan_seen = [(sp.mixer, sp.mlp) for sp in cfg.layer_plan()]
+    nbytes = 2 * cfg.param_count()
+    if plan_seen != JAMBA_PLAN or nbytes > budget:
+        fail(f"jamba: {JAMBA_LAYERS} layers plan {plan_seen}, {nbytes} bytes "
+             f"in bf16 against a budget of {budget}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    init_s = time.perf_counter() - t0
+    host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    plan = helr_mesh(full, SHAPES["decode_32k"]).name
+    m, mc = cfg.moe, cfg.mamba
+    print(f"[jamba] {JAMBA} at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.head_dim_eff}, "
+          f"no positions; Mamba d_inner {mc.expand * cfg.d_model}, d_state "
+          f"{mc.d_state}, d_conv {mc.d_conv}; d_ff {cfg.d_ff}, "
+          f"{m.n_experts} experts of {m.d_expert} top-{m.top_k}; vocab "
+          f"{cfg.vocab_size}), its first {cfg.n_layers} of {full.n_layers} "
+          f"layers {plan_seen} in bf16: {cfg.param_count():.4g} parameters, "
+          f"{nbytes / 1e9:.2f} GB (budget {budget / 1e9:.1f} GB), drawn on the "
+          f"host and moved in {init_s:.1f} s (peak host memory of the process "
+          f"{host_gib:.1f} GiB); plan for production mesh at decode_32k: "
+          f"{plan}", flush=True)
+    with moe_watch() as seen:
+        runs, first = serve_modes("jamba", "jamba", cfg, params)
+        long, profile, _ = long_batch("jamba", "jamba", cfg, params,
+                                      [LONG_PROMPT] * 4, LONG_CACHE)
+    launches = {k: sum(r["launches"][k] for r in list(runs.values()) + [long])
+                for k in TIMED}
+    scan = mamba_prefill_times(cfg, params, 4, LONG_PROMPT)
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.layer_plan())
+    prefill = profile["jamba long prefill"]["device_busy_ms"]
+    scan["share_of_long_prefill"] = n_mamba * scan["scan_ms"] / prefill
+    print(f"[jamba] the {n_mamba} Mamba scans take "
+          f"{n_mamba * scan['scan_ms']:.2f} ms of the long prefill's "
+          f"{prefill:.2f} ms of device time "
+          f"({scan['share_of_long_prefill']:.3f})", flush=True)
+    moe_rec = moe_report("jamba", cfg, params, seen,
+                         profile["jamba long decode step"])
+    reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
+    parity = bf16_logits_parity("jamba", cfg, params,
+                                [reqs[rid].tokens for rid in first])
+    host_after = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"[jamba] peak host memory of the process after the CPU run: "
+          f"{host_after:.1f} GiB", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return {"runs": runs, "plan": plan, "init_s": init_s,
+            "host_peak_gib": host_gib, "host_peak_after_parity_gib": host_after,
+            "weight_bytes": nbytes, "n_layers": cfg.n_layers,
+            "long_batch": long, "profile": profile, "mamba_prefill": scan,
             "moe": moe_rec, "logits": parity, "launches": launches}
 
 
@@ -2164,13 +2355,14 @@ def main() -> None:
     moe_vlm = run("moe_vlm", phase_moe_vlm)
     encdec = run("encdec", phase_encdec)
     llama4 = run("llama4", phase_llama4)
+    jamba = run("jamba", phase_jamba)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
                 + dense["launches"][k] + window_mla["launches"][k]
                 + moe_vlm["launches"][k] + encdec["launches"][k]
-                + llama4["launches"][k] for k in TIMED}
+                + llama4["launches"][k] + jamba["launches"][k] for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -2200,7 +2392,7 @@ def main() -> None:
               "profiler": PROFILER,
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
-              "llama4": llama4,
+              "llama4": llama4, "jamba": jamba,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -1,13 +1,13 @@
-"""Architecture registry of the port.  ``get_config(name)`` resolves the
-archs this slice serves; every other arch of the reference registry raises
-``NotImplementedError`` naming the ROADMAP slice that brings it."""
+"""Architecture registry of the port.  ``get_config(name)`` resolves every
+arch of the reference registry; an unknown name raises ``KeyError``."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401
-    H100, SHAPES, HWSpec, LayerSpec, MLAConfig, ModelConfig, MoEConfig,
-    RWKVConfig, ShapeConfig, cell_is_runnable, group_period, pad_to)
+    H100, SHAPES, HWSpec, LayerSpec, MambaConfig, MLAConfig, ModelConfig,
+    MoEConfig, RWKVConfig, ShapeConfig, cell_is_runnable, group_period, pad_to)
 from repro_torch.configs.chatglm2_6b import CONFIG as _CHATGLM2_6B
 from repro_torch.configs.gemma2_27b import CONFIG as _GEMMA2_27B
+from repro_torch.configs.jamba_1_5_large_398b import CONFIG as _JAMBA_1_5_LARGE
 from repro_torch.configs.llama4_maverick_400b_a17b import \
     CONFIG as _LLAMA4_MAVERICK
 from repro_torch.configs.minicpm3_4b import CONFIG as _MINICPM3_4B
@@ -28,20 +28,12 @@ _PORTED: dict[str, ModelConfig] = {"smollm-135m": _SMOLLM_135M,
                                    "qwen2-vl-7b": _QWEN2_VL_7B,
                                    "whisper-medium": _WHISPER_MEDIUM,
                                    "llama4-maverick-400b-a17b":
-                                       _LLAMA4_MAVERICK}
-
-# arch id -> the ROADMAP queue-1 item that ports it
-_LATER: dict[str, str] = {
-    "jamba-1.5-large-398b": "item 3 (model-family breadth: Mamba)",
-}
+                                       _LLAMA4_MAVERICK,
+                                   "jamba-1.5-large-398b": _JAMBA_1_5_LARGE}
 
 
 def get_config(name: str) -> ModelConfig:
     if name in _PORTED:
         return _PORTED[name]
-    if name in _LATER:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: ROADMAP queue 1 {_LATER[name]}")
-    raise KeyError(f"unknown arch {name!r}; known: "
-                   f"{sorted(_PORTED) + sorted(_LATER)}")
+    raise KeyError(f"unknown arch {name!r}; known: {sorted(_PORTED)}")
 

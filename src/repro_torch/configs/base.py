@@ -7,10 +7,12 @@ RoPE or M-RoPE, softcaps, sliding-window layers, Multi-head Latent
 Attention (``mla``), the capacity-dispatched Mixture-of-Experts MLP
 (``moe``), norm kind, activation, gating, tied or scaled embeddings,
 post-block norms, the vision stub's embedding input) run as in the
-reference, RWKV-6 (``rwkv``), and the encoder-decoder family
-(``n_encoder_layers`` > 0: an encoder stack over stubbed frame embeddings,
-cross-attention over its ``cross_kv_len`` memory rows).  The Mamba
-extension, and its terms of ``param_count``, come with its slice.
+reference, RWKV-6 (``rwkv``), the Mamba hybrid (``mamba`` with
+``attn_period`` / ``attn_offset``: layer i attends iff i % attn_period ==
+attn_offset, every other layer is a Mamba mixer), and the
+encoder-decoder family (``n_encoder_layers`` > 0: an encoder stack over
+stubbed frame embeddings, cross-attention over its ``cross_kv_len``
+memory rows).
 """
 from __future__ import annotations
 
@@ -55,6 +57,13 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+
+
+@dataclass(frozen=True)
 class RWKVConfig:
     head_size: int = 64
     decay_lora: int = 64
@@ -64,7 +73,7 @@ class RWKVConfig:
 @dataclass(frozen=True)
 class LayerSpec:
     """Structural plan for one transformer block."""
-    mixer: str = "attn"                    # "attn" or "rwkv6"
+    mixer: str = "attn"                    # "attn", "mamba" or "rwkv6"
     attn: AttnKind = "full"
     mlp: str = "dense"                     # "dense" or "moe"
 
@@ -92,7 +101,10 @@ class ModelConfig:
     # --- family extensions ---
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    mamba: Optional[MambaConfig] = None
     rwkv: Optional[RWKVConfig] = None
+    attn_period: int = 0                   # hybrid: layer i is attn iff i % attn_period == attn_offset
+    attn_offset: int = 0
     # --- enc-dec / multimodal ---
     n_encoder_layers: int = 0              # >0 -> encoder-decoder
     frontend: Literal["none", "audio_stub", "vision_stub"] = "none"
@@ -137,8 +149,16 @@ class ModelConfig:
 
     def layer_plan(self) -> tuple[LayerSpec, ...]:
         specs = []
-        mixer = "rwkv6" if self.rwkv is not None else "attn"
         for i in range(self.n_layers):
+            if self.rwkv is not None:
+                mixer = "rwkv6"
+            elif self.mamba is not None and self.attn_period > 0:
+                mixer = "attn" if i % self.attn_period == self.attn_offset \
+                    else "mamba"
+            elif self.mamba is not None:
+                mixer = "mamba"
+            else:
+                mixer = "attn"
             if self.window_pattern > 0 and self.sliding_window:
                 attn: AttnKind = ("full" if i % self.window_pattern
                                   == self.window_pattern - 1 else "window")
@@ -164,6 +184,16 @@ class ModelConfig:
             return p
         return d * h * hd + 2 * d * kv * hd + h * self.v_head_dim_eff * d
 
+    def _mamba_params(self) -> int:
+        mc = self.mamba
+        d_in = mc.expand * self.d_model
+        p = self.d_model * 2 * d_in                      # in_proj (x, z)
+        p += d_in * mc.d_conv                            # conv1d
+        p += d_in * (mc.d_state * 2 + 1)                 # B, C, dt projections (selective)
+        p += d_in * mc.d_state + d_in                    # A_log, D
+        p += d_in * self.d_model                         # out_proj
+        return p
+
     def _rwkv_params(self) -> int:
         d = self.d_model
         p = 5 * d * d                                    # r,k,v,g,o projections
@@ -185,9 +215,11 @@ class ModelConfig:
         if not self.tie_embeddings:
             total += self.padded_vocab * self.d_model
         total += self.d_model  # final norm
+        mixer_params = {"attn": self._attn_params,
+                        "mamba": self._mamba_params,
+                        "rwkv6": self._rwkv_params}
         for spec in self.layer_plan():
-            total += self._attn_params() if spec.mixer == "attn" \
-                else self._rwkv_params()
+            total += mixer_params[spec.mixer]()
             if spec.mlp == "moe":
                 m = self.moe
                 n_routed = m.top_k if active_only else m.n_experts
@@ -209,12 +241,19 @@ class ModelConfig:
         layer holds at most its window; an MLA layer the latent and the
         rope key; an encoder-decoder's cross K/V over ``cross_kv_len``
         memory rows too); for RWKV the recurrent state and the two
-        token-shift rows of every layer, whatever the sequence length."""
+        token-shift rows of every layer, and for a Mamba layer its
+        [d_in, d_state] state and a d_conv-row conv window (the
+        reference's count), whatever the sequence length."""
         if self.rwkv is not None:
             per_layer = self.n_heads * self.rwkv.head_size ** 2 + 2 * self.d_model
             return int(self.n_layers * batch * per_layer * bytes_per)
         total = 0
         for spec in self.layer_plan():
+            if spec.mixer == "mamba":
+                mc = self.mamba
+                d_in = mc.expand * self.d_model
+                total += batch * (d_in * mc.d_state + d_in * mc.d_conv)
+                continue
             eff_seq = seq
             if spec.attn == "window" and self.sliding_window:
                 eff_seq = min(seq, self.sliding_window)
@@ -229,7 +268,12 @@ class ModelConfig:
         return int(total * bytes_per)
 
     def reduced(self, *, n_layers: int | None = None) -> "ModelConfig":
-        """Smoke-test-scale config of the same structural family."""
+        """Smoke-test-scale config of the same structural family: 2 layers
+        (``n_layers`` if given), and a hybrid at least ``attn_period``, so
+        that it keeps an attention layer, as the reference's does."""
+        nl = n_layers or 2
+        if self.attn_period:
+            nl = max(nl, self.attn_period)
         kv_ratio = max(1, self.n_heads // max(self.n_kv_heads, 1))
         n_heads = 4
         kw = {}
@@ -244,10 +288,12 @@ class ModelConfig:
             kw["mla"] = MLAConfig(q_lora_rank=32, kv_lora_rank=16,
                                   qk_nope_head_dim=16, qk_rope_head_dim=8,
                                   v_head_dim=16)
+        if self.mamba is not None:
+            kw["mamba"] = replace(self.mamba, d_state=8, d_conv=4, expand=2)
         if self.rwkv is not None:
             kw["rwkv"] = replace(self.rwkv, head_size=16, decay_lora=8)
         return replace(
-            self, name=self.name + "-reduced", n_layers=n_layers or 2,
+            self, name=self.name + "-reduced", n_layers=nl,
             d_model=64, n_heads=n_heads,
             n_kv_heads=max(1, n_heads // min(kv_ratio, n_heads)),
             head_dim=0 if self.mla is not None else 16, d_ff=128, vocab_size=512, vocab_pad_mult=64,
@@ -258,11 +304,14 @@ class ModelConfig:
 
 def group_period(cfg: ModelConfig) -> int:
     """The smallest block of layers that repeats the layer plan: the lcm of
-    the MoE period and the local/global window pattern (the reference's
-    ``group_period``, ``repro/models/transformer.py``, whose hybrid
-    attention period no ported arch has).  A depth cut keeps whole
-    periods."""
+    the hybrid attention period, the MoE period and the local/global
+    window pattern (the reference's ``group_period``,
+    ``repro/models/transformer.py``).  A depth cut keeps whole periods;
+    a config that is not a whole number of them raises, as the
+    reference asserts."""
     p = 1
+    if cfg.attn_period:
+        p = math.lcm(p, cfg.attn_period)
     if cfg.moe is not None:
         p = math.lcm(p, cfg.moe.moe_period)
     if cfg.window_pattern:

@@ -25,10 +25,11 @@ with capacity-dropping dispatch on every layer), llama4-maverick-400b-a17b
 which serve on every path above;
 gemma2-27b, whose local layers keep a ring of their 4,096-token window,
 minicpm3-4b, whose Multi-head Latent Attention caches the compressed
-latent, or rwkv6-3b, whose prefill runs through the WKV6 kernel.  These
-three serve padded and ``--continuous``; ``--paged`` refuses them (ring
-caches, latents and recurrent state are not paged KV blocks), as the
-reference does.  ``--arch whisper-medium`` (the encoder-decoder) resolves
+latent, rwkv6-3b, whose prefill runs through the WKV6 kernel, or
+jamba-1.5-large-398b, the hybrid (Mamba layers, one attention layer in 8,
+16 experts top-2 every other layer).  These four serve padded and
+``--continuous``; ``--paged`` refuses them (ring caches, latents and
+recurrent state are not paged KV blocks), as the reference does.  ``--arch whisper-medium`` (the encoder-decoder) resolves
 and then fails where the reference's CLI fails: its engine passes no
 frame embeddings, so the model API's prefill raises ``KeyError:
 'frames'``; whisper runs through the model API (``api.prefill`` with
@@ -50,7 +51,11 @@ whole, and so does whisper-medium (3.0 GB, the encoder counted).  Not one
 two-layer period of llama4-maverick-400b-a17b fits in f32 (74.2 GB), so
 ``--no-reduced`` raises ``ValueError`` there; in bf16, its deployment dtype,
 the period takes 37.1 GB, and a caller that draws bf16 weights cuts with
-``fit_depth(cfg, budget, bytes_per_param=2)``.  The cluster,
+``fit_depth(cfg, budget, bytes_per_param=2)``.  jamba-1.5-large-398b's
+group period is 8 layers (90.2 GB in bf16), so ``fit_depth`` raises for it
+in either dtype; a caller that wants it on one card takes fewer layers
+than a period itself (its first five, 48.0 GB in bf16, hold every kind of
+layer).  The cluster,
 fault and profile flags exit with "not ported yet".
 """
 from __future__ import annotations
@@ -255,8 +260,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="smollm-135m, chatglm2-6b, qwen2-1.5b, gemma2-27b, "
                          "minicpm3-4b, qwen2-moe-a2.7b, "
                          "llama4-maverick-400b-a17b, qwen2-vl-7b, "
-                         "rwkv6-3b or whisper-medium (whose serve path "
-                         "fails as the reference's: no frames)")
+                         "rwkv6-3b, jamba-1.5-large-398b or whisper-medium "
+                         "(whose serve path fails as the reference's: no "
+                         "frames)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="serve the reduced config (--no-reduced: full width)")

@@ -80,8 +80,8 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
 def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the architecture's decode cache can live in paged KV blocks:
     every mixer a full-attention GQA layer (no MLA latents, no
-    sliding-window ring buffers, no rwkv recurrent state, no enc-dec cross
-    cache), whatever its MLP (dense or MoE)."""
+    sliding-window ring buffers, no mamba or rwkv recurrent state, no
+    enc-dec cross cache), whatever its MLP (dense or MoE)."""
     if cfg.is_encdec:
         return False, "enc-dec cross-attention cache is not paged"
     if cfg.mla is not None:

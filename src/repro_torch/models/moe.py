@@ -50,9 +50,14 @@ class MoE(nn.Module):
 
 def route(cfg: ModelConfig, p: MoE, xf: torch.Tensor):
     """Router of tokens xf [T, d]: (probabilities [T, E] in fp32, the top-k
-    gates renormalised [T, K], their expert ids [T, K])."""
+    gates renormalised [T, K], their expert ids [T, K]).  Of two equal
+    probabilities the lower expert id ranks first, as ``lax.top_k`` ranks
+    them in the reference (``torch.topk`` leaves the order of ties open;
+    bf16 router logits tie)."""
     probs = torch.softmax((xf @ p.router.w).float(), dim=-1)
-    gate_vals, expert_ids = torch.topk(probs, cfg.moe.top_k, dim=-1)
+    ranked, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    k = cfg.moe.top_k
+    gate_vals, expert_ids = ranked[:, :k], order[:, :k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
     return probs, gate_vals, expert_ids
 

@@ -1,13 +1,15 @@
 """Decoder-only LM assembly.  Port of ``repro/models/transformer.py`` for
-the attention block with a dense or Mixture-of-Experts MLP and the RWKV-6
-time-mix + channel-mix block.
+the attention block and the Mamba block (the Jamba hybrid's), each with a
+dense or Mixture-of-Experts MLP, and the RWKV-6 time-mix + channel-mix
+block.
 
 The reference stacks layer groups and runs one ``lax.scan``; here the stack
 is an ``nn.ModuleList`` of ``n_layers`` blocks run by a Python loop.  The
 decode cache, the paged pools and a continuation prefill's prefix K/V are
 each a list with one entry per layer: {"k", "v"} for attention ([B,
 cache_len, ...], or a ring [B, window, ...] on a window layer whose window
-is shorter than the cache), {"c_kv", "k_rope"} for MLA, {"shift", "state",
+is shorter than the cache), {"c_kv", "k_rope"} for MLA, {"conv" [B,
+d_conv - 1, d_in], "ssm" [B, d_in, N] f32} for Mamba, {"shift", "state",
 "cm_shift"} for RWKV-6.
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from torch import nn
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import Norm, apply_norm, last_valid, softcap
@@ -36,6 +39,8 @@ class Block(nn.Module):
         self.norm2 = Norm(cfg, dtype)
         if spec.mixer == "rwkv6":
             self.mixer = rwkv_mod.RWKV(cfg, generator, dtype)
+        elif spec.mixer == "mamba":
+            self.mixer = mamba_mod.Mamba(cfg, generator, dtype)
         else:
             self.mixer = attn.Attention(cfg, generator, dtype)
         if spec.mlp == "moe":
@@ -108,6 +113,15 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
         else:
             mx, c = rwkv_mod.rwkv_prefill(cfg, p.mixer, h, cache_len=cache_len,
                                           kv_len=kv_len)
+    elif spec.mixer == "mamba":
+        if mode != "decode" and cache is not None:
+            raise NotImplementedError(
+                "prefix-continuation prefill: mamba state is recurrent")
+        if mode == "decode":
+            mx, c = mamba_mod.mamba_decode(cfg, p.mixer, h, cache)
+        else:
+            mx, c = mamba_mod.mamba_prefill(cfg, p.mixer, h,
+                                            cache_len=cache_len, kv_len=kv_len)
     elif mode == "decode" and block_tables is not None \
             and spec_scatter is not None:
         mx, c = attn.attn_paged_spec(cfg, spec, p.mixer, h, cache,

@@ -4,9 +4,9 @@ candidate plans with it.
 
 Own copy of ``repro/perf/cost_model.py`` with the same formulas, trimmed to
 the families the port serves (dense attention, with windows and MLA, MoE
-MLPs, RWKV-6, and the encoder-decoder's encoder stack and cross-attention);
-the Mamba terms come with their slice, and so do the reference's plan
-options that no port plan sets yet (the absorbed MLA decode,
+MLPs, Mamba, RWKV-6, and the encoder-decoder's encoder stack and
+cross-attention); the reference's plan options that no port plan sets yet
+come with their slice (the absorbed MLA decode,
 sequence-sharded attention, unsharded residuals, a causal discount,
 quantized KV).  The default
 hardware is the port's ``H100``.
@@ -98,6 +98,7 @@ def _layer_param_counts(cfg: ModelConfig) -> dict:
     m = cfg.moe
     return {
         "attn": cfg._attn_params(),
+        "mamba": cfg._mamba_params() if cfg.mamba else 0,
         "rwkv6": cfg._rwkv_params() if cfg.rwkv else 0,
         "mlp": cfg._mlp_params(cfg.d_ff),
         "moe_routed_active": m.top_k * cfg._mlp_params(m.d_expert) if m else 0,
@@ -126,10 +127,14 @@ def _matmul_param_flops(cfg: ModelConfig, tokens: float) -> float:
 
 
 def _scan_state_flops(cfg: ModelConfig, b: int, s: int) -> float:
-    """RWKV state-evolution FLOPs (beyond the projections)."""
+    """Mamba / RWKV state-evolution FLOPs (beyond the projections)."""
     total = 0.0
     for spec in cfg.layer_plan():
-        if spec.mixer == "rwkv6":
+        if spec.mixer == "mamba":
+            mc = cfg.mamba
+            d_in = mc.expand * cfg.d_model
+            total += 10.0 * b * s * d_in * mc.d_state   # discretize+scan+C·h
+        elif spec.mixer == "rwkv6":
             rc = cfg.rwkv
             h = cfg.d_model // rc.head_size
             chunk = 32.0

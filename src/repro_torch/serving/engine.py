@@ -12,7 +12,7 @@ Two batching modes:
 Both drive the same prefill and decode ops, so both run the same kernels
 (the two attention kernels, or WKV6 on every rwkv6 prefill), and treat the
 cache as opaque: an attention decode step writes its KV cache in place, an
-rwkv6 one returns the new state.
+rwkv6 or Mamba one returns the new state.
 """
 from __future__ import annotations
 

@@ -22,7 +22,7 @@ from repro_torch.kernels.paged_attention import (
     paged_window_attention, paged_window_attention_reference)
 from repro_torch.kernels.paged_attention.ops import paged_splits
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
-from repro_torch.models import api, attention, moe
+from repro_torch.models import api, attention, mamba, moe
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
                                  PagedEngineConfig)
 
@@ -63,6 +63,11 @@ FLASH_CASES = [
     # prefill and at length (its main path runs them in bf16)
     (4, 16, 16, 40, 8, 128, 128, True, None, None, 0),
     (2, 300, 300, 40, 8, 128, 128, True, None, None, 0),
+    # jamba-1.5-large's group 8 (64 over 8 heads) at D = 128, no window, at
+    # the serve prefill and at the long batch's 4 x 1024 (its main path
+    # runs them in bf16)
+    (4, 16, 16, 64, 8, 128, 128, True, None, None, 0),
+    (4, 1024, 1024, 64, 8, 128, 128, True, None, None, 0),
 ]
 
 DECODE_CASES = [
@@ -106,6 +111,10 @@ DECODE_CASES = [
     # batch's
     (4, 64, 40, 8, 128, 128, None, None, [24, 20, 17, 31]),
     (4, 1088, 40, 8, 128, 128, None, None, [1041, 1041, 700, 1]),
+    # jamba-1.5-large's group 8 at D = 128: the serve decode and the long
+    # batch's
+    (4, 64, 64, 8, 128, 128, None, None, [24, 20, 17, 31]),
+    (4, 1088, 64, 8, 128, 128, None, None, [1041, 1041, 1041, 1041]),
 ]
 
 PAGED_CASES = [
@@ -687,3 +696,64 @@ def test_llama4_bf16_engines_on_card_match_cpu(cuda):
         cfg.n_layers * paged.steps
     assert flash_attention.launches - n_fa == \
         cfg.n_layers * (1 + paged.prefill_chunks)
+
+
+def test_mamba_on_card_matches_cpu(cuda):
+    """The reduced jamba's Mamba mixer (f32) on the card against the CPU on
+    the same weights: a prefill of T = 40 in chunks of 16 with ``kv_len``
+    (output, conv tail and state) and four decode steps."""
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    cpu = api.init_params(cfg, seed=0, device="cpu")
+    card = api.init_params(cfg, seed=0, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(3, 40, cfg.d_model, generator=g)
+    kv_len = torch.tensor([40, 2, 23], dtype=torch.int32)
+    got = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        p = model.blocks[1].mixer
+        y, c = mamba.mamba_prefill(cfg, p, x.to(dev), cache_len=48, chunk=16,
+                                   kv_len=kv_len.to(dev))
+        ys = [y]
+        for t in range(4):
+            yt, c = mamba.mamba_decode(cfg, p, x[:, t:t + 1].to(dev), c)
+            ys.append(yt)
+        got[dev] = [v.cpu() for v in ys + [c["conv"], c["ssm"]]]
+    for a, b in zip(got["cpu"], got["cuda"]):
+        assert (a - b).abs().max().item() <= 1e-4
+
+
+def test_jamba_engines_on_card_match_cpu(cuda):
+    """The reduced jamba (one group period: 7 Mamba layers and an
+    attention layer) in f32 through the padded and continuous engines on
+    the card, greedy outputs equal to the CPU's; prefill logits within
+    1e-4; K2 once a prefill and K3 once a padded decode step (the one
+    attention layer), K1 and K4 never."""
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    g = torch.Generator().manual_seed(0)
+    reqs = [Request(rid=i, tokens=torch.randint(2, cfg.vocab_size, (n,),
+                                                generator=g).tolist(),
+                    input_len=n, slo=1.0, arrival=float(i), true_output_len=6)
+            for i, n in enumerate((5, 14, 9, 3, 11))]
+    toks = torch.randint(2, cfg.vocab_size, (3, 12), generator=g)
+    kv_len = torch.tensor([12, 7, 3], dtype=torch.int32)
+    outs, logits = {}, {}
+    for dev in ("cpu", cuda):
+        model = api.init_params(cfg, seed=0, device=dev)
+        logits[str(dev)], _ = api.prefill(
+            cfg, model, {"tokens": toks.to(dev)}, cache_len=16,
+            kv_len=kv_len.to(dev))
+        eng = InferenceEngine(cfg, model, EngineConfig(max_batch=3,
+                                                       cache_len=32,
+                                                       max_new_tokens=6))
+        n = (flash_attention.launches, decode_attention.launches,
+             paged_window_attention.launches, wkv6.launches)
+        res = eng.run_batch(Batch(requests=reqs[:3]),
+                            true_lens={r.rid: 6 for r in reqs})
+        if dev != "cpu":
+            assert flash_attention.launches - n[0] == 1
+            assert decode_attention.launches - n[1] == res.steps
+            assert (paged_window_attention.launches, wkv6.launches) == n[2:]
+        cont = eng.run_continuous(reqs)
+        outs[str(dev)] = (res.outputs, cont.outputs)
+    assert (logits["cpu"] - logits[str(cuda)].cpu()).abs().max().item() <= 1e-4
+    assert outs["cpu"] == outs[str(cuda)]

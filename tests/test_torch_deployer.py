@@ -29,7 +29,7 @@ from repro_torch.sharding import ShardingPlan
 
 ARCHS = ["smollm-135m", "rwkv6-3b", "chatglm2-6b", "qwen2-1.5b", "gemma2-27b",
          "minicpm3-4b", "qwen2-moe-a2.7b", "qwen2-vl-7b", "whisper-medium",
-         "llama4-maverick-400b-a17b"]
+         "llama4-maverick-400b-a17b", "jamba-1.5-large-398b"]
 REL = 1e-12
 
 # The reference's TPU-v5e constants as the port's HWSpec.  The reference
@@ -182,6 +182,23 @@ def test_step_cost_matches_jax(arch, shape):
             jax_cost_model.weight_bytes(jcfg, jdesc)
         assert cost_model.optimizer_bytes(cfg, desc) == \
             jax_cost_model.optimizer_bytes(jcfg, jdesc)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_kv_cache_bytes_match_jax(arch):
+    """The cost model's cache bytes at the deployer's shapes and two others
+    equal the reference's; a hybrid's carry its Mamba state, which does not
+    grow with the sequence (jamba: 63 Mamba layers of 16,384 x (16 + 4)
+    values a row, beside the K/V of its 9 attention layers)."""
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for b, s in [(sh.global_batch, sh.seq_len) for sh in SHAPES.values()] \
+            + [(1, 16), (4, 1088)]:
+        assert cfg.kv_cache_bytes(b, s) == jcfg.kv_cache_bytes(b, s)
+    if cfg.mamba is None:
+        return
+    state = cfg.kv_cache_bytes(1, 0)
+    assert state == 2 * 63 * 16_384 * (16 + 4)
+    assert cfg.kv_cache_bytes(1, 1000) - state == 2 * 9 * 1000 * 2 * 8 * 128
 
 
 def _plan_fields(plan):

@@ -186,6 +186,27 @@ def _stack_margin(cfg, model, toks):
     return min(seen)
 
 
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "jamba-1.5-large-398b"])
+def test_router_ties_rank_the_lower_expert_first(arch):
+    """Two experts whose router columns are equal get equal probabilities
+    for every token; ``moe.route`` then ranks the lower expert id first,
+    as the reference's ``lax.top_k`` does (top-4 of 4 experts and top-2,
+    each with a tie at the top and one across the cut)."""
+    cfg = get_config(arch).reduced()
+    model = api.init_params(cfg, seed=0, device="cpu")
+    p = next(b.mlp for b, sp in zip(model.blocks, cfg.layer_plan())
+             if sp.mlp == "moe")
+    x = torch.randn(64, cfg.d_model, generator=torch.Generator().manual_seed(2))
+    for a, b in ((0, 3), (2, 1)):
+        with torch.no_grad():
+            p.router.w[:, b] = p.router.w[:, a]
+        probs, gates, ids = moe.route(cfg, p, x)
+        assert torch.equal(probs[:, a], probs[:, b])
+        _, jids = jax.lax.top_k(jnp.asarray(probs.numpy()), cfg.moe.top_k)
+        assert np.array_equal(ids.numpy(), np.asarray(jids))
+        assert torch.allclose(gates.sum(-1), torch.ones(64))
+
+
 @pytest.mark.parametrize("layout", ["reduced", "published"])
 def test_prefill_and_decode_logits_match_jax(rng, layout):
     """Right-padded ragged batch on perturbed converted weights: last-valid

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.configs import list_archs as jax_list_archs
 from repro.core import profiler as jax_profiler
 from repro.core import scheduler as jax_scheduler
 from repro.data import workload as jax_workload
@@ -258,7 +259,10 @@ def test_fit_depth_keeps_whole_group_periods(arch):
     number of periods that fits, at the same width; every layer where all
     fit (``cfg`` itself); ``ValueError`` below one period.  The period is
     the reference's ``group_period``; "qwen2-moe-period2" is qwen2-moe with
-    MoE on every second layer, whose cuts keep dense/MoE pairs."""
+    MoE on every second layer, whose cuts keep dense/MoE pairs.
+    jamba-1.5-large-398b steps by 8 (the lcm of its attention period 8 and
+    MoE period 2), and not one period fits the card's budget for weights
+    in f32 or in bf16."""
     name = "qwen2-moe-a2.7b" if arch.endswith("period2") else arch
     full, jfull = get_config(name), jax_get_config(name)
     if arch.endswith("period2"):
@@ -266,7 +270,8 @@ def test_fit_depth_keeps_whole_group_periods(arch):
             c.moe, moe_period=2)) for c in (full, jfull))
     period = group_period(full)
     assert period == jax_transformer.group_period(jfull)
-    assert period == (2 if name in ("gemma2-27b", "llama4-maverick-400b-a17b")
+    assert period == (8 if name == "jamba-1.5-large-398b" else
+                      2 if name in ("gemma2-27b", "llama4-maverick-400b-a17b")
                       or arch.endswith("period2") else 1)
     assert serve.fit_depth(full, 4 * full.param_count()) is full
     assert serve.fit_depth(full, 1e15) is full
@@ -290,6 +295,14 @@ def test_fit_depth_keeps_whole_group_periods(arch):
             assert serve.fit_depth(full, nbytes - 1).n_layers == n - period
     if arch.endswith("period2"):
         assert [s.mlp for s in full.layer_plan()[:2]] == ["dense", "moe"]
+    if name == "jamba-1.5-large-398b":
+        budget = serve.WEIGHT_SHARE * H100.hbm_bytes
+        for bytes_per_param in (4, 2):
+            one = bytes_per_param * dataclasses.replace(
+                full, n_layers=period).param_count()
+            assert one > budget
+            with pytest.raises(ValueError, match=re.escape(f"{one:.4g} bytes")):
+                serve.fit_depth(full, budget, bytes_per_param)
     if arch == "whisper-medium":
         # whole on one 80 GB H100, the encoder's 24 layers counted
         assert full.n_encoder_layers == 24
@@ -339,8 +352,13 @@ def test_serve_cli_flags(monkeypatch):
 
 
 def test_get_config_names_the_later_slice():
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        get_config("jamba-1.5-large-398b")
+    """Every arch of the reference registry resolves in the port, to the
+    reference's name; an unknown name raises ``KeyError``."""
+    names = jax_list_archs(include_extra=True)
+    assert len(names) == 11 and "jamba-1.5-large-398b" in names
+    for name in names:
+        assert get_config(name).name == jax_get_config(name).name == name
+    assert sorted(_PORTED) == sorted(names)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
