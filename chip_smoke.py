@@ -67,13 +67,23 @@ Phases, in order; any failed check exits non-zero:
    padded path; then chatglm2-6b, the paper's own model, at full width
    (d_model 4096, 32 heads over 2 KV heads of 128) and 14 of its 28
    layers, its weights drawn once and served through ``serve.serve``
-   padded, ``--continuous`` and ``--paged`` (a 2e7-byte pool), then one
-   long padded batch (4 x 1024-token prompts, 32 new tokens); checks that flash attention ran once per layer
-   on every prefill, decode attention once per layer on every padded
-   decode step and paged attention on every paged step (and WKV6 never),
-   profiles the long prefill and a decode step, and checks the first
-   batch's logits on the card against the CPU at full width and the first
-   2 layers, for both models.
+   padded, ``--continuous`` and ``--paged`` (a 2e7-byte pool); then the
+   live cluster (``[cluster]`` lines), ``serve --replicas 2 --paged`` on
+   the same weights through ``serve.serve_cluster``: two paged replicas,
+   each with its own 2e7-byte pool, routed (a) least_loaded and (b)
+   slo_aware on the 12 seeded alpaca requests and (c) prefix_affinity with
+   the prefix cache and 16-token chunks on the shared-prefix mix (beside
+   one single paged run of that mix), each replica's share, prefill tokens,
+   prefix hits and peak pages, the router's stats, tokens a second and the
+   requests whose outputs equal the single paged engine's; then one long
+   padded batch (4 x 1024-token prompts, 32 new tokens).  Checks that flash
+   attention ran once per layer on every prefill (chunk), decode attention
+   once per layer on every padded decode step and paged attention on every
+   paged step, summed over the replicas (and WKV6 never), that the router
+   dispatched or shed all 12, that every replica passed the engine's leak
+   audit and that (c) hit the prefix cache; profiles the long prefill and
+   a decode step, and checks the first batch's logits on the card against
+   the CPU at full width and the first 2 layers, for both models.
 9. window and MLA serve (``[window]`` and ``[mla]`` lines): gemma2-27b at
    full width (d_model 4608, 32 heads over 16 KV heads of 128, d_ff 36,864,
    vocab 256,000, local layers with a 4,096-token window and softcap 50),
@@ -162,6 +172,16 @@ Phases, in order; any failed check exits non-zero:
    largest logit, the argmax equal wherever the top two are further apart.
    jamba's group-8 shapes of K2 and K3 (64 over 8 heads, D = 128) are
    timed in bf16, as llama4's are.
+14. simulated cluster (``[cluster] sim`` lines): ``serve.main`` with
+   ``--arch chatglm2-6b --replicas 4`` on the discrete-event simulator,
+   the length predictor on the card and no weights drawn: each of the four
+   routers, ``--autoscale --workload bursty``, a two-model fleet
+   (``--models chatglm2-6b:0.6,qwen2-1.5b:0.4 --autoscale``) under
+   ``--fleet joint`` and ``independent``, and a scripted crash with random
+   crashes and brownout (``--fault-crash 2.5:1 --fault-mtbf 20
+   --fault-mttr 2 --brownout-tiers batch``); prints each ``cluster:``
+   summary and checks finished + shed = offered, that the monitor observed
+   every offered request, and that no kernel launched.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  A ``[phase]`` line gives each phase's seconds.  The last three
@@ -293,6 +313,12 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("chatglm2_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 32, 2, 128, 128,
      True, None, None, 0),
     ("qwen2_serve_prefill", 4, 16, 16, 12, 2, 128, 128, True, None, None, 0),
+    # the shared-prefix paged runs' continuation chunks at chatglm2-6b's
+    # widths (one prompt, 8-token blocks, 16-token chunks): a full chunk
+    # and an 8-token tail over a 16-token prefix
+    ("chatglm2_chunk_prefill", 1, 16, 32, 32, 2, 128, 128, True, None, None,
+     16),
+    ("chatglm2_chunk_tail", 1, 8, 24, 32, 2, 128, 128, True, None, None, 16),
     # gemma2-27b (group 2, D = 128, softcap 50): the long batch's local
     # layers (window 4,096 inside 4,608 tokens) and global layers, and the
     # serve prefill's local layers; minicpm3-4b's MLA prefill (40 heads,
@@ -339,7 +365,8 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
-               "chatglm2_long_prefill", "qwen2_serve_prefill",
+               "chatglm2_long_prefill", "chatglm2_chunk_prefill",
+               "chatglm2_chunk_tail", "qwen2_serve_prefill",
                "gemma2_long_prefill", "gemma2_global_prefill",
                "gemma2_serve_prefill", "minicpm3_long_prefill",
                "minicpm3_serve_prefill", "qwen2_moe_long_prefill",
@@ -507,6 +534,30 @@ DENSE_PARITY_LAYERS = 2               # card vs CPU logits: the first 2 of 28
 # phase 10's paged pool: 4 slots of 8 pages of 8 tokens and more at either
 # model's f32 KV (qwen2-moe-a2.7b: 3.1 MB a page, so 2e7 B would buy 6)
 MOE_VLM_BUDGET = "1.1e8"
+# phase 8's live cluster on chatglm2-6b (``serve --replicas 2 --paged``):
+# name -> (workload, ``serve.serve_cluster`` keywords)
+CLUSTER_LIVE = {
+    "a_least_loaded": ("alpaca", {"router": "least_loaded"}),
+    "b_slo_aware": ("alpaca", {"router": "slo_aware"}),
+    "c_prefix_affinity": ("shared-prefix", {"router": "prefix_affinity",
+                                            "prefix_cache": True,
+                                            "chunk_tokens": 16}),
+}
+# phase 14's simulated cluster: name -> serve flags after
+# ``--arch chatglm2-6b --replicas 4 --device cuda``
+CLUSTER_SIM = {
+    "round_robin": ["--router", "round_robin"],
+    "least_loaded": ["--router", "least_loaded"],
+    "prefix_affinity": ["--router", "prefix_affinity"],
+    "slo_aware": ["--router", "slo_aware"],
+    "autoscale_bursty": ["--autoscale", "--workload", "bursty"],
+    "fleet_joint": ["--models", "chatglm2-6b:0.6,qwen2-1.5b:0.4",
+                    "--autoscale", "--fleet", "joint"],
+    "fleet_independent": ["--models", "chatglm2-6b:0.6,qwen2-1.5b:0.4",
+                          "--autoscale", "--fleet", "independent"],
+    "faults": ["--fault-crash", "2.5:1", "--fault-mtbf", "20",
+               "--fault-mttr", "2", "--brownout-tiers", "batch"],
+}
 PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
     "a_paged": ["--paged", "--kv-budget", PAGED_BUDGET],
     "b_prefix_chunked": ["--prefix-cache", "--workload", "shared-prefix",
@@ -1403,7 +1454,7 @@ def phase_rwkv() -> dict:
           f"drawn once and moved in {init_s:.1f} s", flush=True)
     # the recurrence runs over the padding, so the continuous engine's
     # re-prefilled waves need not agree with the padded batches (printed)
-    runs, first = serve_modes("rwkv", "rwkv", cfg, params)
+    runs, first, _ = serve_modes("rwkv", "rwkv", cfg, params)
     long, profile, _ = long_batch("rwkv", "rwkv", cfg, params,
                                   [LONG_PROMPT] * 4, LONG_CACHE)
     long["init_s"] = init_s
@@ -1436,7 +1487,7 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
     results = out["results"]
     steps = sum(r.steps for r in results)
     if mode == "paged":
-        prefills = results[0].prefill_chunks
+        prefills = sum(r.prefill_chunks for r in results)
     elif mode == "padded" and prefills != len(results):
         fail(f"{what}: {prefills} prefills for {len(results)} batches")
     got = check_launches(what, prefills, steps, kernel_layers(cfg),
@@ -1487,9 +1538,13 @@ def phase_dense() -> dict:
     if pcfg.usable_blocks < 4 * pcfg.max_blocks:
         fail(f"chatglm2 paged: {pcfg.usable_blocks} pages at {PAGED_BUDGET} B "
              f"for 4 slots of {pcfg.max_blocks}")
-    got, first = serve_modes("dense", "chatglm2", cfg, params, pcfg)
+    got, first, outputs = serve_modes("dense", "chatglm2", cfg, params, pcfg)
     runs.update(got)
     for rec in got.values():
+        add(rec["launches"])
+    cluster = cluster_live(cfg, params, outputs["paged"],
+                           runs["chatglm2 paged"])
+    for rec in cluster.values():
         add(rec["launches"])
 
     long, profile, _ = long_batch("dense", "chatglm2", cfg, params,
@@ -1508,7 +1563,114 @@ def phase_dense() -> dict:
                                    [reqs[rid].tokens for rid in rids], "dense")
     return {"runs": runs, "plan": plan, "long_batch": long,
             "profile": profile, "logits_layers": DENSE_PARITY_LAYERS,
-            "logits_max_abs_err": errs, "launches": launches}
+            "logits_max_abs_err": errs, "cluster": cluster,
+            "launches": launches}
+
+
+def cluster_live(cfg, params, paged_outputs: dict, paged_run: dict) -> dict:
+    """``serve --replicas 2 --paged`` on ``params`` (``serve.serve_cluster``:
+    two live ``PagedEngine`` replicas, each with the phase's 2e7-byte pool,
+    each serving its routed share in turn) for each of ``CLUSTER_LIVE``;
+    each run with the launch counts set to 0 just before and read just
+    after.  Checks dispatched + shed = 12, every replica's leak audit (the
+    engine raises on a leak), K2 once per layer and prefill chunk and K1
+    once per layer and decode step summed over the replicas, K3 and K4
+    never, and prefix hits with the prefix cache on.  Prints each replica's
+    share, prefill tokens, prefix hits and peak pages, the router's stats,
+    tokens a second, and how many requests' outputs equal a single paged
+    engine's on the same requests (``paged_outputs``, phase 8's ``--paged``
+    run, for the alpaca mix; a single paged run with the same prefix cache
+    and chunks, made here, for the shared-prefix mix)."""
+    runs, single = {}, {"alpaca": (paged_outputs, paged_run)}
+    sp = serve.make_requests(cfg, 12, 16, "shared-prefix")
+    sp_pcfg = serve.paged_config(cfg, sp, 16, float(PAGED_BUDGET),
+                                 prefix_cache=True, chunk_tokens=16)
+    out, rec = serve_dense_run(
+        "chatglm2 paged shared-prefix", cfg,
+        lambda: serve.serve(cfg, params, sp,
+                            serve.fit_predictor(cfg.vocab_size, "cuda"),
+                            paged=sp_pcfg), "paged", "cluster")
+    runs["single paged shared-prefix"] = rec
+    single["shared-prefix"] = (out["outputs"], rec)
+    del out
+    for name, (workload, kw) in CLUSTER_LIVE.items():
+        reqs = serve.make_requests(cfg, 12, 16, workload)
+        out, rec = serve_dense_run(
+            f"cluster {name}", cfg,
+            lambda: serve.serve_cluster(
+                cfg, params, reqs, serve.fit_predictor(cfg.vocab_size, "cuda"),
+                replicas=2, kv_budget=float(PAGED_BUDGET), **kw),
+            "paged", "cluster")
+        served = [rep for rep in out["replicas"] if rep.queue]
+        res = out["results"]
+        router = out["router"]
+        if router["dispatched"] + router["shed"] != 12:
+            fail(f"cluster {name}: router {router} does not account for 12")
+        if kw.get("prefix_cache") and sum(r.prefix_hits for r in res) <= 0:
+            fail(f"cluster {name}: no prefix hits with the prefix cache on")
+        ref, ref_run = single[workload]
+        same_req = sum(out["outputs"].get(rid) == toks
+                       for rid, toks in ref.items())
+        same, total = agreement(out["outputs"], ref)
+        reps = [{"rid": rep.rid, "requests": len(rep.queue),
+                 "prefill_tokens": r.prefill_tokens,
+                 "prefix_hits": [r.prefix_hits, r.prefix_lookups],
+                 "peak_blocks": r.peak_blocks, "steps": r.steps,
+                 "prefill_chunks": r.prefill_chunks}
+                for rep, r in zip(served, res)]
+        runs[name] = rec | {
+            "single_tok_per_s": ref_run["tok_per_s"],
+            "single_steps": ref_run["steps"], "replicas": reps,
+            "router": router,
+            "requests_agree_with_single": [same_req, len(ref)],
+            "tokens_agree_with_single": [same, total]}
+        for r in reps:
+            print(f"[cluster] {name}: replica {r['rid']}: {r['requests']} "
+                  f"requests, prefill_tokens={r['prefill_tokens']}, "
+                  f"prefix_hits={r['prefix_hits'][0]}/{r['prefix_hits'][1]}, "
+                  f"peak_blocks={r['peak_blocks']}, {r['steps']} steps; leak "
+                  f"audit passed", flush=True)
+        print(f"[cluster] {name}: router {router}; {rec['tok_per_s']:.1f} "
+              f"tok/s (single paged engine {ref_run['tok_per_s']:.1f}), "
+              f"{rec['steps']} decode steps summed (single "
+              f"{ref_run['steps']}); "
+              f"{same_req}/{len(ref)} requests ({same}/{total} tokens) agree "
+              f"with the single paged engine", flush=True)
+        del out
+    return runs
+
+
+def phase_cluster() -> dict:
+    """``serve --arch chatglm2-6b --replicas 4`` on the simulated cluster
+    (``CLUSTER_SIM``): host code but for the length predictor, which runs
+    on the card; no weights are drawn and no kernel may launch.  Checks
+    finished + shed = offered and that the monitor observed every offered
+    request."""
+    runs = {}
+    for name, flags in CLUSTER_SIM.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        out = serve.main(["--arch", "chatglm2-6b", "--replicas", "4",
+                          "--device", "cuda"] + flags)
+        wall = time.perf_counter() - t0
+        got = read_launches()
+        s = out["cluster"].summary()
+        observed = out["monitor"].stats.slo_observed
+        print(f"[cluster] sim {name} ({' '.join(flags)}): {wall:.2f} s; "
+              f"offered {s['offered']}, finished {s['finished']}, shed "
+              f"{s['shed']}, slo_attainment {s['slo_attainment']}, monitor "
+              f"slo_observed {observed}, peak_replicas "
+              f"{s['peak_replicas']}, scale_events {s['scale_events']}",
+              flush=True)
+        if s["finished"] + s["shed"] != s["offered"]:
+            fail(f"cluster sim {name}: finished + shed != offered: {s}")
+        if observed != s["offered"]:
+            fail(f"cluster sim {name}: the monitor observed {observed} of "
+                 f"{s['offered']}")
+        if any(got.values()):
+            fail(f"cluster sim {name}: kernels launched {got}")
+        runs[name] = {"summary": s, "slo_observed": observed, "wall_s": wall}
+    return {"runs": runs}
 
 
 def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
@@ -1562,14 +1724,15 @@ def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
 
 
 def serve_modes(tag: str, name: str, cfg, params,
-                paged: PagedEngineConfig | None = None) -> tuple[dict, list]:
+                paged: PagedEngineConfig | None = None
+                ) -> tuple[dict, list, dict]:
     """``serve.serve`` padded, ``--continuous`` and, given a ``paged`` pool,
     ``--paged`` on ``params``, each with fresh requests and a freshly
     fitted predictor as ``serve.main`` makes them; how many tokens each
     later mode shares with the padded one is printed (RWKV-6's recurrence
     over the padding and MoE capacity over the padded batch can make a
     prompt's output depend on its batch).  Returns (the runs' records, the
-    first padded batch's rids)."""
+    first padded batch's rids, each mode's outputs)."""
     runs, outputs = {}, {}
     modes = [("padded", {}), ("continuous", {"continuous": True})]
     if paged is not None:
@@ -1578,7 +1741,8 @@ def serve_modes(tag: str, name: str, cfg, params,
         out, runs[f"{name} {mode}"] = serve_dense_run(
             f"{name} {mode}", cfg,
             lambda: serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
-                                serve.fit_predictor(cfg, "cuda"), **kw),
+                                serve.fit_predictor(cfg.vocab_size, "cuda"),
+                                **kw),
             mode, tag)
         outputs[mode] = out["outputs"]
         if mode == "padded":
@@ -1589,7 +1753,7 @@ def serve_modes(tag: str, name: str, cfg, params,
         runs[f"{name} {mode}"]["agree_with_padded"] = [same, total]
         print(f"[{tag}] {name} {mode} vs padded: {same}/{total} tokens agree",
               flush=True)
-    return runs, first
+    return runs, first, outputs
 
 
 def phase_window_mla() -> dict:
@@ -1633,7 +1797,7 @@ def phase_window_mla() -> dict:
           f"{full.n_layers}: {4 * full.param_count() / 1e9:.1f} GB), drawn "
           f"and moved in {init_s['gemma2']:.1f} s; plan for production mesh: "
           f"{plan['gemma2']}", flush=True)
-    got, first = serve_modes("window", "gemma2", cfg, params)
+    got, first, _ = serve_modes("window", "gemma2", cfg, params)
     runs.update(got)
     long["gemma2"], prof, widths = long_batch(
         "window", "gemma2", cfg, params, GEMMA2_LONG, GEMMA2_CACHE)
@@ -1671,7 +1835,7 @@ def phase_window_mla() -> dict:
           f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn and "
           f"moved in {init_s['minicpm3']:.1f} s; plan for production mesh: "
           f"{plan['minicpm3']}", flush=True)
-    got, first = serve_modes("mla", "minicpm3", cfg, params)
+    got, first, _ = serve_modes("mla", "minicpm3", cfg, params)
     runs.update(got)
     long["minicpm3"], prof, _ = long_batch(
         "mla", "minicpm3", cfg, params, [LONG_PROMPT] * 4, LONG_CACHE)
@@ -1849,7 +2013,7 @@ def phase_moe_vlm() -> dict:
             fail(f"{name} paged: {pcfg.usable_blocks} pages at "
                  f"{MOE_VLM_BUDGET} B for 4 slots of {pcfg.max_blocks}")
         with moe_watch() as seen:
-            got, first = serve_modes(tag, name, cfg, params, pcfg)
+            got, first, _ = serve_modes(tag, name, cfg, params, pcfg)
             long[name], prof, _ = long_batch(tag, name, cfg, params,
                                              [LONG_PROMPT] * 4, LONG_CACHE)
         runs.update(got)
@@ -2179,7 +2343,7 @@ def phase_llama4() -> dict:
         fail(f"llama4 paged: {pcfg.usable_blocks} pages at {LLAMA4_BUDGET} B "
              f"for 4 slots of {pcfg.max_blocks}")
     with moe_watch() as seen:
-        runs, first = serve_modes("llama4", "llama4", cfg, params, pcfg)
+        runs, first, _ = serve_modes("llama4", "llama4", cfg, params, pcfg)
         long, profile, _ = long_batch("llama4", "llama4", cfg, params,
                                       [LONG_PROMPT] * 4, LONG_CACHE)
     launches = {k: sum(r["launches"][k] for r in list(runs.values()) + [long])
@@ -2303,7 +2467,7 @@ def phase_jamba() -> dict:
           f"{host_gib:.1f} GiB); plan for production mesh at decode_32k: "
           f"{plan}", flush=True)
     with moe_watch() as seen:
-        runs, first = serve_modes("jamba", "jamba", cfg, params)
+        runs, first, _ = serve_modes("jamba", "jamba", cfg, params)
         long, profile, _ = long_batch("jamba", "jamba", cfg, params,
                                       [LONG_PROMPT] * 4, LONG_CACHE)
     launches = {k: sum(r["launches"][k] for r in list(runs.values()) + [long])
@@ -2356,6 +2520,7 @@ def main() -> None:
     encdec = run("encdec", phase_encdec)
     llama4 = run("llama4", phase_llama4)
     jamba = run("jamba", phase_jamba)
+    cluster = run("cluster", phase_cluster)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -2392,7 +2557,7 @@ def main() -> None:
               "profiler": PROFILER,
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
-              "llama4": llama4, "jamba": jamba,
+              "llama4": llama4, "jamba": jamba, "cluster": cluster,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -1,11 +1,9 @@
 """Batch schedulers: the paper's SLO-ODBS (Algorithm 1) and its SLO-DBS /
 ODBS projections, plus the FIFO and S³-style bin-packing baselines.
 
-Own copy of ``repro/core/scheduler.py`` for the single-engine serve paths,
-with ``derive_chunk_tokens`` for the paged engine's ``--chunk-tokens -1``.
-The prefix-affinity grouping and the speculative-decoding discount feed only
-the cluster paths and are left out, so every config here behaves like the
-reference's default (``prefix_aware=False``, ``spec_speedup=1``).
+Own copy of ``repro/core/scheduler.py``: with ``derive_chunk_tokens`` for
+the paged engine's ``--chunk-tokens -1``, the prefix-affinity grouping, and
+the speculative-decoding discount the cluster paths price by.
 """
 from __future__ import annotations
 
@@ -25,6 +23,55 @@ class SchedulerConfig:
     max_batch: int = 64            # hardware cap
     memory_budget: float = 16e9    # KV budget per replica (bytes)
     base_cap: int = 64             # CM-driven dynamic cap baseline (line 20)
+    # cache-aware batching (beyond-paper; serving.prefix_cache): group
+    # shared-prefix requests into the same batch window so the radix tree
+    # serves their hits while the blocks are hot
+    prefix_aware: bool = False
+    prefix_block: int = 16         # tokens of leading prompt that define a group
+    # speculative decoding (beyond-paper; serving.speculative): expected
+    # tokens emitted per engine iteration (= spec_speedup(K, acceptance)).
+    # The composite's output term counts decode *iterations*, so speculation
+    # widens the effective per-batch decode budget by this factor
+    spec_speedup: float = 1.0
+
+    def with_speculation(self, spec_tokens: int,
+                         acceptance: float) -> "SchedulerConfig":
+        """This config re-priced at a (K, acceptance) operating point —
+        the one constructor every serve path uses, so the measured-
+        acceptance EMA flows into the composite the same way everywhere."""
+        return replace(self,
+                       spec_speedup=spec_speedup(spec_tokens, acceptance))
+
+
+def spec_speedup(spec_tokens: int, acceptance: float) -> float:
+    """Expected tokens emitted per verify iteration under greedy speculative
+    decoding with window K and i.i.d. per-draft acceptance probability a:
+    ``E = 1 + a + a^2 + ... + a^K = (1 - a^(K+1)) / (1 - a)`` (the run of
+    accepted drafts plus the always-emitted bonus token)."""
+    k = max(0, int(spec_tokens))
+    a = min(max(float(acceptance), 0.0), 1.0)
+    if k == 0:
+        return 1.0
+    if a >= 1.0:
+        return float(k + 1)
+    return (1.0 - a ** (k + 1)) / (1.0 - a)
+
+
+def prefix_affinity_key(requests: list, block: int = 16
+                        ) -> Callable[[Request], tuple]:
+    """Cache-aware sort key for slo_odbs: requests sharing their first KV
+    block sort adjacently (one prefill computes the prefix, the rest hit the
+    radix tree), and groups are ordered by their most urgent member's SLO so
+    affinity never strands a tight deadline behind a slack group."""
+    urgency: dict[tuple, float] = {}
+    for r in requests:
+        key = tuple(r.tokens[:block])
+        urgency[key] = min(urgency.get(key, float("inf")), r.slo)
+
+    def sort_key(r: Request) -> tuple:
+        key = tuple(r.tokens[:block])
+        return (urgency[key], key, r.slo)
+    return sort_key
 
 
 def _dynamic_cap(cm: float, cfg: SchedulerConfig) -> int:
@@ -51,14 +98,23 @@ def derive_chunk_tokens(cfg: SchedulerConfig, *, block_size: int = 16,
 def slo_odbs(requests: Iterable[Request], cfg: SchedulerConfig,
              *, sort_key: Optional[Callable[[Request], float]] = None
              ) -> list[Batch]:
-    """Algorithm 1 (SLO and Output-Driven Dynamic Batch Scheduler)."""
-    reqs = sorted(requests, key=sort_key or (lambda r: r.slo))
+    """Algorithm 1 (SLO and Output-Driven Dynamic Batch Scheduler).  With
+    ``cfg.prefix_aware`` (and no explicit sort_key) requests are grouped by
+    shared leading prompt block before the SLO-ascending walk, so batches
+    pack prefix-cache hits together."""
+    reqs = list(requests)
+    if sort_key is None and cfg.prefix_aware:
+        sort_key = prefix_affinity_key(reqs, cfg.prefix_block)
+    reqs = sorted(reqs, key=sort_key or (lambda r: r.slo))
     batches: list[Batch] = []
     cur = Batch()
     l_cm = o_cm = cm = 0.0
+    # speculation compresses output length into fewer engine iterations, so
+    # the output term is charged in expected *iterations*, not tokens
+    sp = max(cfg.spec_speedup, 1.0)
     for q in reqs:
         t_l = (q.slo + l_cm) * (len(cur) + 1) * cfg.l1
-        t_o = (q.sched_output_len + o_cm) * (len(cur) + 1) * cfg.l2
+        t_o = (q.sched_output_len + o_cm) / sp * (len(cur) + 1) * cfg.l2
         total = cfg.w1 * t_l + cfg.w2 * t_o
         kv_after = sum(r.kv_bytes_estimate for r in cur.requests) + q.kv_bytes_estimate
         cap = _dynamic_cap(cm, cfg)
@@ -67,12 +123,12 @@ def slo_odbs(requests: Iterable[Request], cfg: SchedulerConfig,
             cur.requests.append(q)
             l_cm = max(l_cm, q.slo)
             o_cm = max(o_cm, q.sched_output_len)
-            cm = max(cm, cfg.w1 * q.slo + cfg.w2 * q.sched_output_len)
+            cm = max(cm, cfg.w1 * q.slo + cfg.w2 * q.sched_output_len / sp)
         else:
             batches.append(cur)
             cur = Batch(requests=[q])
             l_cm, o_cm = q.slo, q.sched_output_len
-            cm = cfg.w1 * q.slo + cfg.w2 * q.sched_output_len
+            cm = cfg.w1 * q.slo + cfg.w2 * q.sched_output_len / sp
     if len(cur):
         batches.append(cur)
     return batches

@@ -1,9 +1,7 @@
-"""Core serving types shared by the profiler, scheduler, monitor, engine
-and deployer.
+"""Core serving types shared by the profiler, scheduler, monitor, engine,
+deployer and simulator.
 
-Own copy of ``repro/core/types.py``, trimmed to the single-engine serve
-paths, padded and paged, and the deployer's topology and device map (no
-cluster, fleet or retry bookkeeping)."""
+Own copy of ``repro/core/types.py``."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -26,10 +24,17 @@ class Request:
     # --- bookkeeping ---
     start_time: Optional[float] = None
     finish_time: Optional[float] = None
-    first_token_time: Optional[float] = None
+    first_token_time: Optional[float] = None   # TTFT numerator (run clock)
+    generated: int = 0
+    #   tokens already produced before (re-)dispatch: the recompute prefix a
+    #   retry replays after its replica crashed mid-decode (cluster fault
+    #   mode), so retried outputs stay token-identical to an unfailed run
     # per-phase latency attribution (obs.trace.LatencyBreakdown), attached
-    # by the paged engine at finish so SLO violations decompose by phase
+    # by the serving path at finish so SLO violations decompose by phase
     breakdown: Optional[object] = None
+    # --- heterogeneous fleet (empty = legacy single-model run) ---
+    model: str = ""                     # arch id the request must be served by
+    tier: str = ""                      # SLO tier label ("interactive", "batch", ...)
 
     @property
     def latency(self) -> Optional[float]:
@@ -63,6 +68,33 @@ class Batch:
 
     def __len__(self):
         return len(self.requests)
+
+    @property
+    def padded_input(self) -> int:
+        return max((r.input_len for r in self.requests), default=0)
+
+    @property
+    def padded_output(self) -> int:
+        return max((r.sched_output_len for r in self.requests), default=0)
+
+    @property
+    def true_padded_output(self) -> int:
+        return max((r.true_output_len for r in self.requests), default=0)
+
+    @property
+    def total_tokens(self) -> int:
+        """b × (padded in+out): the paper's Fig.3 token-cost metric."""
+        return len(self.requests) * (self.padded_input + self.padded_output)
+
+    @property
+    def padding_waste(self) -> int:
+        """Tokens generated/stored beyond what each request actually needs."""
+        return self.total_tokens - sum(r.input_len + r.sched_output_len
+                                       for r in self.requests)
+
+    @property
+    def min_slo(self) -> float:
+        return min((r.slo for r in self.requests), default=float("inf"))
 
 
 @dataclass

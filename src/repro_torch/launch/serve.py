@@ -55,8 +55,26 @@ the period takes 37.1 GB, and a caller that draws bf16 weights cuts with
 group period is 8 layers (90.2 GB in bf16), so ``fit_depth`` raises for it
 in either dtype; a caller that wants it on one card takes fewer layers
 than a period itself (its first five, 48.0 GB in bf16, hold every kind of
-layer).  The cluster,
-fault and profile flags exit with "not ported yet".
+layer).
+
+``--replicas N`` lifts serving to the cluster layer (``serving/cluster``):
+requests are routed by ``--router`` across N replicas.  With ``--paged``
+each replica owns a real ``PagedEngine`` (pool and prefix cache per
+replica; ``serve_cluster``) and the routed shares are served live, one
+replica after the other, every prefill chunk through the flash-attention
+kernel and every decode step through the paged-attention kernel.
+Otherwise the replicas are ``LatencyModel``-backed simulated engines on
+per-replica HELR deployments of the full-width ``--arch``, driven by the
+discrete-event simulator (``serve_cluster_sim``): no weights are drawn and
+only the length predictor runs on the device.  ``--autoscale`` adds the
+forecast-driven elastic replica set (``--workload bursty`` exercises it),
+``--models`` a heterogeneous fleet of per-model pools (``--fleet``: one
+joint allocator or independent per-pool autoscalers), and the fault flags
+(``--fault-crash``, ``--fault-mtbf``, ...) crashes, health checks, retries
+and brownout.  ``--speculate`` on a cluster path plans at the cost
+profiler's measured acceptance, which comes with the observability slice,
+so it exits with "not ported yet" there, as do the trace, metrics and
+profile flags.
 """
 from __future__ import annotations
 
@@ -74,22 +92,23 @@ from repro_torch.core import (LengthPredictor, Monitor, PredictorConfig,
                               ResourceProfiler, SchedulerConfig,
                               derive_chunk_tokens, get_scheduler, helr_mesh)
 from repro_torch.core.types import Request
-from repro_torch.data.workload import (SharedPrefixConfig, WorkloadConfig,
-                                       gen_requests,
+from repro_torch.data.workload import (MixedWorkloadConfig,
+                                       SharedPrefixConfig, WorkloadConfig,
+                                       gen_mixed_requests, gen_requests,
                                        gen_shared_prefix_requests, train_pairs)
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.transformer import Transformer
-from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
-                                 PagedEngineConfig, get_drafter)
+from repro_torch.serving import (AutoscalerConfig, EngineConfig, FaultEvent,
+                                 FaultPlan, FleetAutoscalerConfig,
+                                 HealthConfig, InferenceEngine, ModelPoolSpec,
+                                 PagedEngine, PagedEngineConfig, Replica,
+                                 RetryConfig, Router, RouterConfig,
+                                 get_drafter, paper_cluster, simulate_cluster)
+from repro_torch.serving.cluster.router import POLICIES
 
 # flags of the reference CLI whose paths later slices port
 _LATER_FLAGS = {
-    "cluster slice": ("--replicas", "--models", "--fleet", "--router",
-                      "--autoscale", "--fault-crash", "--fault-mtbf",
-                      "--fault-mttr", "--fault-seed", "--retry-budget",
-                      "--retry-backoff", "--detect-lag", "--health-interval",
-                      "--brownout-tiers"),
     "observability slice": ("--trace", "--metrics-json", "--profile-out",
                             "--profile-in", "--pricing-quantile",
                             "--profile-half-life"),
@@ -163,11 +182,12 @@ def make_requests(cfg: ModelConfig, n: int, max_new: int,
     return reqs
 
 
-def fit_predictor(cfg: ModelConfig, device) -> LengthPredictor:
-    """The serve path's length predictor: seed 0, 8 epochs on 256 pairs."""
-    pred = LengthPredictor(PredictorConfig(vocab=cfg.vocab_size), seed=0,
-                           device=device)
-    toks, lens = train_pairs(WorkloadConfig(vocab=cfg.vocab_size), 256, seed=1)
+def fit_predictor(vocab: int, device) -> LengthPredictor:
+    """The serve path's length predictor: seed 0, 8 epochs on 256 pairs at
+    ``vocab`` (a model's, or the predictor's default for the simulated
+    cluster, whose requests are not cut to a model's vocab)."""
+    pred = LengthPredictor(PredictorConfig(vocab=vocab), seed=0, device=device)
+    toks, lens = train_pairs(WorkloadConfig(vocab=vocab), 256, seed=1)
     pred.fit(toks, lens, epochs=8)
     return pred
 
@@ -225,6 +245,155 @@ def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
     return {"outputs": done, "digest": outputs_digest(done),
             "results": results, "seconds": seconds,
             "tokens": sum(len(v) for v in done.values()), "monitor": mon}
+
+
+def serve_cluster(cfg: ModelConfig, params: Transformer, reqs: list[Request],
+                  predictor: LengthPredictor, *, replicas: int = 2,
+                  router: str = "round_robin", max_new: int = 16,
+                  kv_budget: float = 2e6, prefix_cache: bool = False,
+                  lookahead: int = 0, chunk_tokens: int = 0,
+                  preempt: bool = False) -> dict:
+    """Route ``reqs`` across ``replicas`` live replicas, each a
+    ``PagedEngine`` on ``params`` with its own pool of ``kv_budget`` bytes
+    and prefix cache, then serve each replica's share in turn, as the
+    reference's ``_serve_cluster_live`` does (its pools in the parameters'
+    dtype).  Prints a line for each replica that got requests and the
+    router's stats.  Returns what ``serve`` returns (``results``: the
+    engine result of each replica served), and ``replicas`` and
+    ``router``."""
+    prof = ResourceProfiler(predictor, cfg)
+    mon = Monitor(prof)
+    prof.profile(reqs)
+    t0 = time.perf_counter()
+    route = Router(RouterConfig(policy=router))
+    reps = []
+    for i in range(replicas):
+        nodes, lat = paper_cluster()
+        pcfg = paged_config(cfg, reqs, max_new, kv_budget,
+                            prefix_cache=prefix_cache,
+                            admit_lookahead=lookahead,
+                            chunk_tokens=chunk_tokens, preempt=preempt)
+        reps.append(Replica(
+            i, cfg, nodes, lat, max_batch=4, block_size=8,
+            n_blocks=pcfg.usable_blocks, prefix_cache=prefix_cache,
+            chunk_tokens=chunk_tokens, preempt=preempt,
+            engine=PagedEngine(cfg, params, pcfg, monitor=mon, track=i,
+                               dtype=params.embed.w.dtype)))
+    for r in sorted(reqs, key=lambda q: q.arrival):
+        rep = route.dispatch(r, reps, r.arrival)
+        if rep is None:
+            mon.observe_shed(r)
+            continue
+        rep.enqueue(r, r.arrival)
+    done, results = {}, []
+    for rep in reps:
+        if not rep.queue:
+            continue
+        res = rep.engine.run_continuous(
+            sorted(rep.queue, key=lambda q: q.arrival))
+        results.append(res)
+        done.update(res.outputs)
+        print(f"replica {rep.rid}: {len(rep.queue)} requests, "
+              f"prefill_tokens={res.prefill_tokens}, "
+              f"prefix_hits={res.prefix_hits}/{res.prefix_lookups}, "
+              f"peak_blocks={res.peak_blocks}")
+    print(f"router: {route.stats.summary()}")
+    seconds = time.perf_counter() - t0
+    return {"outputs": done, "digest": outputs_digest(done),
+            "results": results, "seconds": seconds,
+            "tokens": sum(len(v) for v in done.values()), "monitor": mon,
+            "replicas": reps, "router": route.stats.summary()}
+
+
+def parse_model_mix(spec: str) -> list:
+    """``"arch[:weight],arch[:weight]"`` -> ``[(arch, weight), ...]``."""
+    out = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, w = part.partition(":")
+        out.append((name.strip(), float(w) if w else 1.0))
+    if not out:
+        raise SystemExit("--models: empty model list")
+    return out
+
+
+def serve_cluster_sim(args, prof: ResourceProfiler, mon: Monitor):
+    """The cluster-scale path: ``LatencyModel``-backed replicas on
+    per-replica HELR deployments of the full-width ``--arch``, driven by the
+    discrete-event simulator on the reference's trace (at least 128
+    requests at 16 a second), its autoscaler, fleet and fault settings.
+    Prints the ``cluster:`` summary and a line for each replica; returns
+    the ``ClusterSimResult``."""
+    full_cfg = get_config(args.arch)
+    n = max(args.requests, 128)
+    pattern = args.workload if args.workload in ("bursty", "diurnal") \
+        else "poisson"
+    pools = None
+    if args.models:
+        # heterogeneous fleet: model-tagged, tier-skewed mixed trace and
+        # one replica pool per model over the shared partition budget
+        mix = parse_model_mix(args.models)
+        reqs = gen_mixed_requests(MixedWorkloadConfig(
+            models=tuple(mix), n_requests=n, arrival_rate=16.0,
+            arrival_pattern=pattern, seed=0))
+        per = max(1, args.replicas // len(mix))
+        pools = [ModelPoolSpec(m, replicas=per, weight=w) for m, w in mix]
+    elif args.workload == "shared-prefix":
+        reqs = gen_shared_prefix_requests(SharedPrefixConfig(
+            n_requests=n, n_templates=max(4, n // 12), prefix_len=96,
+            turns=4, arrival_rate=16.0, slo_lo=8.0, slo_hi=60.0, seed=0))
+    else:
+        reqs = gen_requests(WorkloadConfig(
+            n_requests=n, arrival_rate=16.0, arrival_pattern=pattern,
+            slo_lo=8.0, slo_hi=60.0, seed=0))
+    auto = None
+    if args.autoscale:
+        if pools is not None and args.fleet == "joint":
+            auto = FleetAutoscalerConfig(
+                interval=1.0, budget=max(6, 2 * args.replicas),
+                min_per_pool=1, spawn_delay=1.0)
+        elif pools is not None:
+            # replicated per pool by the simulator: independent autoscalers
+            auto = AutoscalerConfig(
+                interval=1.0, min_replicas=max(1, per),
+                max_replicas=max(3, args.replicas), spawn_delay=1.0)
+        else:
+            auto = AutoscalerConfig(interval=1.0, min_replicas=args.replicas,
+                                    max_replicas=max(6, 2 * args.replicas),
+                                    spawn_delay=1.0)
+    faults = retry = health = None
+    if args.fault_crash or args.fault_mtbf > 0:
+        events = []
+        for spec in (args.fault_crash or "").split(","):
+            if not spec:
+                continue
+            ts, _, rid = spec.partition(":")
+            events.append(FaultEvent(t=float(ts), kind="crash",
+                                     rid=int(rid or 0)))
+        faults = FaultPlan(events=events, mtbf=args.fault_mtbf,
+                           mttr=args.fault_mttr, seed=args.fault_seed)
+        retry = RetryConfig(budget=args.retry_budget,
+                            backoff_base=args.retry_backoff)
+        tiers = tuple(t for t in (args.brownout_tiers or "").split(",") if t)
+        health = HealthConfig(check_interval=args.health_interval,
+                              detect_lag=args.detect_lag,
+                              brownout_tiers=tiers)
+    res = simulate_cluster(
+        reqs, full_cfg, get_scheduler(args.scheduler), SchedulerConfig(),
+        n_replicas=args.replicas, pools=pools, router=args.router,
+        autoscale=auto, prefix_cache=args.prefix_cache,
+        chunk_tokens=args.chunk_tokens, preempt=args.preempt,
+        profiler=prof, monitor=mon, faults=faults, retry=retry,
+        health=health)
+    print("cluster:", res.summary())
+    for s in res.replica_stats:
+        tag = f" model={s['model']}" if pools is not None else ""
+        print(f"  replica {s['rid']}:{tag} served={s['served']} "
+              f"util={s['utilization']} queue_prefill={s['prefill_tokens']} "
+              f"saved={s['prefill_tokens_saved']}")
+    return res
 
 
 def print_paged(res, pcfg: PagedEngineConfig, drafter_name: str) -> None:
@@ -304,6 +473,46 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--workload", default="alpaca",
                     choices=["alpaca", "shared-prefix", "bursty", "diurnal"])
     ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--replicas", type=int, default=1,
+                    help="cluster serving: replicas behind the router")
+    ap.add_argument("--models", default=None, metavar="SPEC",
+                    help="heterogeneous fleet on the simulated cluster: "
+                         "comma list of arch[:weight] (e.g. "
+                         "'chatglm2-6b:0.6,qwen2-1.5b:0.4')")
+    ap.add_argument("--fleet", default="joint",
+                    choices=["joint", "independent"],
+                    help="with --models --autoscale: one joint allocator "
+                         "over the shared replica budget or independent "
+                         "per-pool autoscalers")
+    ap.add_argument("--router", default="round_robin", choices=POLICIES,
+                    help="dispatch policy of the cluster layer")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="forecast-driven elastic replica set (simulated "
+                         "cluster; --replicas becomes the minimum)")
+    ap.add_argument("--fault-crash", default=None, metavar="T:RID[,T:RID]",
+                    help="scripted replica crashes in the cluster sim, e.g. "
+                         "'2.5:1' crashes replica 1 at t=2.5s (fault mode: "
+                         "health checks, retries)")
+    ap.add_argument("--fault-mtbf", type=float, default=0.0,
+                    help="seeded random faults: mean seconds between "
+                         "failures per replica lane (0 = scripted only)")
+    ap.add_argument("--fault-mttr", type=float, default=0.0,
+                    help="mean recovery time of recoverable random faults")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed of the random fault model")
+    ap.add_argument("--retry-budget", type=int, default=2,
+                    help="re-dispatches granted to a request lost with a "
+                         "failed replica before it counts as shed")
+    ap.add_argument("--retry-backoff", type=float, default=0.25,
+                    help="base seconds of the exponential retry backoff")
+    ap.add_argument("--detect-lag", type=float, default=1.0,
+                    help="seconds a silent replica stays routable before "
+                         "the health layer declares it down")
+    ap.add_argument("--health-interval", type=float, default=0.5,
+                    help="heartbeat/health-scan cadence in fault mode")
+    ap.add_argument("--brownout-tiers", default=None, metavar="T1[,T2]",
+                    help="SLO tiers shed in this order under detected "
+                         "capacity loss, e.g. 'batch,interactive'")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu)")
     for slice_name, flags in _LATER_FLAGS.items():
@@ -321,8 +530,20 @@ def main(argv=None) -> dict:
         for flag in flags:
             if hasattr(args, flag[2:].replace("-", "_")):
                 ap.error(f"{flag} is not ported yet ({slice_name})")
-    if args.prefix_cache or args.speculate:
-        args.paged = True
+    cluster = args.replicas > 1 or args.autoscale or bool(args.models)
+    if cluster and args.speculate:
+        ap.error("--speculate on a cluster path is not ported yet "
+                 "(observability slice: it plans at the cost profiler's "
+                 "measured acceptance)")
+    if args.autoscale and args.paged:
+        raise SystemExit("--autoscale needs the simulated cluster path: "
+                         "drop --paged (elasticity has no live-engine mode)")
+    if args.models and args.paged:
+        raise SystemExit("--models needs the simulated cluster path: "
+                         "drop --paged (the heterogeneous fleet has no "
+                         "live-engine mode)")
+    if (args.prefix_cache or args.speculate) and not cluster:
+        args.paged = True          # the cluster sim honours the flags itself
     spec_tokens = args.spec_tokens if args.speculate else 0
     if args.chunk_tokens < 0:
         args.chunk_tokens = derive_chunk_tokens(SchedulerConfig(),
@@ -332,6 +553,19 @@ def main(argv=None) -> dict:
     device = resolve_device(args.device)
     where = (f"{device} ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else str(device))
+
+    if cluster and not args.paged:
+        # the cluster-scale path prices the full-width arch and draws no
+        # weights; only the length predictor runs on the device
+        plan = helr_mesh(get_config(args.arch), SHAPES["decode_32k"]).name
+        print(f"serving {args.arch} on the simulated cluster, its length "
+              f"predictor on {where} (plan for production mesh: {plan})")
+        prof = ResourceProfiler(fit_predictor(PredictorConfig().vocab, device),
+                                get_config(args.arch))
+        mon = Monitor(prof)
+        res = serve_cluster_sim(args, prof, mon)
+        print("monitor:", mon.metrics())
+        return {"cluster": res, "monitor": mon}
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -357,7 +591,7 @@ def main(argv=None) -> dict:
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device=device)
     reqs = make_requests(cfg, args.requests, args.max_new, args.workload)
     pcfg = drafter = None
-    if args.paged:
+    if args.paged and not cluster:
         pcfg = paged_config(cfg, reqs, args.max_new, args.kv_budget,
                             prefix_cache=args.prefix_cache,
                             admit_lookahead=args.lookahead,
@@ -374,9 +608,19 @@ def main(argv=None) -> dict:
             drafter = get_drafter("model", draft_cfg=cfg,
                                   draft_params=api.init_params(
                                       cfg, seed=7, device=device))
-    out = serve(cfg, params, reqs, fit_predictor(cfg, device),
-                scheduler=args.scheduler, continuous=args.continuous,
-                max_new=args.max_new, paged=pcfg, drafter=drafter)
+    pred = fit_predictor(cfg.vocab_size, device)
+    if cluster:
+        out = serve_cluster(cfg, params, reqs, pred,
+                            replicas=args.replicas, router=args.router,
+                            max_new=args.max_new, kv_budget=args.kv_budget,
+                            prefix_cache=args.prefix_cache,
+                            lookahead=args.lookahead,
+                            chunk_tokens=args.chunk_tokens,
+                            preempt=args.preempt)
+    else:
+        out = serve(cfg, params, reqs, pred,
+                    scheduler=args.scheduler, continuous=args.continuous,
+                    max_new=args.max_new, paged=pcfg, drafter=drafter)
     if pcfg is not None:
         print_paged(out["results"][0], pcfg, args.drafter)
     dt, total = out["seconds"], out["tokens"]

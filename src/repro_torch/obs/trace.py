@@ -1,6 +1,7 @@
-"""Request-lifecycle tracing: the span vocabulary the paged engine emits.
+"""Request-lifecycle tracing: one span vocabulary for the paged engine, the
+iteration-level simulator and the cluster layer.
 
-Own copy of ``repro/obs/trace.py``, trimmed to what the paged engine uses:
+Own copy of ``repro/obs/trace.py``, trimmed to what those emit through:
 the tracer, its no-op instance, the row addressing and the per-request
 latency breakdown.  Sinks, the invariant checker and the exporters come with
 the observability slice.
@@ -11,6 +12,8 @@ the observability slice.
     prefill_chunk    | slot row   | one (chunked) prefill call
     decode           | slot row   | one decode iteration for the slot
     verify           | slot row   | one speculative verify iteration
+    batch_prefill    | engine row | padded-replica batch prefill
+    batch_decode     | engine row | padded-replica batch decode drain
 
     instant name     | emitted on | meaning
     -----------------+------------+-----------------------------------
@@ -19,13 +22,21 @@ the observability slice.
     preempt          | slot row   | resident evicted for recompute
     cow_fork         | slot row   | shared tail block forked pre-write
     finish           | slot row   | request completed (EOS/budget)
+    shed             | queue row  | router refused (SLO infeasible)
+    route            | engine row | router dispatch decision
+    scale_up         | engine row | autoscaler ordered replicas
+    scale_down       | engine row | autoscaler drained replicas
+    replica_failed   | engine row | health layer detected a failure
+    retry            | queue row  | lost request re-dispatched
+    brownout         | engine row | tier-shedding level changed
 
 Tracks map to replicas (Chrome-trace ``pid``) and rows to slots (``tid``):
 row 0 is the engine row, row 1 the queue row, row ``2+k`` slot ``k``.
-Timestamps are seconds on the run clock (``perf_counter() - serve_t0``), the
-axis ``Request.finish_time`` uses.  A disabled tracer (``NULL_TRACER``) is a
-no-op on every call; the engine holds one unconditionally and guards
-argument construction behind ``tracer.enabled``.
+Timestamps are seconds on the run clock: the workload's arrival timeline
+for the simulators, ``perf_counter() - serve_t0`` for live engines, the
+axis ``Request.finish_time`` uses.  A disabled tracer (``NULL_TRACER``) is
+a no-op on every call; engines and simulators hold one unconditionally and
+guard argument construction behind ``tracer.enabled``.
 """
 from __future__ import annotations
 
@@ -33,7 +44,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 ROW_ENGINE = 0          # iteration-level events of a replica
-ROW_QUEUE = 1           # waiting requests (queued spans)
+ROW_QUEUE = 1           # waiting requests (queued spans, sheds)
 
 
 def slot_row(slot: int) -> int:

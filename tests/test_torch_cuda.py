@@ -6,6 +6,7 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 
 Every test needs an NVIDIA GPU and skips without one."""
+import copy
 import dataclasses
 
 import pytest
@@ -22,6 +23,7 @@ from repro_torch.kernels.paged_attention import (
     paged_window_attention, paged_window_attention_reference)
 from repro_torch.kernels.paged_attention.ops import paged_splits
 from repro_torch.kernels.wkv6 import wkv6, wkv6_chunked
+from repro_torch.launch import serve
 from repro_torch.models import api, attention, mamba, moe
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
                                  PagedEngineConfig)
@@ -43,6 +45,11 @@ FLASH_CASES = [
     (2, 300, 300, 32, 2, 128, 128, True, None, None, 0),
     (1, 77, 77, 12, 2, 128, 128, True, 24, 50.0, 0),
     (4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
+    # chatglm2-6b's continuation chunks on the shared-prefix paged runs:
+    # one prompt, a 16-token chunk and an 8-token tail over a 16-token
+    # cached prefix, D = 128 at group 16
+    (1, 16, 32, 32, 2, 128, 128, True, None, None, 16),
+    (1, 8, 24, 32, 2, 128, 128, True, None, None, 16),
     # gemma2-27b's local layers at group 2: the window bites well inside the
     # prompt, so whole tiles below it are skipped; minicpm3-4b's MLA
     # prefill, D = 96, Dv = 64 on 40 heads (the general instance)
@@ -436,6 +443,43 @@ def test_paged_engine_on_card_matches_cpu(cuda, spec_tokens):
             assert paged_window_attention.launches - n_pa == \
                 cfg.n_layers * res.steps
             assert res.prefix_hits > 0
+    assert outs["cpu"] == outs[str(cuda)]
+
+
+CLUSTER_LIVE = {
+    "round_robin": ("alpaca", {}),
+    "prefix_affinity": ("shared-prefix", {"prefix_cache": True,
+                                          "chunk_tokens": 16,
+                                          "router": "prefix_affinity"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_LIVE))
+def test_cluster_live_on_card_matches_cpu(cuda, case):
+    """``serve --replicas 2 --paged`` at the reduced size: two live paged
+    replicas give the same outputs and the same split on the card as on the
+    CPU; K2 ran once per layer and prefill chunk and K1 once per layer and
+    decode step, summed over the replicas, K3 and K4 never."""
+    cfg = get_config("smollm-135m").reduced()
+    workload, kw = CLUSTER_LIVE[case]
+    pred = serve.fit_predictor(cfg.vocab_size, "cpu")
+    outs = {}
+    for dev in ("cpu", cuda):
+        params = api.init_params(cfg, seed=0, device=dev)
+        n = (flash_attention.launches, paged_window_attention.launches,
+             decode_attention.launches, wkv6.launches)
+        out = serve.serve_cluster(cfg, params,
+                                  serve.make_requests(cfg, 12, 16, workload),
+                                  copy.deepcopy(pred), replicas=2, **kw)
+        if dev != "cpu":
+            res = out["results"]
+            assert flash_attention.launches - n[0] == \
+                cfg.n_layers * sum(r.prefill_chunks for r in res)
+            assert paged_window_attention.launches - n[1] == \
+                cfg.n_layers * sum(r.steps for r in res)
+            assert (decode_attention.launches, wkv6.launches) == n[2:]
+        outs[str(dev)] = (out["outputs"], out["router"],
+                          [len(rep.queue) for rep in out["replicas"]])
     assert outs["cpu"] == outs[str(cuda)]
 
 

@@ -394,7 +394,7 @@ def test_bf16_serve_paths_run():
     try:
         for kw in ({}, dict(continuous=True), dict(paged=pcfg)):
             out = serve.serve(cfg, model, serve.make_requests(cfg, 12, 16),
-                              serve.fit_predictor(cfg, "cpu"), **kw)
+                              serve.fit_predictor(cfg.vocab_size, "cpu"), **kw)
             assert len(out["outputs"]) == 12
             assert all(0 <= t < cfg.vocab_size for v in out["outputs"].values()
                        for t in v)

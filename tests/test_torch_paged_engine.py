@@ -426,5 +426,6 @@ def test_serve_paged_prints_the_jax_digest(capsys, monkeypatch, model,
     workload_name = argv[argv.index("--workload") + 1] \
         if "--workload" in argv else "alpaca"
     reqs = serve.make_requests(cfg, 12, 16, workload_name)
-    padded = serve.serve(cfg, tmodel, reqs, serve.fit_predictor(cfg, "cpu"))
+    padded = serve.serve(cfg, tmodel, reqs,
+                         serve.fit_predictor(cfg.vocab_size, "cpu"))
     assert padded["digest"] == out["digest"]

@@ -336,8 +336,22 @@ def test_serve_cli_flags(monkeypatch):
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
     assert ap.parse_args([]).device == "cuda"
-    for argv in (["--replicas", "2"], ["--paged", "--replicas", "2"],
-                 ["--trace", "t.json"], ["--profile-in", "p.json"]):
+    args = ap.parse_args([])
+    assert (args.replicas, args.router, args.fleet, args.autoscale,
+            args.models, args.retry_budget, args.detect_lag) == \
+        (1, "round_robin", "joint", False, None, 2, 1.0)
+    # the cluster paths run (their lines are held to the reference's in
+    # the tests below); the observability flags, --speculate on a cluster
+    # path, and the reference's refusals of --paged with --autoscale or
+    # --models exit
+    out = serve.main(["--replicas", "2", "--device", "cpu"])
+    res = out["cluster"]
+    assert len(res.finished) + len(res.shed) == len(res.requests) == 128
+    for argv in (["--trace", "t.json"], ["--profile-in", "p.json"],
+                 ["--replicas", "2", "--speculate"],
+                 ["--replicas", "2", "--paged", "--speculate"],
+                 ["--autoscale", "--paged"],
+                 ["--models", "chatglm2-6b", "--paged"]):
         with pytest.raises(SystemExit):
             serve.main(argv + ["--device", "cpu"])
     # whisper-medium resolves, then fails where the reference's CLI fails:
@@ -349,6 +363,107 @@ def test_serve_cli_flags(monkeypatch):
                                      "--requests", "2", "--max-new", "2"])
     with pytest.raises(KeyError, match="frames"):
         jax_serve.main()
+
+
+class _Fitted:
+    """Stands in for the JAX CLI's ``LengthPredictor``: a copy of an
+    already fitted one (the same seed, pairs and epochs as the CLI's own
+    fit), so the JAX run and the port's start from the same weights."""
+
+    def __init__(self, fitted):
+        self.fitted = fitted
+
+    def __call__(self, *a, **kw):
+        pred = copy.deepcopy(self.fitted)
+        pred.fit = lambda *a, **kw: None
+        return pred
+
+
+@pytest.fixture(scope="module")
+def sim_pred():
+    """The simulated cluster path's JAX predictor: the default vocab, seed
+    0, 8 epochs on 256 pairs."""
+    pred = jax_profiler.LengthPredictor(jax_profiler.PredictorConfig(), seed=0)
+    toks, lens = jax_workload.train_pairs(jax_workload.WorkloadConfig(), 256,
+                                          seed=1)
+    pred.fit(toks, lens, epochs=8)
+    return pred
+
+
+def _lines(printed, heads):
+    return [ln for ln in printed.splitlines() if ln.startswith(heads)]
+
+
+CLUSTER_SIM_ARGVS = {
+    "slo_aware": ["--replicas", "4", "--router", "slo_aware"],
+    "models_autoscale": ["--replicas", "4", "--models",
+                         "chatglm2-6b:0.6,qwen2-1.5b:0.4", "--autoscale"],
+    "faults": ["--replicas", "4", "--fault-crash", "2.5:1", "--fault-mtbf",
+               "20", "--fault-mttr", "2", "--brownout-tiers", "batch"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_SIM_ARGVS))
+def test_cluster_sim_cli_matches_jax(capsys, monkeypatch, sim_pred, case):
+    """``serve --arch chatglm2-6b --replicas 4`` on the simulated cluster
+    (slo_aware routing; a two-model fleet under the joint autoscaler; a
+    scripted crash, random crashes and brownout), the port's CLI against
+    the JAX CLI with the same fitted predictor: the same ``cluster:``,
+    replica and ``monitor:`` lines, online updates included."""
+    argv = ["--arch", "chatglm2-6b"] + CLUSTER_SIM_ARGVS[case]
+    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    monkeypatch.setattr(jax_serve, "LengthPredictor", _Fitted(sim_pred))
+    jax_serve.main()
+    want = _lines(capsys.readouterr().out, ("cluster:", "  replica",
+                                            "monitor:"))
+    monkeypatch.setattr(serve, "fit_predictor", lambda c, d: predictor_from_numpy(
+        jax.tree.map(np.array, sim_pred.params), profiler.PredictorConfig(),
+        device="cpu"))
+    out = serve.main([*argv, "--device", "cpu"])
+    got = _lines(capsys.readouterr().out, ("cluster:", "  replica",
+                                           "monitor:"))
+    assert got == want and len(got) >= 3
+    res, stats = out["cluster"], out["monitor"].stats
+    assert len(res.finished) + len(res.shed) == len(res.requests)
+    assert stats.slo_observed == len(res.requests)
+
+
+CLUSTER_LIVE_ARGVS = {
+    "round_robin": ["--replicas", "2", "--paged"],
+    "prefix_affinity": ["--replicas", "2", "--paged", "--prefix-cache",
+                        "--workload", "shared-prefix", "--router",
+                        "prefix_affinity"],
+}
+
+
+@pytest.mark.parametrize("case", sorted(CLUSTER_LIVE_ARGVS))
+def test_cluster_live_cli_matches_jax(capsys, monkeypatch, weights, jax_pred,
+                                      case):
+    """``serve --replicas 2 --paged`` at the reduced smollm: two live paged
+    replicas, each serving its routed share; the port's CLI with the JAX
+    run's weights and predictor prints the same replica lines, ``router:``
+    line and outputs digest, the reference's split of the shared-prefix
+    templates (both hash to replica 1, which takes all 12) included."""
+    argv = CLUSTER_LIVE_ARGVS[case]
+    monkeypatch.setattr("sys.argv", ["serve", *argv])
+    monkeypatch.setattr(jax_serve, "LengthPredictor", _Fitted(jax_pred))
+    jax_serve.main()
+    heads = ("replica", "router:", "outputs_digest=")
+    want = _lines(capsys.readouterr().out, heads)
+    monkeypatch.setattr(serve.api, "init_params", lambda *a, **k: weights[1])
+    monkeypatch.setattr(serve, "fit_predictor",
+                        lambda c, d: _convert(jax_pred))
+    out = serve.main([*argv, "--device", "cpu"])
+    got = _lines(capsys.readouterr().out, heads)
+    assert got == want
+    assert len(out["outputs"]) == 12
+    assert out["router"]["dispatched"] + out["router"]["shed"] == 12
+    served = [len(rep.queue) for rep in out["replicas"]]
+    if case == "prefix_affinity":
+        assert served == [0, 12] and out["router"]["affinity_hits"] == 10
+        assert out["results"][0].prefix_hits > 0
+    else:
+        assert served == [6, 6]
 
 
 def test_get_config_names_the_later_slice():
@@ -381,6 +496,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     files += [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
               ROOT / "chip_variants.py"]
     assert len(files) > 20
+    names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
+             if "repro_torch" in f.parts}
+    assert {"serving/simulator.py", "serving/cluster/replica.py",
+            "serving/cluster/router.py", "serving/cluster/autoscaler.py",
+            "serving/cluster/faults.py", "serving/cluster/fleet.py",
+            "distributed/fault_tolerance.py"} <= names
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for path in files:
         text = path.read_text()
