@@ -61,7 +61,7 @@ Phases, in order; any failed check exits non-zero:
    WKV6 ran once per layer on every prefill (and no attention kernel ran),
    profiles one decode step and the long prefill, and checks the first
    batch's logits on the card against the CPU at full width and the first
-   4 of the 32 layers (so the host holds no second full copy).
+   4 of the 32 layers.
 8. dense serve: ``serve --arch qwen2-1.5b`` at full width (28 layers,
    d_model 1536, 12 heads over 2 KV heads of 128, vocab 151,936) on the
    padded path; then chatglm2-6b, the paper's own model, at full width
@@ -84,6 +84,25 @@ Phases, in order; any failed check exits non-zero:
    audit and that (c) hit the prefix cache; profiles the long prefill and
    a decode step, and checks the first batch's logits on the card against
    the CPU at full width and the first 2 layers, for both models.
+   Observability (``[obs]`` lines): chatglm2-6b's ``--paged`` run and the
+   live cluster's run (a) each carry a ``Tracer`` and a ``CostProfiler``
+   (run (a)'s priced against the replicas' ``LatencyModel`` on the paper's
+   cluster); each writes its Chrome trace and metrics JSON under
+   ``chiprun_out/obs/``, which must validate and pass ``check_invariants``,
+   and the distinct decode iterations and the ``prefill_chunk`` spans of
+   its trace, times 14 layers, must equal the paged and flash attention
+   launches of that run.  The ``--paged`` run is then made six times
+   untraced and six times traced (a cost profiler with a reference model)
+   in alternating order, for the tracing overhead as the reference's gate
+   measures it (the outputs must not change).  Run (a)'s profile is saved, each of
+   its decode and prefill cells printed beside the ``LatencyModel``'s
+   mean at the same operating points, and (a) is run again with that
+   registry as ``--profile-in`` and ``--pricing-quantile 0.95``: its
+   calibration and drift lines are printed, and pricing must have covered
+   some projections.  Then ``ci.sh``'s profile round trip, ``serve --paged
+   --speculate --chunk-tokens 8 --requests 8`` (the reduced smollm-135m)
+   with ``--profile-out`` and then ``--profile-in``: both outputs digests
+   must equal the same argv's on the CPU.
 9. window and MLA serve (``[window]`` and ``[mla]`` lines): gemma2-27b at
    full width (d_model 4608, 32 heads over 16 KV heads of 128, d_ff 36,864,
    vocab 256,000, local layers with a 4,096-token window and softcap 50),
@@ -181,10 +200,17 @@ Phases, in order; any failed check exits non-zero:
    crashes and brownout (``--fault-crash 2.5:1 --fault-mtbf 20
    --fault-mttr 2 --brownout-tiers batch``); prints each ``cluster:``
    summary and checks finished + shed = offered, that the monitor observed
-   every offered request, and that no kernel launched.
+   every offered request, and that no kernel launched; the slo_aware run
+   also writes its trace, metrics JSON and profile under
+   ``chiprun_out/obs/``, each validated, and runs again with that profile
+   as ``--profile-in`` at ``--pricing-quantile 0.95``: the CLI's profiles
+   carry no measured / model ratios, so its pricing covers nothing
+   (printed beside phase 8's) and its summary must equal the uncalibrated
+   run's.
 
-Each path runs with the launch counts set to 0 just before it and read just
-after.  A ``[phase]`` line gives each phase's seconds.  The last three
+Card-vs-CPU logits at a cut depth run on the phase's own weights: their
+first layers, moved to the CPU after the card's run.  Each path runs with
+the launch counts set to 0 just before it and read just after.  A ``[phase]`` line gives each phase's seconds.  The last three
 lines are a JSON object of per-kernel numbers (launches on those paths,
 error, device time, plain-version and library times, bound), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -233,8 +259,12 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models import api, mamba, moe  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
+from repro_torch.obs import (CostProfiler, Tracer,  # noqa: E402
+                             check_invariants, validate_metrics,
+                             validate_trace)
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
-                                 PagedEngine, PagedEngineConfig, greedy)
+                                 PagedEngine, PagedEngineConfig, Replica,
+                                 greedy, paper_cluster)
 
 # Bounds use the H100 data sheet's peaks: HBM bytes/s, and FLOP/s of bf16
 # and of fp32 at fp32 accuracy, the fastest route to which is the TF32
@@ -319,6 +349,12 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("chatglm2_chunk_prefill", 1, 16, 32, 32, 2, 128, 128, True, None, None,
      16),
     ("chatglm2_chunk_tail", 1, 8, 24, 32, 2, 128, 128, True, None, None, 16),
+    # the profile round trip's 8-token chunks on the reduced smollm-135m
+    # (group 4, D = 16: ``fa_fwd_simt``): a prompt's first chunk and the
+    # second over its 8 cached keys
+    ("smollm_reduced_chunk", 1, 8, 8, 4, 1, 16, 16, True, None, None, 0),
+    ("smollm_reduced_chunk_next", 1, 8, 16, 4, 1, 16, 16, True, None, None,
+     8),
     # gemma2-27b (group 2, D = 128, softcap 50): the long batch's local
     # layers (window 4,096 inside 4,608 tokens) and global layers, and the
     # serve prefill's local layers; minicpm3-4b's MLA prefill (40 heads,
@@ -366,7 +402,8 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
                "chatglm2_long_prefill", "chatglm2_chunk_prefill",
-               "chatglm2_chunk_tail", "qwen2_serve_prefill",
+               "chatglm2_chunk_tail", "smollm_reduced_chunk",
+               "smollm_reduced_chunk_next", "qwen2_serve_prefill",
                "gemma2_long_prefill", "gemma2_global_prefill",
                "gemma2_serve_prefill", "minicpm3_long_prefill",
                "minicpm3_serve_prefill", "qwen2_moe_long_prefill",
@@ -500,11 +537,19 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
     # llama4-maverick's paged decode (group 5, D = 128) over 8-token pages
     ("llama4_paged_serve_decode", "decode", 4, 1, 40, 8, 128, 128, 8, 4, 55,
      None, [24, 20, 17, 31]),
+    # the profile round trip on the reduced smollm-135m (group 4, D = 16):
+    # its T = 5 verify windows over 8-token pages of a 977-page pool, at
+    # lengths the run reaches (an idle slot at 0), and a decode at its widths
+    ("smollm_reduced_verify", "window", 4, 5, 4, 1, 16, 16, 8, 8, 977, None,
+     [17, 29, 0, 22]),
+    ("smollm_reduced_decode", "decode", 4, 1, 4, 1, 16, 16, 8, 8, 977, None,
+     [18, 30, 1, 23]),
 ]
 PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window",
                "chatglm2_paged_serve_decode", "chatglm2_paged_long_decode",
                "qwen2_paged_serve_decode", "qwen2_moe_paged_serve_decode",
-               "qwen2_vl_paged_serve_decode", "llama4_paged_serve_decode")
+               "qwen2_vl_paged_serve_decode", "llama4_paged_serve_decode",
+               "smollm_reduced_verify")
 # cases timed in bf16, the dtype of their main path (every other one in f32)
 BF16_TIMED = ("llama4_long_prefill", "llama4_serve_prefill",
               "llama4_long_decode", "llama4_serve_decode",
@@ -543,6 +588,18 @@ CLUSTER_LIVE = {
                                             "prefix_cache": True,
                                             "chunk_tokens": 16}),
 }
+# where the observed runs of phases 8 and 14 write their trace, metrics
+# JSON and cost profile
+OBS_DIR = ROOT / "chiprun_out" / "obs"
+# phase 8: the live cluster's run whose profile is saved and read back
+CLUSTER_PROFILED = "a_least_loaded"
+PRICING_QUANTILE = 0.95
+# phase 8: cycles of the ``--paged`` run untraced and traced, against the
+# reference's profiling-overhead budget
+OVERHEAD_CYCLES, PROFILE_BUDGET = 6, 0.05
+# phase 8: ``ci.sh``'s profile round trip on the reduced smollm-135m
+PROFILE_ROUND_TRIP = ["--paged", "--speculate", "--chunk-tokens", "8",
+                      "--requests", "8"]
 # phase 14's simulated cluster: name -> serve flags after
 # ``--arch chatglm2-6b --replicas 4 --device cuda``
 CLUSTER_SIM = {
@@ -558,6 +615,7 @@ CLUSTER_SIM = {
     "faults": ["--fault-crash", "2.5:1", "--fault-mtbf", "20",
                "--fault-mttr", "2", "--brownout-tiers", "batch"],
 }
+PREDICTORS: dict = {}    # vocab -> the fitted length predictor (``predictor``)
 PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
     "a_paged": ["--paged", "--kv-budget", PAGED_BUDGET],
     "b_prefix_chunked": ["--prefix-cache", "--workload", "shared-prefix",
@@ -566,6 +624,15 @@ PAGED_SETS = {   # name -> serve flags after SERVE_ARGS
                     PAGED_BUDGET],
     "d_preempt": ["--paged", "--preempt", "--kv-budget", PREEMPT_BUDGET],
 }
+
+
+def predictor(vocab: int):
+    """A copy of ``serve.fit_predictor(vocab, "cuda")``, fitted once per
+    vocab: each run takes a fresh copy, since its monitor updates the
+    predictor online."""
+    if vocab not in PREDICTORS:
+        PREDICTORS[vocab] = serve.fit_predictor(vocab, "cuda")
+    return copy.deepcopy(PREDICTORS[vocab])
 
 
 def fail(msg: str) -> None:
@@ -1172,25 +1239,34 @@ def check_launches(what: str, prefills: int, steps: int, n_layers: int,
     return got
 
 
-def logits_parity(cfg, prompts, what: str = "serve", note=None) -> dict:
+def logits_parity(cfg, prompts, what: str = "serve", note=None,
+                  params=None) -> dict:
     """Prefill and first decode-step logits of one batch on the card vs the
-    same engine on the CPU (plain kernel versions, the same seeded weights:
-    drawn on the CPU once, a copy moved to the card); ``note``, a function
-    called after both runs, adds to each printed line."""
+    same engine on the CPU (plain kernel versions) on the same weights:
+    ``params``, a phase's model on the card, cut to its first
+    ``cfg.n_layers`` blocks and moved to the CPU after the card's run (the
+    caller's ``params`` ends so), or without it weights drawn on the CPU
+    once, a copy moved to the card; ``note``, a function called after both
+    runs, adds to each printed line."""
     got = {}
-    cpu_params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    if params is None:
+        params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+        card = copy.deepcopy(params).to("cuda")
+    else:
+        params.blocks = torch.nn.ModuleList(params.blocks[:cfg.n_layers])
+        card = params
     for device in ("cuda", "cpu"):
-        params = copy.deepcopy(cpu_params).to(device) if device == "cuda" \
-            else cpu_params
-        eng = InferenceEngine(cfg, params, EngineConfig(max_batch=4, cache_len=64))
+        model = card if device == "cuda" else params.to("cpu")
+        eng = InferenceEngine(cfg, model, EngineConfig(max_batch=4, cache_len=64))
         toks, kv_len = eng._pad_prompts(prompts)
         lg, cache = eng._prefill(toks, kv_len)
         nxt = greedy(lg, cfg.vocab_size) if device == "cuda" else got["nxt"].cpu()
         lg2, _ = eng._decode(nxt[:, None].long(), cache, kv_len)
         got[device] = (lg.float().cpu(), lg2.float().cpu())
         got["nxt"] = nxt
-        del params, eng, cache
-    del cpu_params
+        del model, eng, cache
+    del card
+    torch.cuda.empty_cache()
     errs = {name: (got["cuda"][i] - got["cpu"][i]).abs().max().item()
             for i, name in enumerate(("prefill", "decode"))}
     extra = note() if note is not None else ""
@@ -1261,9 +1337,9 @@ def phase_serve() -> dict:
         nxt = greedy(lg, cfg.vocab_size)[:, None].long()
         profile[f"{what} decode step"] = step_breakdown(
             f"{what} decode step", lambda: e._decode(nxt, cache, kv_len))
-    del params, eng, cache
+    del eng, cache
 
-    errs = logits_parity(cfg, first_prompts)
+    errs = logits_parity(cfg, first_prompts, params=params)
     return {"padded_outputs": res["outputs"], "first_prompts": first_prompts,
             "long_outputs": long.outputs,
             "serve": {"digest": res["digest"], "tokens": res["tokens"],
@@ -1460,26 +1536,27 @@ def phase_rwkv() -> dict:
     long["init_s"] = init_s
     launches = sum(r["launches"]["wkv6"] for r in runs.values()) \
         + long["launches"]["wkv6"]
-    del params
-    torch.cuda.empty_cache()
     reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
     print(f"[rwkv] card vs CPU logits at full width, first "
           f"{RWKV_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
     errs = logits_parity(replace(cfg, n_layers=RWKV_PARITY_LAYERS),
-                         [reqs[rid].tokens for rid in first], "rwkv")
+                         [reqs[rid].tokens for rid in first], "rwkv",
+                         params=params)
     return {"runs": runs, "long_batch": long,
             "profile": profile, "logits_layers": RWKV_PARITY_LAYERS,
             "logits_max_abs_err": errs, "launches": launches}
 
 
 def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
-                    tag: str = "dense") -> tuple[dict, dict]:
+                    tag: str = "dense", n_requests: int = 12
+                    ) -> tuple[dict, dict]:
     """Run one dense serve path (``fn`` returns ``serve.serve``'s or
     ``serve.main``'s dict; ``mode`` padded, continuous or paged) with the
     launch counts set to 0 just before and read just after; check its
     launches (a padded path prefills once a batch; an MLA model decodes
-    without a kernel, an RWKV one runs only WKV6) and its 12 outputs.
-    Returns (its output, its record); ``tag`` heads its printed line."""
+    without a kernel, an RWKV one runs only WKV6) and its ``n_requests``
+    outputs.  Returns (its output, its record); ``tag`` heads its printed
+    line."""
     reset_launches()
     t0 = time.perf_counter()
     out, prefills = count_prefills(fn)
@@ -1493,7 +1570,7 @@ def serve_dense_run(what: str, cfg, fn, mode: str = "padded",
     got = check_launches(what, prefills, steps, kernel_layers(cfg),
                          paged=mode == "paged", rwkv=cfg.rwkv is not None,
                          mla=cfg.mla is not None)
-    check_outputs(what, cfg, out["outputs"])
+    check_outputs(what, cfg, out["outputs"], n_requests)
     rec = {"digest": out["digest"], "tokens": out["tokens"],
            "seconds": out["seconds"], "wall_s": wall,
            "tok_per_s": out["tokens"] / out["seconds"], "prefills": prefills,
@@ -1538,33 +1615,84 @@ def phase_dense() -> dict:
     if pcfg.usable_blocks < 4 * pcfg.max_blocks:
         fail(f"chatglm2 paged: {pcfg.usable_blocks} pages at {PAGED_BUDGET} B "
              f"for 4 slots of {pcfg.max_blocks}")
-    got, first, outputs = serve_modes("dense", "chatglm2", cfg, params, pcfg)
+    paged_obs = {"tracer": Tracer(), "cost_profiler": CostProfiler()}
+    paged_obs["tracer"].add_sink(paged_obs["cost_profiler"].on_event)
+    got, first, outputs = serve_modes("dense", "chatglm2", cfg, params, pcfg,
+                                      paged_obs)
     runs.update(got)
     for rec in got.values():
         add(rec["launches"])
+    runs["chatglm2 paged"]["obs"] = check_observed(
+        "chatglm2 paged", paged_obs["tracer"], paged_obs["cost_profiler"],
+        runs["chatglm2 paged"]["launches"], kernel_layers(cfg))
+    overhead = trace_overhead(cfg, params, pcfg)
     cluster = cluster_live(cfg, params, outputs["paged"],
                            runs["chatglm2 paged"])
     for rec in cluster.values():
+        add(rec["launches"])
+    round_trip = profile_round_trip()
+    for rec in round_trip["runs"].values():
         add(rec["launches"])
 
     long, profile, _ = long_batch("dense", "chatglm2", cfg, params,
                                   [LONG_PROMPT] * 4, LONG_CACHE)
     long["init_s"] = init_s
     add(long["launches"])
-    del params
-    torch.cuda.empty_cache()
 
     errs = {}
-    for name, c, rids in (("chatglm2", cfg, first), ("qwen2", qcfg, qfirst)):
+    for name, c, rids, weights in (("chatglm2", cfg, first, params),
+                                   ("qwen2", qcfg, qfirst, None)):
         reqs = {r.rid: r for r in serve.make_requests(c, 12, 16)}
         print(f"[dense] {name} card vs CPU logits at full width, first "
               f"{DENSE_PARITY_LAYERS} of {c.n_layers} layers", flush=True)
         errs[name] = logits_parity(replace(c, n_layers=DENSE_PARITY_LAYERS),
-                                   [reqs[rid].tokens for rid in rids], "dense")
+                                   [reqs[rid].tokens for rid in rids], "dense",
+                                   params=weights)
+        del weights
+    del params
     return {"runs": runs, "plan": plan, "long_batch": long,
             "profile": profile, "logits_layers": DENSE_PARITY_LAYERS,
             "logits_max_abs_err": errs, "cluster": cluster,
+            "profile_round_trip": round_trip, "trace_overhead": overhead,
             "launches": launches}
+
+
+def trace_overhead(cfg, params, pcfg) -> dict:
+    """chatglm2-6b's ``--paged`` run untraced and traced, ``OVERHEAD_CYCLES``
+    cycles of one run each, the first of a cycle alternating, as the
+    reference's overhead gate runs them (``benchmarks/interleave_bench.py``).
+    Traced is the costliest set-up: a retaining tracer feeding a
+    ``CostProfiler`` that prices every span against the replicas'
+    ``LatencyModel`` with a half-life of 64.  The outputs must not change.
+    The overhead is the median over cycles of traced / untraced serve
+    seconds, less 1, printed beside the reference's ``PROFILE_BUDGET``
+    (reported, not checked)."""
+    lm = Replica(0, cfg, *paper_cluster(), max_batch=4, block_size=8).lm
+    secs = {"untraced": [], "traced": []}
+    digests = set()
+    for i in range(OVERHEAD_CYCLES):
+        for kind in sorted(secs, reverse=bool(i % 2)):
+            obs = {}
+            if kind == "traced":
+                tracer = Tracer()
+                obs = {"tracer": tracer, "cost_profiler": CostProfiler(
+                    tracer=tracer, reference=lm, half_life=64)}
+                tracer.add_sink(obs["cost_profiler"].on_event)
+            out = serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
+                              predictor(cfg.vocab_size), paged=pcfg, **obs)
+            secs[kind].append(out["seconds"])
+            digests.add(out["digest"])
+            del out
+    excess = statistics.median(t / u for t, u in zip(secs["traced"],
+                                                     secs["untraced"])) - 1
+    print(f"[obs] tracing overhead, chatglm2 --paged, {OVERHEAD_CYCLES} "
+          f"cycles: untraced {secs['untraced']} s, traced {secs['traced']} "
+          f"s; median traced / untraced - 1 = {100 * excess:+.2f}% (budget "
+          f"{100 * PROFILE_BUDGET:.0f}%); digests {sorted(digests)}",
+          flush=True)
+    if len(digests) != 1:
+        fail(f"tracing changed the outputs: digests {sorted(digests)}")
+    return {"seconds": secs, "excess": excess, "budget": PROFILE_BUDGET}
 
 
 def cluster_live(cfg, params, paged_outputs: dict, paged_run: dict) -> dict:
@@ -1588,18 +1716,28 @@ def cluster_live(cfg, params, paged_outputs: dict, paged_run: dict) -> dict:
     out, rec = serve_dense_run(
         "chatglm2 paged shared-prefix", cfg,
         lambda: serve.serve(cfg, params, sp,
-                            serve.fit_predictor(cfg.vocab_size, "cuda"),
+                            predictor(cfg.vocab_size),
                             paged=sp_pcfg), "paged", "cluster")
     runs["single paged shared-prefix"] = rec
     single["shared-prefix"] = (out["outputs"], rec)
     del out
     for name, (workload, kw) in CLUSTER_LIVE.items():
         reqs = serve.make_requests(cfg, 12, 16, workload)
+        observed = {}
+        if name == CLUSTER_PROFILED:
+            # priced against the replicas' own analytic model: chatglm2-6b
+            # at this depth, HELR-deployed on the paper's cluster (the CLI
+            # attaches no reference, so its profiles carry no ratios)
+            tracer = Tracer()
+            observed = {"tracer": tracer, "cost_profiler": CostProfiler(
+                reference=Replica(0, cfg, *paper_cluster(), max_batch=4,
+                                  block_size=8).lm, tracer=tracer)}
+            tracer.add_sink(observed["cost_profiler"].on_event)
         out, rec = serve_dense_run(
             f"cluster {name}", cfg,
             lambda: serve.serve_cluster(
-                cfg, params, reqs, serve.fit_predictor(cfg.vocab_size, "cuda"),
-                replicas=2, kv_budget=float(PAGED_BUDGET), **kw),
+                cfg, params, reqs, predictor(cfg.vocab_size),
+                replicas=2, kv_budget=float(PAGED_BUDGET), **kw, **observed),
             "paged", "cluster")
         served = [rep for rep in out["replicas"] if rep.queue]
         res = out["results"]
@@ -1637,17 +1775,156 @@ def cluster_live(cfg, params, paged_outputs: dict, paged_run: dict) -> dict:
               f"{same_req}/{len(ref)} requests ({same}/{total} tokens) agree "
               f"with the single paged engine", flush=True)
         del out
+        if observed:
+            profile = str(OBS_DIR / f"cluster_{name}_profile.json")
+            runs[name]["obs"] = check_observed(
+                f"cluster {name}", tracer, observed["cost_profiler"],
+                rec["launches"], kernel_layers(cfg), profile_out=profile)
+            runs[name]["cells"] = cell_report(f"cluster {name}",
+                                              observed["cost_profiler"])
+            runs[f"{name} --profile-in"] = cluster_profile_in(
+                cfg, params, name, workload, kw, profile)
     return runs
 
 
-def phase_cluster() -> dict:
+def check_observed(what: str, tracer, cprof, launches: dict, n_layers: int,
+                   **paths) -> dict:
+    """Writes a traced run's Chrome trace and metrics JSON under
+    ``OBS_DIR`` through ``serve.write_artifacts`` (``paths``: its other
+    outputs, ``profile_out``), and checks that both validate, that the
+    events pass ``check_invariants``, and that the run's distinct decode
+    iterations (one span a slot, the slots of one iteration sharing its
+    interval) and its ``prefill_chunk`` spans, times ``n_layers``, equal
+    its paged and flash attention launches."""
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    tag = what.replace(" ", "_")
+    art = serve.write_artifacts(
+        cprof.monitor, tracer, cprof,
+        trace=str(OBS_DIR / f"{tag}_trace.json"),
+        metrics_json=str(OBS_DIR / f"{tag}_metrics.json"), **paths)
+    errs = (validate_trace(art["trace"]) + check_invariants(tracer.events)
+            + validate_metrics(art["metrics"]))
+    spans = [e for e in tracer.events if e.ph == "X"]
+    iters = len({(e.track, e.t0, e.dur) for e in spans
+                 if e.name in ("decode", "verify")})
+    chunks = sum(e.name == "prefill_chunk" for e in spans)
+    rec = {"events": len(tracer.events), "errors": errs,
+           "decode_iterations": iters, "prefill_chunks": chunks,
+           "profile_cells": len(cprof.cells),
+           "drift_events": cprof.drift_events}
+    print(f"[obs] {what}: {len(tracer.events)} events, trace, invariants "
+          f"and metrics {len(errs)} errors; {iters} decode iterations x "
+          f"{n_layers} layers = {iters * n_layers} (paged attention "
+          f"launches {launches['paged_attention']}), {chunks} prefill "
+          f"chunks x {n_layers} = {chunks * n_layers} (flash attention "
+          f"launches {launches['flash_attention']}); profile "
+          f"{len(cprof.cells)} cells, {cprof.drift_events} drift events",
+          flush=True)
+    if errs:
+        fail(f"{what}: trace or metrics invalid: {errs[:5]}")
+    if iters * n_layers != launches["paged_attention"] \
+            or chunks * n_layers != launches["flash_attention"]:
+        fail(f"{what}: the trace's spans do not match the kernel launches")
+    return rec
+
+
+def cell_report(what: str, cprof) -> list:
+    """Each decode and prefill cell of a run's cost profile, priced against
+    a ``LatencyModel`` (its ``reference``): the samples' mean measured
+    seconds, the mean of their measured / model ratios (``ratio_ema``,
+    undecayed), and the model's mean implied by the two (exact where the
+    model prices a cell's samples alike, as it does here to 0.03%)."""
+    rows = []
+    for key in sorted(cprof.cells):
+        cell = cprof.cells[key]
+        if key[0] not in ("decode", "prefill") or not cell.ratio_count:
+            continue
+        rows.append({"key": list(key), "samples": cell.count,
+                     "measured_ms": 1e3 * cell.mean_s,
+                     "latency_model_ms": 1e3 * cell.mean_s / cell.ratio_ema,
+                     "ratio": cell.ratio_ema})
+        print(f"[obs] {what} cell {key}: {cell.count} samples, measured "
+              f"{1e3 * cell.mean_s:.6g} ms, LatencyModel "
+              f"{1e3 * cell.mean_s / cell.ratio_ema:.6g} ms, ratio "
+              f"{cell.ratio_ema:.6g}", flush=True)
+    if not rows:
+        fail(f"{what}: no decode or prefill cell was priced")
+    return rows
+
+
+def cluster_profile_in(cfg, params, name: str, workload: str, kw: dict,
+                       profile: str) -> dict:
+    """Live cluster run ``name`` again, as ``serve --profile-in PROFILE
+    --pricing-quantile 0.95`` runs it: the saved registry calibrates each
+    replica's mean and tail pricing models, the profiler learns on through
+    a tracer that keeps nothing; prints ``write_artifacts``'s calibration
+    and drift lines and checks that pricing covered some projections."""
+    tracer = Tracer(retain=False)
+    cprof = CostProfiler.load(profile, tracer=tracer)
+    tracer.add_sink(cprof.on_event)
+    reqs = serve.make_requests(cfg, 12, 16, workload)
+    out, rec = serve_dense_run(
+        f"cluster {name} --profile-in", cfg,
+        lambda: serve.serve_cluster(
+            cfg, params, reqs, predictor(cfg.vocab_size),
+            replicas=2, kv_budget=float(PAGED_BUDGET), tracer=tracer,
+            cost_profiler=cprof, calibrated=True,
+            pricing_quantile=PRICING_QUANTILE, **kw),
+        "paged", "cluster")
+    serve.write_artifacts(cprof.monitor, tracer, cprof, profile_in=profile,
+                          cal_models=out["cal_models"])
+    pricing = serve.pricing_counters(out["cal_models"])
+    rec |= {"pricing": pricing, "cal_models": len(out["cal_models"]),
+            "drift_events": cprof.drift_events}
+    print(f"[obs] cluster {name} --profile-in: {len(out['cal_models'])} "
+          f"calibrated models, pricing {pricing}", flush=True)
+    if pricing["covered_frac"] <= 0:
+        fail(f"cluster {name} --profile-in: calibrated pricing covered "
+             f"nothing: {pricing}")
+    return rec
+
+
+def profile_round_trip() -> dict:
+    """``ci.sh``'s profile smoke on the card: ``serve --paged --speculate
+    --chunk-tokens 8 --requests 8`` (the reduced smollm-135m) with
+    ``--profile-out``, then with ``--profile-in`` that registry, each with
+    its launches checked; both outputs digests must be equal, and equal to
+    the same argv's on the CPU (the kernels' plain versions)."""
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    cfg = get_config("smollm-135m").reduced()
+    profile = str(OBS_DIR / "round_trip_profile.json")
+    runs = {}
+    for flag in ("--profile-out", "--profile-in"):
+        _, runs[flag] = serve_dense_run(
+            f"smollm reduced {flag}", cfg,
+            lambda: serve.main(PROFILE_ROUND_TRIP
+                               + ["--device", "cuda", flag, profile]),
+            "paged", "obs", n_requests=8)
+    cpu = serve.main(PROFILE_ROUND_TRIP + ["--device", "cpu"])["digest"]
+    digests = [rec["digest"] for rec in runs.values()]
+    print(f"[obs] profile round trip: outputs digests {digests} on the card, "
+          f"{cpu} on the CPU", flush=True)
+    if digests != [cpu, cpu]:
+        fail(f"profile round trip: the digests differ: {digests}, CPU {cpu}")
+    return {"runs": runs, "cpu_digest": cpu}
+
+
+def phase_cluster(dense: dict) -> dict:
     """``serve --arch chatglm2-6b --replicas 4`` on the simulated cluster
     (``CLUSTER_SIM``): host code but for the length predictor, which runs
     on the card; no weights are drawn and no kernel may launch.  Checks
     finished + shed = offered and that the monitor observed every offered
-    request."""
+    request; then ``cli_profile_in`` beside phase 8's (``dense``)
+    calibrated rerun."""
     runs = {}
+    OBS_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {k: str(OBS_DIR / f"sim_slo_aware_{k}.json")
+             for k in ("trace", "metrics", "profile")}
     for name, flags in CLUSTER_SIM.items():
+        if name == "slo_aware":
+            flags = flags + ["--trace", paths["trace"], "--metrics-json",
+                             paths["metrics"], "--profile-out",
+                             paths["profile"]]
         reset_launches()
         t0 = time.perf_counter()
         out = serve.main(["--arch", "chatglm2-6b", "--replicas", "4",
@@ -1670,7 +1947,64 @@ def phase_cluster() -> dict:
         if any(got.values()):
             fail(f"cluster sim {name}: kernels launched {got}")
         runs[name] = {"summary": s, "slo_observed": observed, "wall_s": wall}
+        if name == "slo_aware":
+            runs[name]["obs"] = check_sim_artifacts(out, paths)
+    runs["slo_aware --profile-in"] = cli_profile_in(
+        paths["profile"], runs["slo_aware"]["summary"],
+        dense["cluster"][f"{CLUSTER_PROFILED} --profile-in"]["pricing"])
     return {"runs": runs}
+
+
+def cli_profile_in(profile: str, summary: dict, harness: dict) -> dict:
+    """The slo_aware run again with its own saved profile as
+    ``--profile-in`` at ``--pricing-quantile 0.95``: the CLI attaches no
+    reference model, so its profiles carry no measured / model ratios and
+    every projection falls back to the analytic model (covered_frac 0),
+    which the run's summary, equal to the uncalibrated run's, must show.
+    Printed beside ``harness``, the pricing of phase 8's rerun on a profile
+    that the harness priced against the ``LatencyModel``."""
+    flags = CLUSTER_SIM["slo_aware"] + ["--profile-in", profile,
+                                        "--pricing-quantile",
+                                        str(PRICING_QUANTILE)]
+    reset_launches()
+    out = serve.main(["--arch", "chatglm2-6b", "--replicas", "4",
+                      "--device", "cuda"] + flags)
+    got = read_launches()
+    pricing = serve.pricing_counters(out["cal_models"])
+    same = out["cluster"].summary() == summary
+    print(f"[obs] sim slo_aware --profile-in its own profile "
+          f"(--pricing-quantile {PRICING_QUANTILE}): pricing {pricing}, "
+          f"summary equal to the uncalibrated run's: {same}; the live "
+          f"cluster's calibrated rerun (a profile priced against the "
+          f"LatencyModel): covered_frac {harness['covered_frac']}",
+          flush=True)
+    if not same or any(got.values()):
+        fail(f"sim slo_aware --profile-in: summary equal {same}, kernels "
+             f"launched {got}")
+    return {"pricing": pricing, "summary_equal": same,
+            "harness_pricing": harness}
+
+
+def check_sim_artifacts(out: dict, paths: dict) -> dict:
+    """The simulated run's trace, metrics JSON and saved profile: each
+    must validate (the profile by loading to the same registry, with
+    decode and prefill samples), and its events pass ``check_invariants``."""
+    with open(paths["trace"]) as f, open(paths["metrics"]) as g:
+        trace, metrics = json.load(f), json.load(g)
+    prof = CostProfiler.load(paths["profile"])
+    cov = prof.coverage()
+    errs = (validate_trace(trace) + validate_metrics(metrics)
+            + check_invariants(out["tracer"].events))
+    if prof.to_json() != out["cost_profiler"].to_json():
+        errs.append("the saved profile does not load to the run's")
+    rec = {"events": len(trace["traceEvents"]), "errors": errs,
+           "coverage": cov}
+    print(f"[obs] sim slo_aware: {len(trace['traceEvents'])} trace events, "
+          f"profile coverage {cov}, {len(errs)} errors", flush=True)
+    if errs or not all(cov.get(p, {}).get("samples") for p in
+                       ("decode", "prefill")):
+        fail(f"sim slo_aware: artifacts invalid: {errs[:5]} {cov}")
+    return rec
 
 
 def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
@@ -1724,11 +2058,12 @@ def long_batch(tag: str, name: str, cfg, params, lengths, cache_len: int):
 
 
 def serve_modes(tag: str, name: str, cfg, params,
-                paged: PagedEngineConfig | None = None
-                ) -> tuple[dict, list, dict]:
+                paged: PagedEngineConfig | None = None,
+                paged_obs: dict | None = None) -> tuple[dict, list, dict]:
     """``serve.serve`` padded, ``--continuous`` and, given a ``paged`` pool,
-    ``--paged`` on ``params``, each with fresh requests and a freshly
-    fitted predictor as ``serve.main`` makes them; how many tokens each
+    ``--paged`` on ``params`` (with ``paged_obs``'s tracer and cost
+    profiler, where given), each with fresh requests and a freshly
+    fitted predictor's copy (``predictor``); how many tokens each
     later mode shares with the padded one is printed (RWKV-6's recurrence
     over the padding and MoE capacity over the padded batch can make a
     prompt's output depend on its batch).  Returns (the runs' records, the
@@ -1736,13 +2071,12 @@ def serve_modes(tag: str, name: str, cfg, params,
     runs, outputs = {}, {}
     modes = [("padded", {}), ("continuous", {"continuous": True})]
     if paged is not None:
-        modes.append(("paged", {"paged": paged}))
+        modes.append(("paged", {"paged": paged} | (paged_obs or {})))
     for mode, kw in modes:
         out, runs[f"{name} {mode}"] = serve_dense_run(
             f"{name} {mode}", cfg,
             lambda: serve.serve(cfg, params, serve.make_requests(cfg, 12, 16),
-                                serve.fit_predictor(cfg.vocab_size, "cuda"),
-                                **kw),
+                                predictor(cfg.vocab_size), **kw),
             mode, tag)
         outputs[mode] = out["outputs"]
         if mode == "padded":
@@ -1810,15 +2144,14 @@ def phase_window_mla() -> dict:
         fail(f"gemma2 long batch: cache widths {widths}, expected {want}")
     for rec in list(got.values()) + [long["gemma2"]]:
         add(rec["launches"])
-    del params
-    torch.cuda.empty_cache()
     reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
     print(f"[window] gemma2 card vs CPU logits at full width, first "
           f"{WINDOW_PARITY_LAYERS} of {cfg.n_layers} layers (one local, one "
           "global)", flush=True)
     errs["gemma2"] = logits_parity(
         replace(full, n_layers=WINDOW_PARITY_LAYERS),
-        [reqs[rid].tokens for rid in first], "window")
+        [reqs[rid].tokens for rid in first], "window", params=params)
+    del params
 
     cfg = replace(get_config("minicpm3-4b"), n_layers=MINICPM3_LAYERS)
     torch.cuda.reset_peak_memory_stats()
@@ -1842,14 +2175,12 @@ def phase_window_mla() -> dict:
     profile.update(prof)
     for rec in list(got.values()) + [long["minicpm3"]]:
         add(rec["launches"])
-    del params
-    torch.cuda.empty_cache()
     reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
     print(f"[mla] minicpm3 card vs CPU logits at full width, first "
           f"{DENSE_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
     errs["minicpm3"] = logits_parity(
         replace(cfg, n_layers=DENSE_PARITY_LAYERS),
-        [reqs[rid].tokens for rid in first], "mla")
+        [reqs[rid].tokens for rid in first], "mla", params=params)
     return {"runs": runs, "plan": plan, "init_s": init_s,
             "gemma2_layers": gemma2_layers, "gemma2_fit_depth": kept.n_layers,
             "gemma2_weight_bytes": nbytes, "long_batch": long,
@@ -2023,20 +2354,19 @@ def phase_moe_vlm() -> dict:
         if cfg.moe is not None:
             moe_rec = moe_report(name, cfg, params, seen,
                                  profile[f"{name} long decode step"])
-        del params
-        torch.cuda.empty_cache()
         reqs = {r.rid: r for r in serve.make_requests(cfg, 12, 16)}
         print(f"[{tag}] {name} card vs CPU logits at full width, first "
               f"{DENSE_PARITY_LAYERS} of {cfg.n_layers} layers", flush=True)
         with moe_watch(margins=cfg.moe is not None) as seen:
             errs[name] = logits_parity(
                 replace(cfg, n_layers=DENSE_PARITY_LAYERS),
-                [reqs[rid].tokens for rid in first], tag,
+                [reqs[rid].tokens for rid in first], tag, params=params,
                 note=None if cfg.moe is None else lambda: (
                     f"; smallest router top-k margin of its MoE inputs "
                     f"{min(seen['margin']):.3e}"))
         if cfg.moe is not None:
             moe_rec["logits_min_router_margin"] = min(seen["margin"])
+        del params
     return {"runs": runs, "plan": plan, "init_s": init_s, "long_batch": long,
             "profile": profile, "logits_max_abs_err": errs, "moe": moe_rec,
             "qwen2_moe_layers": QWEN2_MOE_LAYERS, "launches": launches}
@@ -2520,7 +2850,7 @@ def main() -> None:
     encdec = run("encdec", phase_encdec)
     llama4 = run("llama4", phase_llama4)
     jamba = run("jamba", phase_jamba)
-    cluster = run("cluster", phase_cluster)
+    cluster = run("cluster", phase_cluster, dense)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]

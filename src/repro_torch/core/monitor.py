@@ -4,8 +4,8 @@ predictor, and adapts the profiler's memory-reservation factor so KV
 allocations track reality (EWMA of true/predicted).
 
 Own copy of ``repro/core/monitor.py``, with the engines', simulator's and
-cluster's gauges; the calibration-drift counter (``observe_drift``, fed
-only by the cost profiler) comes with the observability slice."""
+cluster's gauges and the cost profiler's calibration-drift counter
+(``observe_drift``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -80,6 +80,13 @@ class MonitorStats:
     cluster_util_mean_sum: float = 0.0        # sum of per-snapshot means
     scale_up_events: int = 0
     scale_down_events: int = 0
+    # --- calibration drift (fed by CostProfiler.monitor hook): band
+    # crossings of a replica's observed/predicted phase ratio, attributed
+    # per (replica, phase) so the dashboard shows *which* replica's
+    # hardware stopped matching its pricing model ---
+    profile_drift_events: int = 0
+    drift_by_replica: dict = field(default_factory=dict)  # rid -> count
+    drift_by_phase: dict = field(default_factory=dict)    # phase -> count
     # --- fault tolerance (fed by the cluster health layer): detected
     # replica failures by kind, retry/re-dispatch activity, and
     # brownout-policy sheds (tier-ordered drops under capacity loss) ---
@@ -275,6 +282,15 @@ class Monitor:
         st.slo_violations += 1
         self._slo_segment(req, key, True)
 
+    def observe_drift(self, replica: int, phase: str) -> None:
+        """One calibration-drift band crossing, attributed to the replica
+        and phase it fired on (``CostProfiler`` calls this when its
+        ``monitor`` hook is set)."""
+        st = self.stats
+        st.profile_drift_events += 1
+        st.drift_by_replica[replica] = st.drift_by_replica.get(replica, 0) + 1
+        st.drift_by_phase[phase] = st.drift_by_phase.get(phase, 0) + 1
+
     def observe_failure(self, replica: int, kind: str) -> None:
         """The health layer detected a replica failure (``kind`` is the
         injected/diagnosed class: crash, partition, straggler, ...)."""
@@ -378,6 +394,13 @@ class Monitor:
             out["cluster_util_mean"] = round(st.cluster_util_mean, 4)
             out["scale_up_events"] = st.scale_up_events
             out["scale_down_events"] = st.scale_down_events
+        if st.profile_drift_events:
+            out["profile_drift"] = {
+                "events": st.profile_drift_events,
+                "by_replica": {str(r): c for r, c in
+                               sorted(st.drift_by_replica.items())},
+                "by_phase": dict(sorted(st.drift_by_phase.items())),
+            }
         if st.replica_failures or st.request_retries or st.retries_exhausted \
                 or st.brownout_sheds:
             out["faults"] = {

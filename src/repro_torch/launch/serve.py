@@ -71,10 +71,25 @@ forecast-driven elastic replica set (``--workload bursty`` exercises it),
 ``--models`` a heterogeneous fleet of per-model pools (``--fleet``: one
 joint allocator or independent per-pool autoscalers), and the fault flags
 (``--fault-crash``, ``--fault-mtbf``, ...) crashes, health checks, retries
-and brownout.  ``--speculate`` on a cluster path plans at the cost
-profiler's measured acceptance, which comes with the observability slice,
-so it exits with "not ported yet" there, as do the trace, metrics and
-profile flags.
+and brownout.  ``--speculate`` runs on both cluster paths, which plan at
+the cost profiler's measured acceptance EMA (its bootstrap 0.5 before the
+first verify pass, or what ``--profile-in`` measured).
+
+``--trace PATH`` exports the request-lifecycle trace as Chrome/Perfetto
+JSON and ``--metrics-json PATH`` the run's metrics in the shared schema
+(``obs.export``).  ``--profile-out PATH`` saves the online cost profile
+(measured phase-time cells learnt from the trace's spans, residuals,
+acceptance) as a versioned JSON registry, and ``--profile-in PATH`` warm
+starts from one: every cluster replica then prices its projections through
+a ``CalibratedLatencyModel`` of its own sub-profile, with
+``--pricing-quantile Q`` pricing SLO decisions at a tail ratio and
+``--profile-half-life N`` bounding the profile's memory.  As in the
+reference, the CLI's profiler has no ``reference`` model, so the profiles
+it writes carry no measured / model ratios and calibrated pricing on them
+falls back to the analytic model (``covered_frac`` 0); a profiler made
+with ``reference=`` through the API learns the ratios.  On the simulated
+cluster the spans are on the simulator's clock; on the live engines they
+are wall-clock intervals on the host.
 """
 from __future__ import annotations
 
@@ -99,6 +114,10 @@ from repro_torch.data.workload import (MixedWorkloadConfig,
 from repro_torch.device import resolve_device
 from repro_torch.models import api
 from repro_torch.models.transformer import Transformer
+from repro_torch.obs.calibrate import CalibratedLatencyModel
+from repro_torch.obs.export import export_trace, metrics_payload, write_metrics
+from repro_torch.obs.profile import CostProfiler
+from repro_torch.obs.trace import NULL_TRACER, Tracer
 from repro_torch.serving import (AutoscalerConfig, EngineConfig, FaultEvent,
                                  FaultPlan, FleetAutoscalerConfig,
                                  HealthConfig, InferenceEngine, ModelPoolSpec,
@@ -107,20 +126,96 @@ from repro_torch.serving import (AutoscalerConfig, EngineConfig, FaultEvent,
                                  get_drafter, paper_cluster, simulate_cluster)
 from repro_torch.serving.cluster.router import POLICIES
 
-# flags of the reference CLI whose paths later slices port
-_LATER_FLAGS = {
-    "observability slice": ("--trace", "--metrics-json", "--profile-out",
-                            "--profile-in", "--pricing-quantile",
-                            "--profile-half-life"),
-}
-
-
 def outputs_digest(done: dict) -> str:
     """Order-independent digest of the generated tokens, computed exactly
     as the reference's ``_outputs_digest``."""
     blob = json.dumps(sorted((int(k), list(map(int, v)))
                              for k, v in done.items()))
     return hashlib.sha1(blob.encode()).hexdigest()[:12]
+
+
+def spec_acceptance(spec_tokens: int, cprof: CostProfiler) -> float:
+    """Speculation acceptance for *planning* (replica projections,
+    SchedulerConfig.spec_speedup): the cost profiler's measured EMA —
+    warm-started from ``--profile-in``, its bootstrap prior when nothing
+    has been measured yet, and live-updated by ``PagedEngine._spec_step``
+    once serving starts."""
+    return cprof.spec_acceptance if spec_tokens else 0.0
+
+
+def pricing_counters(cal_models) -> dict:
+    """Aggregate coverage counters across every ``CalibratedLatencyModel``
+    the run priced through (one per replica on the cluster paths)."""
+    agg = {"cell_hits": 0, "phase_hits": 0, "cell_misses": 0}
+    for m in cal_models:
+        c = m.coverage_counters()
+        for k in agg:
+            agg[k] += c[k]
+    total = sum(agg.values())
+    agg["covered_frac"] = round(
+        (agg["cell_hits"] + agg["phase_hits"]) / total, 4) if total else 0.0
+    return agg
+
+
+def write_artifacts(mon: Monitor, tracer: Tracer, cprof: CostProfiler, *,
+                    trace=None, metrics_json=None, profile_in=None,
+                    profile_out=None, latency_s=None, p99_latency_s=None,
+                    throughput=None, utilization=None,
+                    cal_models=()) -> dict:
+    """The reference's ``_write_artifacts``: export the request-lifecycle
+    trace (``trace``, Chrome/Perfetto JSON) and the shared metrics payload
+    (``metrics_json``), print how calibrated pricing resolved and which
+    replicas drifted when a profile was read or is saved, and save the
+    profile (``profile_out``).  Latency quantiles default to the monitor's
+    e2e histogram when the caller has no direct measurement.  Returns the
+    exported trace object and metrics payload (None where not written)."""
+    st = mon.stats
+    if latency_s is None and st.e2e.n:
+        latency_s = st.e2e.total / st.e2e.n
+    if p99_latency_s is None and st.e2e.n:
+        p99_latency_s = st.e2e.quantile(0.99)
+    obj = payload = None
+    if trace:
+        obj = export_trace(tracer, trace)
+        print(f"trace: {len(obj['traceEvents'])} events -> {trace}")
+    profile_block = cprof.metrics()
+    if cal_models:
+        profile_block["pricing"] = pricing_counters(cal_models)
+    if metrics_json:
+        payload = metrics_payload(
+            "serve", latency_s=latency_s, p99_latency_s=p99_latency_s,
+            throughput=throughput, utilization=utilization,
+            slo_attainment=st.slo_attainment if st.slo_observed else None,
+            monitor=mon.metrics(), profile=profile_block)
+        write_metrics(metrics_json, payload)
+        print(f"metrics -> {metrics_json}")
+    if profile_in or profile_out:
+        if cal_models:
+            pc = profile_block["pricing"]
+            print(f"calibration: cell_hits={pc['cell_hits']} "
+                  f"phase_hits={pc['phase_hits']} "
+                  f"cell_misses={pc['cell_misses']} "
+                  f"covered_frac={pc['covered_frac']}")
+        drift = cprof.drift_by_replica()
+        by_rep = " by_replica=" + json.dumps(
+            {str(r): n for r, n in drift.items()}) if drift else ""
+        mdrift = cprof.drift_by_model()
+        by_model = " by_model=" + json.dumps(mdrift) if mdrift else ""
+        print(f"drift: {cprof.drift_events} events{by_rep}{by_model}")
+        mcov = cprof.model_coverage()
+        if mcov:
+            cov = {m: {p: c["samples"] for p, c in d.items()}
+                   for m, d in mcov.items()}
+            print(f"model coverage: {json.dumps(cov)}")
+    if profile_out:
+        cprof.save(profile_out)
+        cov = {p: c["samples"] for p, c in cprof.coverage().items()}
+        subs = f"{len(cprof.replica_profiles)} replica"
+        if cprof.model_profiles:
+            subs += f" + {len(cprof.model_profiles)} model"
+        print(f"profile: {len(cprof.cells)} cells, samples {cov}, "
+              f"{subs} sub-profiles -> {profile_out}")
+    return {"trace": obj, "metrics": payload}
 
 
 # The share of a card's memory the weights may take; caches and
@@ -207,11 +302,15 @@ def paged_config(cfg: ModelConfig, reqs: list[Request], max_new: int,
 def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
           predictor: LengthPredictor, *, scheduler: str = "slo-odbs",
           continuous: bool = False, max_new: int = 16,
-          paged: PagedEngineConfig | None = None, drafter=None) -> dict:
+          paged: PagedEngineConfig | None = None, drafter=None,
+          tracer: Tracer | None = None,
+          cost_profiler: CostProfiler | None = None) -> dict:
     """Profile -> schedule -> execute -> monitor, on the device the
     parameters live on; ``paged`` serves the queue through the paged engine
     (``drafter`` its speculation proposer, None: the config's default), its
-    pools in the parameters' dtype.
+    pools in the parameters' dtype, its lifecycle events on ``tracer`` and
+    its measured acceptance in ``cost_profiler`` (whose drift counts land
+    in the monitor).
     Returns the outputs, their digest, the engine results, the elapsed
     seconds and the monitor."""
     engine = InferenceEngine(cfg, params,
@@ -219,11 +318,14 @@ def serve(cfg: ModelConfig, params: Transformer, reqs: list[Request],
                                           max_new_tokens=max_new))
     prof = ResourceProfiler(predictor, cfg)
     mon = Monitor(prof)
+    if cost_profiler is not None:
+        cost_profiler.monitor = mon    # drift attribution lands in metrics
     prof.profile(reqs)
     results = []
     t0 = time.perf_counter()
     if paged is not None:
         res = PagedEngine(cfg, params, paged, monitor=mon, drafter=drafter,
+                          tracer=tracer, cost_profiler=cost_profiler,
                           dtype=params.embed.w.dtype).run_continuous(
             sorted(reqs, key=lambda r: r.arrival))
         results.append(res)
@@ -252,33 +354,66 @@ def serve_cluster(cfg: ModelConfig, params: Transformer, reqs: list[Request],
                   router: str = "round_robin", max_new: int = 16,
                   kv_budget: float = 2e6, prefix_cache: bool = False,
                   lookahead: int = 0, chunk_tokens: int = 0,
-                  preempt: bool = False) -> dict:
+                  preempt: bool = False, spec_tokens: int = 0,
+                  drafter_name: str = "ngram", drafter=None,
+                  tracer: Tracer | None = None,
+                  cost_profiler: CostProfiler | None = None,
+                  calibrated: bool = False,
+                  pricing_quantile: float | None = None) -> dict:
     """Route ``reqs`` across ``replicas`` live replicas, each a
     ``PagedEngine`` on ``params`` with its own pool of ``kv_budget`` bytes
     and prefix cache, then serve each replica's share in turn, as the
     reference's ``_serve_cluster_live`` does (its pools in the parameters'
-    dtype).  Prints a line for each replica that got requests and the
-    router's stats.  Returns what ``serve`` returns (``results``: the
-    engine result of each replica served), and ``replicas`` and
-    ``router``."""
+    dtype).  ``spec_tokens`` drafts of ``drafter_name`` (``drafter``: its
+    proposer, None: the config's default) are verified per iteration, and
+    the replicas plan at ``cost_profiler``'s measured acceptance (a fresh
+    profiler's bootstrap when None), refreshed before each share.  Events
+    land on ``tracer``, replica ``i``'s on track ``i``.  ``calibrated``
+    (the CLI's ``--profile-in``) prices each replica's projections through
+    a ``CalibratedLatencyModel`` of its own sub-profile, and
+    ``pricing_quantile`` adds a tail model at that quantile.  Prints a line
+    for each replica that got requests and the router's stats.  Returns
+    what ``serve`` returns (``results``: the engine result of each replica
+    served), and ``replicas``, ``router`` and ``cal_models`` (the
+    calibrated models the run priced through)."""
+    tracer = tracer if tracer is not None else NULL_TRACER
+    cprof = cost_profiler if cost_profiler is not None else CostProfiler()
     prof = ResourceProfiler(predictor, cfg)
     mon = Monitor(prof)
+    cprof.monitor = mon                # drift attribution lands in metrics
     prof.profile(reqs)
     t0 = time.perf_counter()
     route = Router(RouterConfig(policy=router))
-    reps = []
+    reps, cal_models = [], []
     for i in range(replicas):
         nodes, lat = paper_cluster()
         pcfg = paged_config(cfg, reqs, max_new, kv_budget,
                             prefix_cache=prefix_cache,
                             admit_lookahead=lookahead,
-                            chunk_tokens=chunk_tokens, preempt=preempt)
-        reps.append(Replica(
+                            chunk_tokens=chunk_tokens, preempt=preempt,
+                            spec_tokens=spec_tokens, drafter=drafter_name)
+        rep = Replica(
             i, cfg, nodes, lat, max_batch=4, block_size=8,
             n_blocks=pcfg.usable_blocks, prefix_cache=prefix_cache,
             chunk_tokens=chunk_tokens, preempt=preempt,
-            engine=PagedEngine(cfg, params, pcfg, monitor=mon, track=i,
-                               dtype=params.embed.w.dtype)))
+            spec_tokens=spec_tokens,
+            spec_acceptance=spec_acceptance(spec_tokens, cprof),
+            engine=PagedEngine(cfg, params, pcfg, monitor=mon,
+                               drafter=drafter, tracer=tracer, track=i,
+                               cost_profiler=cprof,
+                               dtype=params.embed.w.dtype),
+            tracer=tracer)
+        if calibrated:
+            # each replica prices from its own sub-profile (fleet-aggregate
+            # fallback); the tail model adds quantile pricing for the
+            # SLO-facing projections when a pricing quantile is set
+            rep.price = CalibratedLatencyModel(rep.lm, cprof, replica=i)
+            cal_models.append(rep.price)
+            if pricing_quantile:
+                rep.tail = CalibratedLatencyModel(
+                    rep.lm, cprof, replica=i, quantile=pricing_quantile)
+                cal_models.append(rep.tail)
+        reps.append(rep)
     for r in sorted(reqs, key=lambda q: q.arrival):
         rep = route.dispatch(r, reps, r.arrival)
         if rep is None:
@@ -289,20 +424,28 @@ def serve_cluster(cfg: ModelConfig, params: Transformer, reqs: list[Request],
     for rep in reps:
         if not rep.queue:
             continue
+        if spec_tokens:
+            # replicas serve sequentially here, so each one plans at the
+            # acceptance the earlier shares already measured
+            rep.spec_acceptance = cprof.spec_acceptance
         res = rep.engine.run_continuous(
             sorted(rep.queue, key=lambda q: q.arrival))
         results.append(res)
         done.update(res.outputs)
+        spec = "" if not spec_tokens else (
+            f", spec acc={res.acceptance_rate:.2f} "
+            f"it/tok={res.iterations_per_token:.2f}")
         print(f"replica {rep.rid}: {len(rep.queue)} requests, "
               f"prefill_tokens={res.prefill_tokens}, "
               f"prefix_hits={res.prefix_hits}/{res.prefix_lookups}, "
-              f"peak_blocks={res.peak_blocks}")
+              f"peak_blocks={res.peak_blocks}{spec}")
     print(f"router: {route.stats.summary()}")
     seconds = time.perf_counter() - t0
     return {"outputs": done, "digest": outputs_digest(done),
             "results": results, "seconds": seconds,
             "tokens": sum(len(v) for v in done.values()), "monitor": mon,
-            "replicas": reps, "router": route.stats.summary()}
+            "replicas": reps, "router": route.stats.summary(),
+            "cal_models": cal_models}
 
 
 def parse_model_mix(spec: str) -> list:
@@ -319,13 +462,22 @@ def parse_model_mix(spec: str) -> list:
     return out
 
 
-def serve_cluster_sim(args, prof: ResourceProfiler, mon: Monitor):
+def serve_cluster_sim(args, prof: ResourceProfiler, mon: Monitor, *,
+                      tracer: Tracer | None = None,
+                      cost_profiler: CostProfiler | None = None,
+                      cal_models: list | None = None):
     """The cluster-scale path: ``LatencyModel``-backed replicas on
     per-replica HELR deployments of the full-width ``--arch``, driven by the
     discrete-event simulator on the reference's trace (at least 128
-    requests at 16 a second), its autoscaler, fleet and fault settings.
-    Prints the ``cluster:`` summary and a line for each replica; returns
-    the ``ClusterSimResult``."""
+    requests at 16 a second), its autoscaler, fleet, speculation and fault
+    settings; events on ``tracer``.  Speculation plans at
+    ``cost_profiler``'s acceptance, and with ``args.profile_in`` each
+    replica prices through a ``CalibratedLatencyModel`` of it (appended to
+    ``cal_models``).  Prints the ``cluster:`` summary and a line for each
+    replica; returns the ``ClusterSimResult``."""
+    tracer = tracer if tracer is not None else NULL_TRACER
+    cprof = cost_profiler if cost_profiler is not None else CostProfiler()
+    cal_models = cal_models if cal_models is not None else []
     full_cfg = get_config(args.arch)
     n = max(args.requests, 128)
     pattern = args.workload if args.workload in ("bursty", "diurnal") \
@@ -363,6 +515,41 @@ def serve_cluster_sim(args, prof: ResourceProfiler, mon: Monitor):
             auto = AutoscalerConfig(interval=1.0, min_replicas=args.replicas,
                                     max_replicas=max(6, 2 * args.replicas),
                                     spawn_delay=1.0)
+    acc = spec_acceptance(args.spec_tokens, cprof)
+    sched_cfg = SchedulerConfig()
+    if args.spec_tokens:
+        sched_cfg = sched_cfg.with_speculation(args.spec_tokens, acc)
+    # a warm profile registry calibrates every replica's *pricing* model
+    # (projections, shedding, autoscaler capacity) from its own
+    # sub-profile; execution physics stay the replica's own analytic
+    # model.  --pricing-quantile adds a tail model for the SLO-facing
+    # projections (projected_finish, capacity_rps)
+    price = tail_price = None
+    if args.profile_in and pools is not None:
+        # fleet pricing: each replica calibrates from its own sub-profile,
+        # falling back to its model's pool aggregate before the fleet view
+        def price(lm, rid, model):
+            m = CalibratedLatencyModel(lm, cprof, replica=rid, model=model)
+            cal_models.append(m)
+            return m
+        if args.pricing_quantile:
+            def tail_price(lm, rid, model):
+                m = CalibratedLatencyModel(lm, cprof, replica=rid,
+                                           model=model,
+                                           quantile=args.pricing_quantile)
+                cal_models.append(m)
+                return m
+    elif args.profile_in:
+        def price(lm, rid):
+            m = CalibratedLatencyModel(lm, cprof, replica=rid)
+            cal_models.append(m)
+            return m
+        if args.pricing_quantile:
+            def tail_price(lm, rid):
+                m = CalibratedLatencyModel(lm, cprof, replica=rid,
+                                           quantile=args.pricing_quantile)
+                cal_models.append(m)
+                return m
     faults = retry = health = None
     if args.fault_crash or args.fault_mtbf > 0:
         events = []
@@ -381,12 +568,13 @@ def serve_cluster_sim(args, prof: ResourceProfiler, mon: Monitor):
                               detect_lag=args.detect_lag,
                               brownout_tiers=tiers)
     res = simulate_cluster(
-        reqs, full_cfg, get_scheduler(args.scheduler), SchedulerConfig(),
+        reqs, full_cfg, get_scheduler(args.scheduler), sched_cfg,
         n_replicas=args.replicas, pools=pools, router=args.router,
         autoscale=auto, prefix_cache=args.prefix_cache,
         chunk_tokens=args.chunk_tokens, preempt=args.preempt,
-        profiler=prof, monitor=mon, faults=faults, retry=retry,
-        health=health)
+        spec_tokens=args.spec_tokens, spec_acceptance=acc,
+        profiler=prof, monitor=mon, tracer=tracer, price=price,
+        tail_price=tail_price, faults=faults, retry=retry, health=health)
     print("cluster:", res.summary())
     for s in res.replica_stats:
         tag = f" model={s['model']}" if pools is not None else ""
@@ -513,28 +701,46 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--brownout-tiers", default=None, metavar="T1[,T2]",
                     help="SLO tiers shed in this order under detected "
                          "capacity loss, e.g. 'batch,interactive'")
+    ap.add_argument("--trace", default=None, metavar="PATH",
+                    help="export the request-lifecycle trace as Chrome/"
+                         "Perfetto JSON (load in ui.perfetto.dev)")
+    ap.add_argument("--metrics-json", default=None, metavar="PATH",
+                    help="write final metrics (incl. latency quantiles) as "
+                         "JSON in the shared benchmark schema")
+    ap.add_argument("--profile-out", default=None, metavar="PATH",
+                    help="save the online cost profile (measured phase-time "
+                         "cells + speculative-acceptance EMA) as a versioned "
+                         "JSON registry after serving")
+    ap.add_argument("--profile-in", default=None, metavar="PATH",
+                    help="warm-start from a saved profile registry: pricing "
+                         "models calibrate against its measured cells and "
+                         "speculation plans at its measured acceptance")
+    ap.add_argument("--pricing-quantile", type=float, default=None,
+                    metavar="Q",
+                    help="price SLO decisions (slo_aware shed/admit, "
+                         "autoscaler capacity) at this quantile of the "
+                         "measured observed/predicted ratio instead of its "
+                         "mean (e.g. 0.95; needs --profile-in; throughput "
+                         "projections stay mean-priced)")
+    ap.add_argument("--profile-half-life", type=int, default=0,
+                    metavar="N",
+                    help="decay the profile's calibration statistics with "
+                         "this sample half-life (rotating histograms, "
+                         "bounded memory) so a throttled/migrated replica "
+                         "re-learns; 0 = never forget.  Ignored with "
+                         "--profile-in (the registry's setting wins)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (cuda, or cpu)")
-    for slice_name, flags in _LATER_FLAGS.items():
-        for flag in flags:
-            ap.add_argument(flag, nargs="?", const=True,
-                            default=argparse.SUPPRESS,
-                            help=f"not ported yet ({slice_name})")
     return ap
 
 
 def main(argv=None) -> dict:
     ap = build_parser()
     args = ap.parse_args(argv)
-    for slice_name, flags in _LATER_FLAGS.items():
-        for flag in flags:
-            if hasattr(args, flag[2:].replace("-", "_")):
-                ap.error(f"{flag} is not ported yet ({slice_name})")
+    if args.pricing_quantile is not None \
+            and not 0.0 < args.pricing_quantile <= 1.0:
+        raise SystemExit("--pricing-quantile must be in (0, 1]")
     cluster = args.replicas > 1 or args.autoscale or bool(args.models)
-    if cluster and args.speculate:
-        ap.error("--speculate on a cluster path is not ported yet "
-                 "(observability slice: it plans at the cost profiler's "
-                 "measured acceptance)")
     if args.autoscale and args.paged:
         raise SystemExit("--autoscale needs the simulated cluster path: "
                          "drop --paged (elasticity has no live-engine mode)")
@@ -544,7 +750,27 @@ def main(argv=None) -> dict:
                          "live-engine mode)")
     if (args.prefix_cache or args.speculate) and not cluster:
         args.paged = True          # the cluster sim honours the flags itself
-    spec_tokens = args.spec_tokens if args.speculate else 0
+    args.spec_tokens = args.spec_tokens if args.speculate else 0
+
+    # profiling without --trace still needs the span stream: a retain=False
+    # tracer is a pure measurement bus (sinks see every event, nothing is
+    # stored), so long serve runs profile at O(1) memory
+    want_profile = bool(args.profile_in or args.profile_out)
+    if args.trace:
+        tracer = Tracer()
+    elif want_profile:
+        tracer = Tracer(retain=False)
+    else:
+        tracer = NULL_TRACER
+    cprof = CostProfiler.load(args.profile_in, tracer=tracer) \
+        if args.profile_in else CostProfiler(
+            tracer=tracer, half_life=args.profile_half_life or None)
+    if want_profile:
+        tracer.add_sink(cprof.on_event)
+    cal_models: list = []          # CalibratedLatencyModels the run priced by
+    artifacts = dict(trace=args.trace, metrics_json=args.metrics_json,
+                     profile_in=args.profile_in, profile_out=args.profile_out)
+
     if args.chunk_tokens < 0:
         args.chunk_tokens = derive_chunk_tokens(SchedulerConfig(),
                                                 block_size=8)
@@ -563,9 +789,14 @@ def main(argv=None) -> dict:
         prof = ResourceProfiler(fit_predictor(PredictorConfig().vocab, device),
                                 get_config(args.arch))
         mon = Monitor(prof)
-        res = serve_cluster_sim(args, prof, mon)
+        cprof.monitor = mon            # drift attribution lands in metrics
+        res = serve_cluster_sim(args, prof, mon, tracer=tracer,
+                                cost_profiler=cprof, cal_models=cal_models)
         print("monitor:", mon.metrics())
-        return {"cluster": res, "monitor": mon}
+        write_artifacts(mon, tracer, cprof, cal_models=cal_models,
+                        **artifacts)
+        return {"cluster": res, "monitor": mon, "tracer": tracer,
+                "cost_profiler": cprof, "cal_models": cal_models}
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -591,12 +822,17 @@ def main(argv=None) -> dict:
     params = api.init_params(cfg, seed=0, dtype=torch.float32, device=device)
     reqs = make_requests(cfg, args.requests, args.max_new, args.workload)
     pcfg = drafter = None
+    if args.spec_tokens and args.drafter == "model":
+        drafter = get_drafter("model", draft_cfg=cfg,
+                              draft_params=api.init_params(
+                                  cfg, seed=7, device=device))
     if args.paged and not cluster:
         pcfg = paged_config(cfg, reqs, args.max_new, args.kv_budget,
                             prefix_cache=args.prefix_cache,
                             admit_lookahead=args.lookahead,
                             chunk_tokens=args.chunk_tokens,
-                            preempt=args.preempt, spec_tokens=spec_tokens,
+                            preempt=args.preempt,
+                            spec_tokens=args.spec_tokens,
                             drafter=args.drafter)
         print(f"paged pool: {pcfg.usable_blocks} usable blocks (+null) x "
               f"{pcfg.block_size} slots ({args.kv_budget:.0f} B budget, "
@@ -604,10 +840,6 @@ def main(argv=None) -> dict:
               f"chunk_tokens={pcfg.chunk_tokens}, "
               f"preempt={'on' if pcfg.preempt else 'off'}, "
               f"speculate={pcfg.spec_tokens or 'off'})")
-        if spec_tokens and args.drafter == "model":
-            drafter = get_drafter("model", draft_cfg=cfg,
-                                  draft_params=api.init_params(
-                                      cfg, seed=7, device=device))
     pred = fit_predictor(cfg.vocab_size, device)
     if cluster:
         out = serve_cluster(cfg, params, reqs, pred,
@@ -616,18 +848,32 @@ def main(argv=None) -> dict:
                             prefix_cache=args.prefix_cache,
                             lookahead=args.lookahead,
                             chunk_tokens=args.chunk_tokens,
-                            preempt=args.preempt)
+                            preempt=args.preempt,
+                            spec_tokens=args.spec_tokens,
+                            drafter_name=args.drafter, drafter=drafter,
+                            tracer=tracer, cost_profiler=cprof,
+                            calibrated=bool(args.profile_in),
+                            pricing_quantile=args.pricing_quantile)
+        cal_models = out["cal_models"]
     else:
         out = serve(cfg, params, reqs, pred,
                     scheduler=args.scheduler, continuous=args.continuous,
-                    max_new=args.max_new, paged=pcfg, drafter=drafter)
+                    max_new=args.max_new, paged=pcfg, drafter=drafter,
+                    tracer=tracer, cost_profiler=cprof)
     if pcfg is not None:
         print_paged(out["results"][0], pcfg, args.drafter)
     dt, total = out["seconds"], out["tokens"]
     print(f"served {len(out['outputs'])} requests, {total} tokens in "
           f"{dt:.2f}s ({total / dt:.1f} tok/s on {where})")
     print(f"outputs_digest={out['digest']}")
+    if args.spec_tokens and cprof.spec_samples:
+        print(f"measured acceptance EMA: {cprof.spec_acceptance:.3f} "
+              f"({cprof.spec_accepted}/{cprof.spec_drafted} over "
+              f"{cprof.spec_samples} verify passes)")
     print("monitor:", out["monitor"].metrics())
+    write_artifacts(out["monitor"], tracer, cprof, throughput=total / dt,
+                    cal_models=cal_models, **artifacts)
+    out.update(tracer=tracer, cost_profiler=cprof)
     return out
 
 

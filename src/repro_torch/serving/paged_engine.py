@@ -288,6 +288,7 @@ class PagedEngine:
                  drafter=None,
                  tracer: Optional[Tracer] = None,
                  track: int = 0,
+                 cost_profiler=None,
                  dtype=torch.float32):
         ok, why = api.paged_compatible(cfg)
         if not ok:
@@ -299,6 +300,10 @@ class PagedEngine:
         self.pcfg = pcfg
         self.monitor = monitor
         self.device = params.embed.w.device
+        # online cost profiler (obs.profile.CostProfiler): receives the
+        # measured speculative-acceptance samples directly (span-side cost
+        # learning attaches to the tracer, not here)
+        self.cost_profiler = cost_profiler
         # lifecycle tracing: a disabled tracer is a no-op at every call, so
         # the engine holds one unconditionally; ``track`` is the replica id
         # this engine's events land on (chrome pid)
@@ -753,6 +758,10 @@ class PagedEngine:
             st.kv_len[slot] += n_emit
             res.drafted_tokens += k_eff
             res.accepted_tokens += j
+            if self.cost_profiler is not None and k_eff > 0:
+                # measured acceptance: the live signal that retires the
+                # static planning prior in launch/serve.py
+                self.cost_profiler.observe_acceptance(j, k_eff)
             res.spec_rolled_blocks += st.truncate_blocks(
                 slot, int(st.kv_len[slot]), bs)
             prev = self._last_emit.get(slot)

@@ -50,6 +50,10 @@ FLASH_CASES = [
     # cached prefix, D = 128 at group 16
     (1, 16, 32, 32, 2, 128, 128, True, None, None, 16),
     (1, 8, 24, 32, 2, 128, 128, True, None, None, 16),
+    # the profile round trip on the reduced smollm-135m (group 4, D = 16):
+    # a prompt's first 8-token chunk, and the next over its 8 cached keys
+    (1, 8, 8, 4, 1, 16, 16, True, None, None, 0),
+    (1, 8, 16, 4, 1, 16, 16, True, None, None, 8),
     # gemma2-27b's local layers at group 2: the window bites well inside the
     # prompt, so whole tiles below it are skipped; minicpm3-4b's MLA
     # prefill, D = 96, Dv = 64 on 40 heads (the general instance)
@@ -150,6 +154,9 @@ PAGED_CASES = [
     # llama4-maverick's paged decode and verify window (group 5)
     (4, 1, 40, 8, 128, 128, 8, 8, 40, None),
     (4, 5, 40, 8, 128, 128, 8, 8, 40, None),
+    # the profile round trip's verify window on the reduced smollm-135m
+    # (group 4, D = 16) over 8-token pages of a 977-page pool
+    (4, 5, 4, 1, 16, 16, 8, 8, 977, None),
 ]
 
 # K1's page splits: 66 16-token pages give paged_splits(66, 16) = (14, 5),

@@ -331,7 +331,7 @@ def test_fit_depth_llama4_at_the_weights_element_size(bytes_per_param):
     assert one <= budget < 2 * one
 
 
-def test_serve_cli_flags(monkeypatch):
+def test_serve_cli_flags(monkeypatch, tmp_path):
     ap = serve.build_parser()
     assert ap.parse_args([]).reduced is True
     assert ap.parse_args(["--no-reduced"]).reduced is False
@@ -340,16 +340,39 @@ def test_serve_cli_flags(monkeypatch):
     assert (args.replicas, args.router, args.fleet, args.autoscale,
             args.models, args.retry_budget, args.detect_lag) == \
         (1, "round_robin", "joint", False, None, 2, 1.0)
+    assert (args.trace, args.metrics_json, args.profile_out, args.profile_in,
+            args.pricing_quantile, args.profile_half_life) == \
+        (None, None, None, None, None, 0)
     # the cluster paths run (their lines are held to the reference's in
-    # the tests below); the observability flags, --speculate on a cluster
-    # path, and the reference's refusals of --paged with --autoscale or
-    # --models exit
+    # the tests below), and so do the observability flags and --speculate
+    # on either cluster path (held to the reference's in
+    # tests/test_torch_profile.py); a pricing quantile outside (0, 1] and
+    # the reference's refusals of --paged with --autoscale or --models exit.
+    # The fit is deterministic, so each vocab's predictor is fitted once
+    # and copied to the later runs (a fit takes seconds on a loaded CPU)
+    fitted, fit = {}, serve.fit_predictor
+
+    def fit_once(vocab, device):
+        if vocab not in fitted:
+            fitted[vocab] = fit(vocab, device)
+        return copy.deepcopy(fitted[vocab])
+    monkeypatch.setattr(serve, "fit_predictor", fit_once)
     out = serve.main(["--replicas", "2", "--device", "cpu"])
     res = out["cluster"]
     assert len(res.finished) + len(res.shed) == len(res.requests) == 128
-    for argv in (["--trace", "t.json"], ["--profile-in", "p.json"],
-                 ["--replicas", "2", "--speculate"],
-                 ["--replicas", "2", "--paged", "--speculate"],
+    small = ["--requests", "3", "--max-new", "2", "--device", "cpu"]
+    trace, prof = str(tmp_path / "t.json"), str(tmp_path / "p.json")
+    out = serve.main(["--paged", "--trace", trace, "--profile-out", prof]
+                     + small)
+    assert len(out["tracer"].events) > 0 and (tmp_path / "p.json").exists()
+    out = serve.main(["--paged", "--profile-in", prof] + small)
+    assert out["cost_profiler"].cells and len(out["outputs"]) == 3
+    out = serve.main(["--replicas", "2", "--speculate", "--device", "cpu"])
+    assert out["cluster"].summary()["offered"] == 128
+    out = serve.main(["--replicas", "2", "--paged", "--speculate"] + small)
+    assert len(out["outputs"]) == 3
+    assert [rep.spec_tokens for rep in out["replicas"]] == [4, 4]
+    for argv in (["--pricing-quantile", "0"],
                  ["--autoscale", "--paged"],
                  ["--models", "chatglm2-6b", "--paged"]):
         with pytest.raises(SystemExit):
@@ -501,7 +524,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert {"serving/simulator.py", "serving/cluster/replica.py",
             "serving/cluster/router.py", "serving/cluster/autoscaler.py",
             "serving/cluster/faults.py", "serving/cluster/fleet.py",
-            "distributed/fault_tolerance.py"} <= names
+            "distributed/fault_tolerance.py", "obs/export.py",
+            "obs/profile.py", "obs/calibrate.py"} <= names
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for path in files:
         text = path.read_text()
