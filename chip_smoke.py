@@ -6,7 +6,7 @@ Phases, in order; any failed check exits non-zero:
 
 1. device: a CUDA device must be present; prints its name and power limit;
    TF32 off for matmuls and convolutions (full fp32).
-2. build: compiles every CUDA kernel of the serve paths from
+2. build: compiles every CUDA kernel of the serve and train paths from
    ``src/repro_torch/kernels/csrc`` with nvcc, all at once (four); prints
    each kernel's registers and counts the tensor-core instructions (HMMA)
    of flash attention's tensor-core instances in the built library's SASS
@@ -30,7 +30,13 @@ Phases, in order; any failed check exits non-zero:
    cluster and some blocks own none; whisper-medium's non-causal encoder
    and cross-attention prefills (Sq != Skv) and its cross decode over
    1,536 rows; llama4-maverick's group 5, 40 over 8 heads at D = 128, at its
-   serve and long shapes for all three attention kernels).
+   serve and long shapes for all three attention kernels); then flash
+   attention's gradient on the card (the kernel's forward and its torch-ops
+   backward through the ``autograd.Function``) against autograd of the plain
+   version, dq, dk and dv, f32 and bf16, at smollm-135m's training shape,
+   chatglm2-6b's D = 128 at group 16, gemma2-27b's window of 4,096 with
+   softcap 50, minicpm3-4b's D = 96 / Dv = 64, whisper's non-causal cross
+   attention (Sq != Skv) and a q_offset > 0.
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
@@ -40,7 +46,12 @@ Phases, in order; any failed check exits non-zero:
    operations at the TF32 tensor cores' rate over three (3xTF32, the
    card's fastest route to fp32-accurate products).  llama4-maverick's
    shapes are timed in bf16, its main path's dtype, and bounded at the
-   bf16 tensor cores' rate.
+   bf16 tensor cores' rate.  At smollm-135m's training shape, flash
+   attention's forward and backward together (the kernel and its torch-ops
+   gradient) beside the plain version's autograd and SDPA's forward and
+   backward, against the bound of 2 (4D + 3Dv) operations a visible pair;
+   and the gradient alone against 2 (3D + 2Dv) a pair (it recomputes the
+   scores).
 5. serve: the default serve path of ``repro_torch.launch.serve`` at full
    width (smollm-135m, 30 layers, d_model 576), then one longer padded batch
    (4 x 1024-token prompts, 32 new tokens); checks that both kernels ran on
@@ -160,9 +171,9 @@ Phases, in order; any failed check exits non-zero:
    that one period, 2 layers, in bf16 (37.1 GB), the reference's
    deployment dtype; the period at full width (d_model 5120, 40 heads over
    8 KV heads of 128, d_ff 8192, 128 routed experts of 8192 top-1 and a
-   shared one, vocab 202,048) drawn once in bf16 on the host (its seconds
-   and the process's peak host memory printed) and served through
-   ``serve.serve`` padded, ``--continuous`` and ``--paged`` (bf16 pools of
+   shared one, vocab 202,048) drawn once in bf16 on the card from a seeded
+   CUDA generator (its seconds and the process's peak host memory
+   printed) and served through ``serve.serve`` padded, ``--continuous`` and ``--paged`` (bf16 pools of
    64 KiB pages, 4e6 bytes), then a 4 x 1024 padded batch with
    ``[profile]`` lines; the largest prefill drop fraction, the expert
    GEMMs' device time at T = 4,096 and T = 4, a decode step's 35.0 GB of
@@ -180,7 +191,8 @@ Phases, in order; any failed check exits non-zero:
    with 16 experts top-2, twice, then the attention layer; 23.98 G
    parameters, 47.96 GB in bf16) at full width (d_model 8192, 64 heads over
    8 KV heads of 128 with no positions, Mamba d_inner 16,384, d_state 16,
-   d_ff 24,576, experts of 24,576, vocab 65,536) drawn once in bf16 and
+   d_ff 24,576, experts of 24,576, vocab 65,536) drawn once in bf16 on the
+   card from a seeded CUDA generator and
    served through ``serve.serve`` padded and ``--continuous``, then a 4 x
    1024 padded batch with ``[profile]`` lines; one Mamba layer's prefill
    and its scan at T = 4,096 against the scan's bytes; the largest prefill
@@ -207,10 +219,26 @@ Phases, in order; any failed check exits non-zero:
    carry no measured / model ratios, so its pricing covers nothing
    (printed beside phase 8's) and its summary must equal the uncalibrated
    run's.
-
+15. train (``[train]`` lines): smollm-135m at full width and depth (30
+   layers, d_model 576, 9 over 3 heads of 64, vocab 49,152, tied
+   embeddings) trains through ``launch.train.main --no-reduced --batch 4
+   --seq 1024`` with AdamW for 30 steps, checkpointing at step 20 (under
+   ``build/``: 1.6 GB); checks that flash attention launched 30 x steps
+   times and its gradient ran as many times (no other kernel), that the
+   loss fell; restores the checkpoint into fresh tensors on the card and
+   reruns steps 20-29, whose losses must equal the first run's within 1e-4
+   relative (the embedding's backward sums with atomics); prints the step
+   time and tokens a second, profiles one step (device busy, idle share,
+   top device ops), holds one loss and gradient of the phase's own weights
+   cut to 2 layers at 4 x 256 tokens against the CPU (loss within 1e-4
+   relative, each gradient within 1e-3 of its leaf's largest magnitude),
+   and runs Adafactor for 5 steps (launches exact, the loss falls).
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
-the launch counts set to 0 just before it and read just after.  A ``[phase]`` line gives each phase's seconds.  The last three
+the launch counts set to 0 just before it and read just after.  A
+``[phase]`` line gives each phase's seconds; a ``[train] grad`` line
+gives flash attention's gradient's numbers (backward calls, error, times
+beside the plain version's and SDPA's, bounds).  The last three
 lines are a JSON object of per-kernel numbers (launches on those paths,
 error, device time, plain-version and library times, bound), the card's name and power limit as nvidia-smi reports them,
 and ``{"ok": true, "device": {...}}``.  A copy of every number goes to
@@ -223,6 +251,7 @@ import copy
 import json
 import math
 import resource
+import shutil
 import statistics
 import subprocess
 import sys
@@ -246,8 +275,9 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference)
 from repro_torch.kernels.decode_attention.ops import decode_splits  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_reference)
+    flash_attention, flash_attention_grad, flash_attention_reference)
 from repro_torch.kernels.flash_attention.ref import attention_mask  # noqa: E402
 from repro_torch.kernels.paged_attention import (  # noqa: E402
     paged_decode_attention, paged_decode_attention_reference,
@@ -255,7 +285,7 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_splits  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import api, mamba, moe  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
@@ -265,6 +295,9 @@ from repro_torch.obs import (CostProfiler, Tracer,  # noqa: E402
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  PagedEngine, PagedEngineConfig, Replica,
                                  greedy, paper_cluster)
+from repro_torch.training import (OptConfig, TrainConfig,  # noqa: E402
+                                  init_training, load_train_state,
+                                  make_train_step, train_state_tree)
 
 # Bounds use the H100 data sheet's peaks: HBM bytes/s, and FLOP/s of bf16
 # and of fp32 at fp32 accuracy, the fastest route to which is the TF32
@@ -317,6 +350,34 @@ PAD_SPINS, SPIN = 128, "spin_kernel"   # see device_kernels
 # profiled windows, the most spin kernels one of them lost, and the windows
 # that lost every spin (and were retried)
 PROFILER = {"windows": 0, "max_lost": 0, "all_lost": 0}
+
+# phase 15: smollm-135m trains at full width and depth, 4 x 1024 tokens a
+# step, through the train CLI
+TRAIN_ARGS = ["--no-reduced", "--device", "cuda", "--batch", "4", "--seq",
+              "1024"]
+TRAIN_STEPS, ADAFACTOR_STEPS, TRAIN_TOKENS = 30, 5, 4 * 1024
+# the checkpoint (1.6 GB of f32 weights and AdamW moments) stays out of
+# chiprun_out/, which brings back at most 64 MiB
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+# a rerun's losses against the first run's, relative: the embedding's
+# backward sums the rows of repeated tokens with atomics, in any order
+TOL_RESUME = 1e-4
+TOL_TRAIN_LOSS = 1e-4       # card vs CPU loss, relative (f32)
+TOL_TRAIN_GRAD = 1e-3       # card vs CPU gradient, x the leaf's largest |g|
+TRAIN_PARITY_LAYERS, TRAIN_PARITY_SEQ = 2, 256
+# K2's gradient vs autograd of the plain version, x the largest |grad|
+TOL_GRAD_F32 = 1e-4
+GRAD_PARITY_TAG = "flash_attention_grad/smollm_train/float32"
+GRAD_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
+    ("smollm_train", 4, 1024, 1024, 9, 3, 64, 64, True, None, None, 0),
+    ("chatglm2_d128_group16", 2, 1024, 1024, 32, 2, 128, 128, True, None,
+     None, 0),
+    ("gemma2_window_softcap", 1, 4608, 4608, 32, 16, 128, 128, True, 4096,
+     50.0, 0),
+    ("minicpm3_d96_dv64", 4, 1024, 1024, 40, 40, 96, 64, True, None, None, 0),
+    ("whisper_cross", 4, 448, 1536, 16, 16, 64, 64, False, None, None, 0),
+    ("chunk_q_offset", 4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
+]
 
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
@@ -1006,6 +1067,51 @@ def phase_parity() -> dict:
     if bad:
         fail(f"kernel parity: {bad}")
     out["wkv6/f64_oracle"] = wkv6_against_f64(WKV6_CASES[1], gen)
+    out.update(grad_parity(gen))
+    return out
+
+
+def flash_grads(fn, args, do, kw):
+    """(dq, dk, dv) of ``fn`` (flash attention or its plain version) at
+    ``args`` by autograd."""
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    return torch.autograd.grad(fn(*leaves, **kw), leaves, do)
+
+
+def grad_parity(gen) -> dict:
+    """K2's gradient on the card (the kernel's forward, then
+    ``flash_attention_grad``) against autograd of the plain version on the
+    same CUDA tensors, at GRAD_CASES, f32 and bf16."""
+    out, bad = {}, []
+    for case in GRAD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args, kw = flash_inputs(case, dtype, gen)
+            do = randn(gen, *args[0].shape[:3], case[7], dtype=dtype)
+            got = flash_grads(flash_attention, args, do, kw)
+            torch.cuda.synchronize()
+            want = flash_grads(flash_attention_reference, args, do, kw)
+            tag = f"flash_attention_grad/{case[0]}/{str(dtype)[6:]}"
+            rec = {}
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                scale = w.float().abs().max().item()
+                tol = (TOL_GRAD_F32 if dtype == torch.float32 else TOL_BF16) \
+                    * scale
+                err = (g.float() - w.float()).abs().max().item()
+                rec[name] = {"max_abs_err": err, "tol": tol,
+                             "ok": g.dtype == w.dtype and err <= tol
+                             and math.isfinite(err)}
+            out[tag] = rec
+            ok = all(r["ok"] for r in rec.values())
+            print(f"[parity] {tag}: " + ", ".join(
+                f"{n} {r['max_abs_err']:.3e} (tol {r['tol']:.3e})"
+                for n, r in rec.items()) + f" {'ok' if ok else 'FAIL'}",
+                flush=True)
+            if not ok:
+                bad.append(tag)
+            del args, do, got, want
+            torch.cuda.empty_cache()
+    if bad:
+        fail(f"flash attention gradient parity: {bad}")
     return out
 
 
@@ -1136,6 +1242,67 @@ def phase_times() -> dict:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); device time "
               f"from torch.profiler ({r['launches_per_call']} activities a "
               "call)", flush=True)
+    out["flash_attention_grad/smollm_train"] = grad_times(gen)
+    return out
+
+
+def grad_cost(case, dtype, forward: bool):
+    """(bytes, operations) of K2's backward given q, k, v, o and dO (it
+    recomputes the scores: 2 (3D + 2Dv) operations a visible pair), or with
+    ``forward`` of the forward and backward together (q, k, v, dO in; o,
+    dq, dk, dv out; 2 (4D + 3Dv) a pair)."""
+    _, b, sq, skv, h, kv, d, dv, *_ = case
+    nbytes, fwd_ops = flash_cost(case, dtype)
+    size = torch.finfo(dtype).bits // 8
+    pairs = fwd_ops / (2.0 * (d + dv) * b * h)
+    ops = 2.0 * (3 * d + 2 * dv) * pairs * b * h
+    q_rows, kv_rows = b * sq * h, b * skv * kv
+    if forward:
+        return 2 * nbytes, ops + fwd_ops
+    return size * 2 * (q_rows + kv_rows) * (d + dv), ops
+
+
+def grad_times(gen) -> dict:
+    """At smollm's training shape (f32): K2's forward and gradient together
+    beside the plain version's autograd and SDPA's forward and backward
+    (``is_causal``, the yardstick), each against the bound of the forward
+    and backward; and the gradient alone (``flash_attention_grad``)
+    against its own bound."""
+    case = GRAD_CASES[0]
+    args, kw = flash_inputs(case, torch.float32, gen)
+    do = randn(gen, *args[0].shape[:3], case[7], dtype=torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    lib = [t.transpose(1, 2).contiguous().requires_grad_(True) for t in args]
+    lib_do = do.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        o = flash_attention(*args, **kw)
+
+    def both(fn, xs, g, **k):
+        return lambda: torch.autograd.grad(fn(*xs, **k), xs, g)
+    rec = {}
+    for tag, fn in (
+            ("kernel", both(flash_attention, leaves, do, **kw)),
+            ("plain", both(flash_attention_reference, leaves, do, **kw)),
+            ("library", both(F.scaled_dot_product_attention, lib, lib_do,
+                             is_causal=True, enable_gqa=True)),
+            ("grad_alone", lambda: flash_attention_grad(*args, o, do, **kw))):
+        rec[tag] = timed(fn)
+    b_ms, b_by = bound(*grad_cost(case, torch.float32, True), torch.float32)
+    g_ms, g_by = bound(*grad_cost(case, torch.float32, False), torch.float32)
+    out = {"ms": rec["kernel"]["ms"], "call_ms": rec["kernel"]["call_ms"],
+           "launches_per_call": rec["kernel"]["launches_per_call"],
+           "plain_ms": rec["plain"]["ms"], "library_ms": rec["library"]["ms"],
+           "bound_ms": b_ms, "bound_by": b_by,
+           "grad_ms": rec["grad_alone"]["ms"],
+           "grad_launches": rec["grad_alone"]["launches_per_call"],
+           "grad_bound_ms": g_ms, "grad_bound_by": g_by, "dtype": "float32"}
+    print(f"[times] flash_attention_grad/smollm_train: forward + backward: "
+          f"K2 + torch-ops gradient {out['ms']:.4f} ms (CUDA events "
+          f"{out['call_ms']:.4f}, {out['launches_per_call']} device "
+          f"activities), plain autograd {out['plain_ms']:.4f} ms, SDPA "
+          f"{out['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}); the "
+          f"gradient alone {out['grad_ms']:.4f} ms ({out['grad_launches']} "
+          f"activities), bound {g_ms:.4f} ms ({g_by})", flush=True)
     return out
 
 
@@ -1201,6 +1368,7 @@ def read_launches() -> dict:
 
 def reset_launches() -> None:
     flash_attention.launches = 0
+    flash_attention.backward_calls = 0
     decode_attention.launches = 0
     paged_window_attention.launches = 0
     wkv6.launches = 0
@@ -2650,7 +2818,9 @@ def phase_llama4() -> dict:
     nbytes = 2 * cfg.param_count()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    # drawn on the card: the host's draw of these weights took 132-209 s
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                             generator_device="cuda")
     init_s = time.perf_counter() - t0
     host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     plan = helr_mesh(full, SHAPES["decode_32k"]).name
@@ -2662,8 +2832,8 @@ def phase_llama4() -> dict:
           f"{cfg.vocab_size} padded to {cfg.padded_vocab}), one group "
           f"period of {cfg.n_layers} of {full.n_layers} layers in bf16 "
           f"(fit_depth at {budget / 1e9:.1f} GB): {cfg.param_count():.4g} "
-          f"parameters, {nbytes / 1e9:.2f} GB, drawn on the host and moved "
-          f"in {init_s:.1f} s (peak host memory of the process "
+          f"parameters, {nbytes / 1e9:.2f} GB, drawn on the card in "
+          f"{init_s:.1f} s (peak host memory of the process "
           f"{host_gib:.1f} GiB); plan for production mesh at decode_32k: "
           f"{plan}", flush=True)
     reqs = serve.make_requests(cfg, 12, 16)
@@ -2780,7 +2950,9 @@ def phase_jamba() -> dict:
              f"in bf16 against a budget of {budget}")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    # drawn on the card: the host's draw of these weights took 132-209 s
+    params = api.init_params(cfg, seed=0, dtype=torch.bfloat16, device="cuda",
+                             generator_device="cuda")
     init_s = time.perf_counter() - t0
     host_gib = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     plan = helr_mesh(full, SHAPES["decode_32k"]).name
@@ -2793,7 +2965,7 @@ def phase_jamba() -> dict:
           f"{cfg.vocab_size}), its first {cfg.n_layers} of {full.n_layers} "
           f"layers {plan_seen} in bf16: {cfg.param_count():.4g} parameters, "
           f"{nbytes / 1e9:.2f} GB (budget {budget / 1e9:.1f} GB), drawn on the "
-          f"host and moved in {init_s:.1f} s (peak host memory of the process "
+          f"card in {init_s:.1f} s (peak host memory of the process "
           f"{host_gib:.1f} GiB); plan for production mesh at decode_32k: "
           f"{plan}", flush=True)
     with moe_watch() as seen:
@@ -2827,6 +2999,148 @@ def phase_jamba() -> dict:
             "moe": moe_rec, "logits": parity, "launches": launches}
 
 
+def train_launches(what: str, steps: int, n_layers: int) -> dict:
+    """K2 once per layer, micro-batch and step forward, its gradient as
+    many times backward, no other kernel."""
+    got = read_launches() | {"flash_attention_backward":
+                             flash_attention.backward_calls}
+    want = {k: 0 for k in got} | {"flash_attention": n_layers * steps,
+                                  "flash_attention_backward": n_layers * steps}
+    print(f"[train] {what} launches {got} (expected {want})", flush=True)
+    if got != want:
+        fail(f"{what}: kernel launches {got}, expected {want}")
+    return got
+
+
+def train_parity(cfg, params) -> dict:
+    """One loss and gradient of the phase's own weights, cut to their first
+    TRAIN_PARITY_LAYERS layers, at 4 x TRAIN_PARITY_SEQ tokens: on the card
+    (K2 and its gradient) against the same weights moved to the CPU (plain
+    versions)."""
+    cut = replace(cfg, n_layers=TRAIN_PARITY_LAYERS)
+    keep = {k: v.detach().cpu() for k, v in params.state_dict().items()
+            if not k.startswith("blocks.")
+            or int(k.split(".")[1]) < TRAIN_PARITY_LAYERS}
+    base = train.token_base(cfg, 4, TRAIN_PARITY_SEQ)
+    res = {}
+    for device in ("cuda", "cpu"):
+        model = api.init_params(cut, seed=0, device="cpu")
+        model.load_state_dict(keep)
+        model.to(device).requires_grad_(True)
+        loss, _ = api.loss_fn(cut, model, train.batch_at(base, 0, device))
+        named = dict(model.named_parameters())
+        grads = torch.autograd.grad(loss, list(named.values()))
+        res[device] = (loss.item(), {n: g.detach().cpu()
+                                     for n, g in zip(named, grads)})
+    loss_rel = abs(res["cuda"][0] - res["cpu"][0]) / abs(res["cpu"][0])
+    worst, worst_name = 0.0, None
+    for name, ref in res["cpu"][1].items():
+        err = (res["cuda"][1][name] - ref).abs().max().item() \
+            / max(ref.abs().max().item(), 1e-30)
+        if err > worst or worst_name is None:
+            worst, worst_name = err, name
+    rec = {"layers": TRAIN_PARITY_LAYERS, "seq": TRAIN_PARITY_SEQ,
+           "loss_card": res["cuda"][0], "loss_cpu": res["cpu"][0],
+           "loss_rel_err": loss_rel, "loss_tol": TOL_TRAIN_LOSS,
+           "grad_rel_err": worst, "grad_worst_leaf": worst_name,
+           "grad_tol": TOL_TRAIN_GRAD, "leaves": len(res["cpu"][1])}
+    print(f"[train] card vs CPU, the first {TRAIN_PARITY_LAYERS} layers at "
+          f"4 x {TRAIN_PARITY_SEQ}: loss {rec['loss_card']:.6f} vs "
+          f"{rec['loss_cpu']:.6f} (rel {loss_rel:.2e}, tol {TOL_TRAIN_LOSS}); "
+          f"gradients of {rec['leaves']} leaves, worst {worst:.2e} of the "
+          f"leaf's largest |g| ({worst_name}; tol {TOL_TRAIN_GRAD})",
+          flush=True)
+    if not (loss_rel <= TOL_TRAIN_LOSS and worst <= TOL_TRAIN_GRAD):
+        fail("training card vs CPU: loss or gradients out of bounds")
+    return rec
+
+
+def phase_train() -> dict:
+    """smollm-135m at full width and depth trains on the card through the
+    train CLI: AdamW for TRAIN_STEPS steps of 4 x 1024 tokens, checkpointed
+    at step 20; the checkpoint restored into fresh tensors and the steps
+    after it rerun (their step time, tokens a second and one profiled
+    step); Adafactor for ADAFACTOR_STEPS; card vs CPU at 2 layers."""
+    cfg = get_config("smollm-135m")
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    run = train.main([*TRAIN_ARGS, "--steps", str(TRAIN_STEPS),
+                      "--ckpt-dir", str(TRAIN_CKPT)])
+    launches = train_launches("adamw", TRAIN_STEPS, cfg.n_layers)
+    losses = run["losses"]
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        fail(f"train: losses {losses[0]} -> {losses[-1]} did not fall")
+    print(f"[train] adamw: {TRAIN_STEPS} steps of {TRAIN_TOKENS} tokens, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}, {run['seconds']:.2f} s "
+          f"(first step included), peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del run
+    torch.cuda.empty_cache()
+
+    mgr = CheckpointManager(TRAIN_CKPT)
+    tcfg = TrainConfig(opt=OptConfig(kind="adamw", lr=1e-3))
+    params, opt = init_training(cfg, 1, tcfg, device="cuda")   # fresh tensors
+    tree, start = mgr.restore(train_state_tree(cfg, params, opt),
+                              device="cuda")
+    opt = load_train_state(params, tree)
+    del tree
+    ckpt_bytes = sum(f.stat().st_size for f in TRAIN_CKPT.rglob("*.npy"))
+    step_fn = make_train_step(cfg, None, tcfg)
+    base = train.token_base(cfg, 4, 1024)
+    relosses, walls = [], []
+    for step in range(start, TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, train.batch_at(base, step, "cuda"),
+                                 step)
+        relosses.append(float(m["loss"]))
+        walls.append(time.perf_counter() - t0)
+    resume_err = max(abs(a - b) / abs(b)
+                     for a, b in zip(relosses, losses[start:]))
+    step_s = statistics.median(walls)
+    print(f"[train] checkpoint round trip: step {start} ({ckpt_bytes / 1e9:.2f} "
+          f"GB on disk) restored into fresh tensors on the card, steps "
+          f"{start}-{TRAIN_STEPS - 1} rerun: losses within {resume_err:.2e} "
+          f"relative of the first run's (tol {TOL_RESUME})", flush=True)
+    if not resume_err <= TOL_RESUME:
+        fail("train: the resumed run's losses left the first run's")
+    print(f"[train] step {step_s * 1e3:.2f} ms (median of {len(walls)}, the "
+          f"loss read back each step), {TRAIN_TOKENS / step_s:.0f} tokens/s",
+          flush=True)
+    held = {"p": params, "o": opt}
+    batch = train.batch_at(base, TRAIN_STEPS, "cuda")
+
+    def one_step():
+        held["p"], held["o"], _ = step_fn(held["p"], held["o"], batch,
+                                          TRAIN_STEPS)
+    profile = step_breakdown("train step (smollm-135m, 4 x 1024, AdamW)",
+                             one_step)
+    parity = train_parity(cfg, held["p"])
+    del held, params, opt
+    torch.cuda.empty_cache()
+    shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+
+    reset_launches()
+    ada = train.main([*TRAIN_ARGS, "--steps", str(ADAFACTOR_STEPS),
+                      "--optimizer", "adafactor"])
+    ada_launches = train_launches("adafactor", ADAFACTOR_STEPS, cfg.n_layers)
+    if not all(math.isfinite(x) for x in ada["losses"]) \
+            or ada["losses"][-1] >= ada["losses"][0]:
+        fail(f"train adafactor: losses {ada['losses']} did not fall")
+    print(f"[train] adafactor: {ADAFACTOR_STEPS} steps, loss "
+          f"{ada['losses'][0]:.4f} -> {ada['losses'][-1]:.4f}, "
+          f"{ada['seconds']:.2f} s", flush=True)
+    del ada
+    torch.cuda.empty_cache()
+    return {"launches": {k: launches[k] + ada_launches[k] for k in launches},
+            "losses": losses, "resumed_losses": relosses,
+            "resume_rel_err": resume_err, "resume_step": start,
+            "checkpoint_bytes": ckpt_bytes, "step_ms": step_s * 1e3,
+            "step_walls_ms": [w * 1e3 for w in walls],
+            "tokens_per_s": TRAIN_TOKENS / step_s, "profile": profile,
+            "parity": parity}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -2851,13 +3165,15 @@ def main() -> None:
     llama4 = run("llama4", phase_llama4)
     jamba = run("jamba", phase_jamba)
     cluster = run("cluster", phase_cluster, dense)
+    trained = run("train", phase_train)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
                 + served["long_batch"]["launches"][k] + paged["launches"][k]
                 + dense["launches"][k] + window_mla["launches"][k]
                 + moe_vlm["launches"][k] + encdec["launches"][k]
-                + llama4["launches"][k] + jamba["launches"][k] for k in TIMED}
+                + llama4["launches"][k] + jamba["launches"][k]
+                + trained["launches"][k] for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -2879,6 +3195,16 @@ def main() -> None:
             "max_abs_err": parity[f"{name}/{case}/float32"]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    grad = times["flash_attention_grad/smollm_train"]
+    print("[train] grad " + json.dumps({
+        "name": "flash_attention_grad", "route": "torch ops",
+        "source": "src/repro_torch/kernels/flash_attention/grad.py",
+        "replaces": None, "backward_calls":
+            trained["launches"]["flash_attention_backward"],
+        "max_abs_err": parity[GRAD_PARITY_TAG]["dq"]["max_abs_err"],
+        **{k: grad[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                "library_ms", "grad_ms", "grad_bound_ms",
+                                "grad_bound_by")}}), flush=True)
     print(f"[profiler] {PROFILER['windows']} windows, each opened by "
           f"{PAD_SPINS} spin kernels: at most {PROFILER['max_lost']} of them "
           f"lost in one, all lost in {PROFILER['all_lost']} (retried)",
@@ -2888,6 +3214,7 @@ def main() -> None:
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
               "llama4": llama4, "jamba": jamba, "cluster": cluster,
+              "train": trained,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

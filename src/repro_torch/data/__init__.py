@@ -1,1 +1,1 @@
-"""Synthetic serving workloads of the port."""
+"""Synthetic serving workloads and the training data pipeline of the port."""

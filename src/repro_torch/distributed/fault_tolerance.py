@@ -1,7 +1,6 @@
-"""Fault-tolerance bookkeeping of the serving cluster's health layer.
-
-Own copy of the serving half of ``repro/distributed/fault_tolerance.py``
-(the mesh re-planning of the training restart path stays there):
+"""Fault-tolerance bookkeeping: the serving cluster's health layer and
+the training restart's mesh plan.  Own copy of
+``repro/distributed/fault_tolerance.py``:
 
 * ``HeartbeatTracker`` — per-node liveness from periodic heartbeats; a node
   missing ``timeout`` seconds is declared failed.  ``simulate_cluster``'s
@@ -9,6 +8,10 @@ Own copy of the serving half of ``repro/distributed/fault_tolerance.py``
   down whoever ages past ``timeout`` (= ``HealthConfig.detect_lag``);
   crashed and partitioned replicas stop beating, so detection lag is a
   measured quantity, not an assumption.
+* ``ElasticTopology`` — the training restart contract: after host
+  failures, the largest healthy mesh (whole multiples of the pod
+  granularity) to map the job to; the checkpoint's restore places the
+  leaves on it.
 * ``StragglerMitigator`` — tracks per-replica step latencies (EWMA);
   replicas slower than ``factor`` × the fleet median get drained.  With
   ``HealthConfig.straggler_factor > 0`` the simulator records each
@@ -39,6 +42,37 @@ class HeartbeatTracker:
     def healthy(self, now: Optional[float] = None) -> list[int]:
         now = now if now is not None else time.monotonic()
         return [n for n, t in self.last_seen.items() if now - t <= self.timeout]
+
+
+@dataclass
+class ElasticTopology:
+    """Largest-healthy-mesh computation.  Node granularity = one host
+    (4 chips on v5e); meshes must keep whole data-axis rows."""
+    pods: int
+    hosts_per_pod: int
+    chips_per_host: int = 4
+
+    def plan_after_failures(self, failed_hosts: set[int]) -> dict:
+        """Returns {'pods': k, 'data': rows, 'mesh_shape': (...)} for the
+        largest rectangular mesh avoiding failed hosts.  Strategy: drop any
+        pod with a failure if other pods are clean; otherwise shrink the
+        data axis to the healthy host rows (whole-row granularity)."""
+        per_pod = {p: [] for p in range(self.pods)}
+        for h in failed_hosts:
+            per_pod[h // self.hosts_per_pod].append(h % self.hosts_per_pod)
+        clean = [p for p in range(self.pods) if not per_pod[p]]
+        if clean:
+            k = len(clean)
+            return {"pods": clean, "mesh_shape": (k, self.hosts_per_pod *
+                                                  self.chips_per_host // 16, 16),
+                    "degraded": False}
+        # all pods hit: shrink the data axis of every pod to the minimum
+        # healthy-row count so the mesh stays rectangular
+        healthy_rows = min(self.hosts_per_pod - len(set(v))
+                           for v in per_pod.values())
+        rows = max(healthy_rows * self.chips_per_host // 16, 1)
+        return {"pods": list(range(self.pods)),
+                "mesh_shape": (self.pods, rows, 16), "degraded": True}
 
 
 @dataclass

@@ -19,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("flash_attention", "decode_attention", "paged_attention", "wkv6")
@@ -26,6 +28,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def check_no_grad(name: str, *inputs: torch.Tensor) -> None:
+    """Raise where a kernel without a backward would be asked for one: grad
+    enabled and an input that requires it.  The kernel writes its output
+    through a raw pointer, so autograd would see a leaf and give the
+    inputs no gradient, silently."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no gradient yet; run it under "
+            "torch.no_grad() or inference_mode(), or on CPU tensors, whose "
+            "plain version is differentiable")
 
 
 def nvcc_path() -> str:

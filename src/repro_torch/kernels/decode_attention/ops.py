@@ -96,6 +96,7 @@ def decode_attention(
                                           window=window, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
+    build.check_no_grad("decode_attention", q, k, v)
     if kv_len.dtype != torch.int32:
         raise TypeError(f"decode_attention: kv_len must be int32, got {kv_len.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, kv_len)):

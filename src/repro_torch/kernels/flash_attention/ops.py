@@ -10,6 +10,12 @@ D = Dv = 64 and 128, with the query heads of one KV head in one block and
 K/V staged through a ``cp.async`` ring; other head dims, and K/V off a
 16-byte boundary, take its general fp32 FMA instance.  See the source for
 the design and what comes next.
+
+On CUDA inputs that require grad (grad enabled), the launch is the forward
+of an ``autograd.Function`` whose backward is ``flash_attention_grad``, in
+torch ops, as the reference's gradient is XLA's autodiff outside any
+Pallas kernel; on CPU tensors autograd runs through the plain version.
+Under ``no_grad`` or ``inference_mode`` the kernel is launched alone.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.flash_attention.grad import flash_attention_grad
 from repro_torch.kernels.flash_attention.ref import flash_attention_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -81,7 +88,18 @@ def flash_attention(
         raise ValueError("flash_attention: q, k, v must be contiguous")
     if h > 65535 or b > 65535:
         raise ValueError(f"flash_attention: grid of {h} heads x {b} batch too large")
-    scale = scale if scale is not None else d ** -0.5
+    opts = (causal, window, softcap, q_offset,
+            scale if scale is not None else d ** -0.5)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, *opts)
+    return _launch(q, k, v, *opts)
+
+
+def _launch(q, k, v, causal, window, softcap, q_offset, scale) -> torch.Tensor:
+    """One launch of the kernel on checked CUDA tensors."""
+    b, sq, h, d = q.shape
+    _, skv, kv, dv = v.shape
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
@@ -97,4 +115,24 @@ def flash_attention(
     return out
 
 
-flash_attention.launches = 0    # kernel launches, read by chip_smoke.py
+class _FlashAttention(torch.autograd.Function):
+    """The kernel's forward with ``flash_attention_grad`` as its backward,
+    for CUDA inputs that require grad."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset, scale):
+        out = _launch(q, k, v, causal, window, softcap, q_offset, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap,
+                        q_offset=q_offset, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        flash_attention.backward_calls += 1
+        grads = flash_attention_grad(*ctx.saved_tensors, do, **ctx.opts)
+        return (*grads, None, None, None, None, None)
+
+
+flash_attention.launches = 0         # kernel launches, read by chip_smoke.py
+flash_attention.backward_calls = 0   # backwards of kernel launches

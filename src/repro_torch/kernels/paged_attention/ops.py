@@ -90,6 +90,7 @@ def _launch(name: str, q, k_pool, v_pool, block_tables, kv_len, offset: int,
     ``<= kv_len + offset + t``; output [B, T, H, Dv]."""
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
+    build.check_no_grad(name, q, k_pool, v_pool)
     if kv_len.dtype != torch.int32 or block_tables.dtype != torch.int32:
         raise TypeError(f"{name}: block_tables and kv_len must be int32, got "
                         f"{block_tables.dtype}, {kv_len.dtype}")

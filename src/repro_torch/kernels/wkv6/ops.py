@@ -77,6 +77,8 @@ def wkv6(
         return wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"wkv6: no kernel for device {r.device}")
+    build.check_no_grad("wkv6", r, k, v, w, u,
+                        *(() if s0 is None else (s0,)))
     if chunk > MAX_CHUNK:
         raise ValueError(f"wkv6: chunk {chunk} > {MAX_CHUNK}")
     if d > MAX_HEAD_DIM or dv > MAX_HEAD_DIM:

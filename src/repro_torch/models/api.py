@@ -1,8 +1,9 @@
-"""Model API of the port: init / prefill / decode, dispatched on the family
-(decoder-only, or encoder-decoder, whose prefill takes the audio stub's
-frame embeddings), and the paged decode and verify steps of the
-decoder-only family (the vision stub's prefill takes embeddings).  Port of
-``repro/models/api.py`` (the dry-run specs come with their slice)."""
+"""Model API of the port: init / train loss / prefill / decode, dispatched
+on the family (decoder-only, or encoder-decoder, whose loss and prefill
+take the audio stub's frame embeddings), and the paged decode and verify
+steps of the decoder-only family (the vision stub's prefill takes
+embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
+their slice)."""
 from __future__ import annotations
 
 import torch
@@ -16,10 +17,27 @@ from repro_torch.models.transformer import Transformer
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device: str | torch.device = "cuda") -> Transformer | EncDec:
+                device: str | torch.device = "cuda",
+                generator_device: str | torch.device = "cpu"
+                ) -> Transformer | EncDec:
+    """Seeded weights on ``device``, drawn by a generator on
+    ``generator_device`` (the CPU: the same weights on every device)."""
     if cfg.is_encdec:
-        return E.init_params(cfg, seed, dtype, device)
-    return T.init_params(cfg, seed, dtype, device)
+        return E.init_params(cfg, seed, dtype, device, generator_device)
+    return T.init_params(cfg, seed, dtype, device, generator_device)
+
+
+def loss_fn(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
+            plan=None):
+    """The training loss and its metrics; autograd runs through it (no
+    ``inference_mode``).  batch: {"tokens", "labels", "mask"} (+ "frames"
+    for an encoder-decoder, + "embeds" for the vision stub).  Sharded plans
+    are not ported yet."""
+    if plan is not None:
+        raise NotImplementedError("sharded training plans are not ported yet")
+    if cfg.is_encdec:
+        return E.encdec_loss(cfg, params, batch)
+    return T.lm_loss(cfg, params, batch)
 
 
 @torch.inference_mode()

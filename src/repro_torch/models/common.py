@@ -25,7 +25,8 @@ class Dense(nn.Module):
                  dtype=torch.float32, scale: Optional[float] = None):
         super().__init__()
         std = scale if scale is not None else d_in ** -0.5
-        w = torch.randn(d_in, d_out, generator=generator) * std
+        w = torch.randn(d_in, d_out, generator=generator,
+                        device=generator.device if generator else None) * std
         self.w = nn.Parameter(w.to(dtype), requires_grad=False)
         self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype),
                               requires_grad=False) if bias else None

@@ -1,6 +1,5 @@
 """Encoder-decoder assembly (the Whisper backbone).  Port of
-``repro/models/encdec.py`` (its training loss comes with the training
-slice).
+``repro/models/encdec.py``.
 
 The conv/mel frontend is a stub, as in the reference: callers give
 precomputed frame embeddings [B, F, d].  Both stacks add the reference's
@@ -30,7 +29,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (Norm, apply_norm, last_valid,
                                        sinusoidal_positions)
 from repro_torch.models.mlp import MLP, mlp_apply
-from repro_torch.models.transformer import embed_tokens, lm_head
+from repro_torch.models.transformer import embed_tokens, lm_head, nll_sum
 
 _FULL = LayerSpec(mixer="attn", attn="full", mlp="dense")
 
@@ -71,7 +70,8 @@ class EncDec(nn.Module):
         g = generator
         self.embed = nn.Module()
         self.embed.w = nn.Parameter(
-            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g)
+            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g,
+                         device=g.device)
              * 0.02).to(dtype).to(device), requires_grad=False)
         self.enc_blocks = nn.ModuleList(EncBlock(cfg, g, dtype).to(device)
                                         for _ in range(cfg.n_encoder_layers))
@@ -82,12 +82,14 @@ class EncDec(nn.Module):
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device: str | torch.device = "cuda") -> EncDec:
+                device: str | torch.device = "cuda",
+                generator_device: str | torch.device = "cpu") -> EncDec:
     """Seeded random weights, the reference's shapes and scales, on the
     card unless ``device`` says otherwise; drawn on the CPU and then moved,
-    so a seed gives the same weights on every device."""
-    return EncDec(cfg, torch.Generator().manual_seed(seed), dtype,
-                  resolve_device(device))
+    so a seed gives the same weights on every device (``generator_device=
+    "cuda"`` draws them on the card: another stream)."""
+    gen = torch.Generator(resolve_device(generator_device)).manual_seed(seed)
+    return EncDec(cfg, gen, dtype, resolve_device(device))
 
 
 def encode(cfg: ModelConfig, params: EncDec,
@@ -146,6 +148,21 @@ def _dec_embed(cfg: ModelConfig, params: EncDec,
     x = embed_tokens(cfg, params, tokens)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     return x + sinusoidal_positions(pos, cfg.d_model).to(x.dtype)[None]
+
+
+def encdec_loss(cfg: ModelConfig, params: EncDec, batch: dict):
+    """batch: {"frames" [B, F, d], "tokens" [B, S], "labels" [B, S],
+    "mask" [B, S] (optional)}: the decoder's masked cross entropy over the
+    encoded frames, the padded vocabulary's columns masked to -1e30.
+    Returns (loss, {"nll"})."""
+    memory = encode(cfg, params, batch["frames"])
+    x = _dec_embed(cfg, params, batch["tokens"])
+    x, _ = _dec_stack(cfg, params, x, memory, mode="train")
+    labels, mask = batch["labels"], batch.get("mask")
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device) \
+        if mask is None else mask.float()
+    loss = nll_sum(cfg, params, x, labels, mask) / mask.sum().clamp_min(1.0)
+    return loss, {"nll": loss}
 
 
 def encdec_prefill(cfg: ModelConfig, params: EncDec, frames: torch.Tensor,

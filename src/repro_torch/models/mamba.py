@@ -47,13 +47,14 @@ class Mamba(nn.Module):
             return nn.Parameter(x, requires_grad=False)
 
         self.in_proj = Dense(d, 2 * d_in, **kw)
-        self.conv_w = param((torch.randn(mc.d_conv, d_in, generator=g)
+        self.conv_w = param((torch.randn(mc.d_conv, d_in, generator=g,
+                                         device=g.device)
                              * mc.d_conv ** -0.5).to(dtype))
         self.conv_b = param(torch.zeros(d_in, dtype=dtype))
         self.bcdt_proj = Dense(d_in, 2 * n + 1, **kw)
         # dt = softplus(. + dt_bias) starts in [1e-3, 1e-1], log-uniform
-        u = torch.rand(d_in, generator=g) * (math.log(1e-1) - math.log(1e-3)) \
-            + math.log(1e-3)
+        u = torch.rand(d_in, generator=g, device=g.device) \
+            * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)
         self.dt_bias = param(torch.log(torch.expm1(torch.exp(u))))
         self.a_log = param(torch.log(torch.arange(1, n + 1, dtype=torch.float32)
                                      ).expand(d_in, n).contiguous())
@@ -87,8 +88,12 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     b_ssm, c_ssm [B, T, N].  Returns (y [B, T, d_in], the final state h_T
     [B, d_in, N]).  Each chunk of ``chunk`` positions holds its [chunk, B,
     d_in, N] decays and states, position-major so that a step is one
-    contiguous multiply-add."""
+    contiguous multiply-add.  Under autograd (grad enabled and an input
+    that requires it) the states are built out of place, a step at a time,
+    with the same products and sums."""
     bsz, t, d_in = x.shape
+    grad = torch.is_grad_enabled() and any(
+        v.requires_grad for v in (x, dt, a, b_ssm, c_ssm))
     h = torch.zeros(bsz, d_in, a.shape[1], dtype=torch.float32, device=x.device)
     ys = []
     for t0 in range(0, t, chunk):
@@ -97,10 +102,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         abar = (dtb[..., None] * a).exp_()                    # [c, B, d_in, N]
         # the states start as bx_t and are accumulated in place
         hs = (dtb * xb)[..., None] * bb[:, :, None, :]
-        hs[0].addcmul_(abar[0], h)
-        for i in range(1, hs.shape[0]):
-            hs[i].addcmul_(abar[i], hs[i - 1])
-        h = hs[-1].clone()
+        if grad:
+            steps = []
+            for i in range(hs.shape[0]):
+                h = hs[i] + abar[i] * h
+                steps.append(h)
+            hs = torch.stack(steps)
+        else:
+            hs[0].addcmul_(abar[0], h)
+            for i in range(1, hs.shape[0]):
+                hs[i].addcmul_(abar[i], hs[i - 1])
+            h = hs[-1].clone()
         ys.append(torch.einsum("cbdn,cbn->cbd", hs, cb).transpose(0, 1))
         del abar, hs
     return torch.cat(ys, dim=1), h

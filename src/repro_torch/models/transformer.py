@@ -68,7 +68,8 @@ class Transformer(nn.Module):
         g = generator
         self.embed = nn.Module()
         self.embed.w = nn.Parameter(
-            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g)
+            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g,
+                         device=g.device)
              * 0.02).to(dtype).to(device), requires_grad=False)
         self.final_norm = Norm(cfg, dtype).to(device)
         self.blocks = nn.ModuleList(Block(cfg, spec, g, dtype).to(device)
@@ -77,17 +78,21 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Module()
             self.head.w = nn.Parameter(
-                (torch.randn(cfg.d_model, cfg.padded_vocab, generator=g)
+                (torch.randn(cfg.d_model, cfg.padded_vocab, generator=g,
+                             device=g.device)
                  * cfg.d_model ** -0.5).to(dtype).to(device), requires_grad=False)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device: str | torch.device = "cuda") -> Transformer:
+                device: str | torch.device = "cuda",
+                generator_device: str | torch.device = "cpu") -> Transformer:
     """Seeded random weights, the reference's shapes and scales, on the
     card unless ``device`` says otherwise.  They are drawn on the CPU and
-    then moved, so a seed gives the same weights on every device."""
+    then moved, so a seed gives the same weights on every device;
+    ``generator_device="cuda"`` draws them on the card instead (another
+    random stream, and no host draw of the weights)."""
     device = resolve_device(device)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(resolve_device(generator_device)).manual_seed(seed)
     return Transformer(cfg, gen, dtype, device)
 
 
@@ -99,7 +104,9 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     ``spec_scatter`` ((blk, off) [B, T]) makes it the multi-token verify
     window.  In prefill mode a ``cache`` entry is a prefix K/V to continue
     from.  An MoE layer's aux metrics are dropped, as the reference's
-    serve path drops them."""
+    serve path drops them.  In train mode (the loss's forward: a prefill
+    that keeps no cache) it returns (x, aux) instead: the MoE layer's
+    {"lb_loss", "drop_frac"}, {} for a dense one."""
     h = apply_norm(cfg, p.norm1, x)
     if block_tables is not None and spec.mixer != "attn":
         raise NotImplementedError(
@@ -139,8 +146,9 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
         mx = apply_norm(cfg, p.norm1_post, mx)
     x = x + mx
     h2 = apply_norm(cfg, p.norm2, x)
+    aux = {}
     if spec.mlp == "moe":
-        my, _ = moe_mod.moe_apply(cfg, p.mlp, h2)
+        my, aux = moe_mod.moe_apply(cfg, p.mlp, h2)
     elif spec.mixer == "rwkv6":
         if mode == "decode":
             my = channel_mix_apply(cfg, p.mlp, h2, cache["cm_shift"][:, None])
@@ -153,23 +161,31 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
         my = mlp_apply(cfg, p.mlp, h2)
     if cfg.post_block_norms:
         my = apply_norm(cfg, p.norm2_post, my)
-    return x + my, c
+    return x + my, (aux if mode == "train" else c)
 
 
 def apply_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                 positions, mode: str, cache: Optional[list] = None,
                 kv_len=None, cache_len: int = 0, block_tables=None,
                 spec_scatter=None):
-    """Run every block.  Returns (x, new cache list or None)."""
+    """Run every block.  Returns (x, new cache list or None); in train mode
+    (x, {"lb_loss": the MoE layers' load-balance losses summed, f32})."""
     specs = cfg.layer_plan()
     new_cache = []
+    lb_loss = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, blk in enumerate(params.blocks):
         x, c = block_apply(cfg, specs[i], blk, x, positions=positions,
                            cache=cache[i] if cache is not None else None,
                            kv_len=kv_len, mode=mode, cache_len=cache_len,
                            block_tables=block_tables,
                            spec_scatter=spec_scatter)
-        new_cache.append(c)
+        if mode == "train":
+            if "lb_loss" in c:
+                lb_loss = lb_loss + c["lb_loss"]
+        else:
+            new_cache.append(c)
+    if mode == "train":
+        return x, {"lb_loss": lb_loss}
     return x, (new_cache if any(c is not None for c in new_cache) else None)
 
 
@@ -194,6 +210,64 @@ def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0,
     if cfg.rope == "mrope":
         return pos.expand(3, b, s)
     return pos
+
+
+def lm_forward(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
+               embeds: Optional[torch.Tensor] = None,
+               positions: Optional[torch.Tensor] = None):
+    """Training / scoring forward: tokens [B, S] (or ``embeds`` [B, S, d])
+    -> (logits [B, S, Vp] f32, {"lb_loss"})."""
+    x = embeds if embeds is not None else embed_tokens(cfg, params, tokens)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = default_positions(cfg, b, s, device=x.device)
+    x, aux = apply_stack(cfg, params, x, positions=positions, mode="train")
+    x = apply_norm(cfg, params.final_norm, x)
+    return lm_head(cfg, params, x), aux
+
+
+def nll_sum(cfg: ModelConfig, params, x: torch.Tensor, labels: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Summed masked cross entropy of the final-normed x [B, S, d] (one
+    sequence chunk, the reference's ``_nll_chunk``); the padded
+    vocabulary's columns are masked to -1e30."""
+    logits = lm_head(cfg, params, x)
+    valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
+    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+    return (nll * mask).sum()
+
+
+def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict, *,
+            loss_chunk: int = 2048):
+    """batch: {"tokens" [B, S] (or "embeds" [B, S, d]), "labels" [B, S]
+    (the next tokens), "mask" [B, S] (optional)}.  The cross entropy is
+    summed over sequence chunks of ``loss_chunk`` (the whole sequence when
+    it does not divide), the [B, chunk, Vp] logits computed a chunk at a
+    time, and divided by the mask's sum; an MoE model adds 0.01 x its
+    summed load-balance loss / n_layers.  Returns (loss, {"nll",
+    "lb_loss"})."""
+    x = batch.get("embeds")
+    if x is None:
+        x = embed_tokens(cfg, params, batch["tokens"])
+    b, s = x.shape[:2]
+    positions = default_positions(cfg, b, s, device=x.device)
+    x, aux = apply_stack(cfg, params, x, positions=positions, mode="train")
+    x = apply_norm(cfg, params.final_norm, x)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device) \
+        if mask is None else mask.float()
+    c = min(loss_chunk, s)
+    if s % c:
+        c = s
+    total = sum(nll_sum(cfg, params, x[:, i:i + c], labels[:, i:i + c],
+                        mask[:, i:i + c]) for i in range(0, s, c))
+    loss = total / mask.sum().clamp_min(1.0)
+    if cfg.moe is not None:
+        loss = loss + 0.01 * aux["lb_loss"] / max(cfg.n_layers, 1)
+    return loss, {"nll": loss, "lb_loss": aux["lb_loss"]}
 
 
 def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,

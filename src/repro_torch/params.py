@@ -9,14 +9,20 @@ keyed ``l0..l{period-1}``; an encoder-decoder's ``enc_blocks`` and
 state dict of ``models.transformer.Transformer`` (layer ``g * period + i``
 taking group ``g``'s slice of ``l{i}``) or of ``models.encdec.EncDec``
 (``enc_blocks.{i}`` and ``dec_blocks.{i}`` taking slice ``i`` of their
-stack).  No JAX import happens here.
+stack).  ``to_jax_tree`` goes the other way, for checkpoints the reference
+reads.  ``stacked_leaves`` names the port tensors that make up each of the
+reference's stacked leaves (Adafactor factors and clips per such leaf).
+No JAX import happens here.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig, group_period
 from repro_torch.core.profiler import LengthPredictor, PredictorConfig
+
+STACKS = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def _flatten(tree: dict, prefix: str, out: dict) -> None:
@@ -38,11 +44,15 @@ def _unstack(stack: dict, name_of, out: dict) -> None:
             out[name_of(g, name)] = stacked[g]
 
 
+def _tensor(v) -> torch.Tensor:
+    return v.clone() if isinstance(v, torch.Tensor) \
+        else torch.from_numpy(np.array(v, copy=True))
+
+
 def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     """Reference parameter tree (numpy leaves) -> the port's state dict."""
-    stacks = ("blocks", "enc_blocks", "dec_blocks")
     out: dict = {}
-    _flatten({k: v for k, v in tree.items() if k not in stacks}, "", out)
+    _flatten({k: v for k, v in tree.items() if k not in STACKS}, "", out)
     for key in ("enc_blocks", "dec_blocks"):
         if key in tree:
             _unstack(tree[key], lambda g, n, key=key: f"{key}.{g}.{n}", out)
@@ -51,7 +61,73 @@ def from_jax_params(tree: dict) -> dict[str, torch.Tensor]:
     for i in range(period):
         _unstack(groups[f"l{i}"],
                  lambda g, n, i=i: f"blocks.{g * period + i}.{n}", out)
-    return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in out.items()}
+    return {k: _tensor(v) for k, v in out.items()}
+
+
+def stacked_leaves(cfg: ModelConfig, names) -> dict[str, list[str]]:
+    """For each stacked leaf of the reference's tree, the port names that
+    make it up, in stacking order, keyed by the first of them: layer j of
+    ``blocks`` is group j // period of leaf ``l{j % period}``; every layer
+    of ``enc_blocks`` / ``dec_blocks`` is one slice of its stack.  Names
+    outside those stacks are leaves of their own and are not listed."""
+    period = 1 if cfg.is_encdec else group_period(cfg)
+    groups: dict[str, list[str]] = {}
+    for name in names:
+        top, _, rest = name.partition(".")
+        if top in STACKS:
+            j, _, leaf = rest.partition(".")
+            key = f"{top}.{int(j) % period if top == 'blocks' else 0}.{leaf}"
+            groups.setdefault(key, []).append(name)
+    for members in groups.values():
+        members.sort(key=lambda n: int(n.split(".")[1]))
+    return groups
+
+
+def ref_path(key: str) -> list[str]:
+    """The reference's tree path of a port name or ``stacked_leaves`` key."""
+    top, _, rest = key.partition(".")
+    if top == "blocks":
+        i, _, leaf = rest.partition(".")
+        return ["blocks", f"l{i}", *leaf.split(".")]
+    if top in STACKS:
+        return [top, *rest.partition(".")[2].split(".")]
+    return key.split(".")
+
+
+def to_jax_tree(cfg: ModelConfig, flat: dict, *, stacked: bool = False) -> dict:
+    """The port's tensors (torch or numpy, kept as they are) in the
+    reference's nested layout.  ``flat`` is keyed by port names, stacked
+    here as the reference stacks them, or with ``stacked`` by
+    ``stacked_leaves`` keys whose tensors are whole stacked leaves already
+    (Adafactor's state)."""
+    stacks = {} if stacked else stacked_leaves(cfg, flat)
+    members = {m for ms in stacks.values() for m in ms}
+    leaves = {k: v for k, v in flat.items() if k not in members}
+    for key, ms in stacks.items():
+        parts = [flat[m] for m in ms]
+        leaves[key] = torch.stack(parts) if isinstance(parts[0], torch.Tensor) \
+            else np.stack(parts)
+    tree: dict = {}
+    for key, leaf in leaves.items():
+        *path, last = ref_path(key)
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
+def from_jax_tree(tree: dict) -> dict[str, torch.Tensor]:
+    """Inverse of ``to_jax_tree(..., stacked=True)``: the reference's
+    nested leaves keyed by ``stacked_leaves`` keys, not unstacked."""
+    out: dict = {}
+    _flatten({k: v for k, v in tree.items() if k not in STACKS}, "", out)
+    for top in ("enc_blocks", "dec_blocks"):
+        if top in tree:
+            _flatten(tree[top], f"{top}.0.", out)
+    for group, sub in tree.get("blocks", {}).items():
+        _flatten(sub, f"blocks.{group[1:]}.", out)
+    return {k: _tensor(v) for k, v in out.items()}
 
 
 def predictor_from_numpy(params: dict, cfg: PredictorConfig = PredictorConfig(),

@@ -808,3 +808,97 @@ def test_jamba_engines_on_card_match_cpu(cuda):
         outs[str(dev)] = (res.outputs, cont.outputs)
     assert (logits["cpu"] - logits[str(cuda)].cpu()).abs().max().item() <= 1e-4
     assert outs["cpu"] == outs[str(cuda)]
+
+
+# ------------------------------------------------------------- training
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    """K1, K3 and K4 write their outputs through raw pointers: under grad,
+    with an input that requires it, they raise instead of returning an
+    output autograd cannot see through; under no_grad they run."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(gen, 2, 4, 16, dtype=torch.float32).requires_grad_(True)
+    k = _randn(gen, 2, 32, 2, 16, dtype=torch.float32)
+    v = _randn(gen, 2, 32, 2, 16, dtype=torch.float32)
+    kl = torch.tensor([5, 32], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        decode_attention(q, k, v, kl)
+    pool_k = _randn(gen, 8, 4, 2, 16, dtype=torch.float32)
+    pool_v = _randn(gen, 8, 4, 2, 16, dtype=torch.float32)
+    tables = torch.arange(1, 9, dtype=torch.int32, device=cuda)[None] \
+        .expand(2, 8)[:, :4].contiguous()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        paged_decode_attention(q, pool_k, pool_v, tables, kl.clamp(max=16))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        paged_window_attention(q[:, None].contiguous(), pool_k, pool_v,
+                               tables, kl.clamp(max=15))
+    r, kk, w = (_randn(gen, 1, 8, 2, 16, dtype=torch.float32) for _ in range(3))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        wkv6(r.requires_grad_(True), kk, kk, torch.sigmoid(w),
+             torch.zeros(2, 16, device=cuda))
+    with torch.no_grad():
+        decode_attention(q, k, v, kl)
+        paged_decode_attention(q, pool_k, pool_v, tables, kl.clamp(max=16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    (2, 64, 64, 6, 2, 64, 64, True, None, None, 0),
+    (1, 40, 72, 8, 1, 128, 128, True, None, None, 32),
+    (2, 48, 48, 4, 2, 32, 32, True, 16, 20.0, 0),
+    (2, 50, 50, 4, 2, 96, 64, True, None, None, 0),
+    (2, 12, 40, 4, 4, 64, 64, False, None, None, 0),
+])
+def test_flash_kernel_gradient_matches_plain_autograd(monkeypatch, cuda, case,
+                                                      dtype):
+    """K2's autograd.Function on the card: the kernel's forward and
+    flash_attention_grad equal autograd of the plain version on the same
+    tensors, one launch and one backward each, and the plain version never
+    runs in the card's forward or backward."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    b, sq, skv, h, kv, d, dv, causal, window, cap, qoff = case
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (_randn(gen, *s, dtype=dtype) for s in (
+        (b, sq, h, d), (b, skv, kv, d), (b, skv, kv, dv)))
+    do = _randn(gen, b, sq, h, dv, dtype=dtype)
+    kw = dict(causal=causal, window=window, softcap=cap, q_offset=qoff)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    n, nb = flash_attention.launches, flash_attention.backward_calls
+    with monkeypatch.context() as mp:
+        def plain(*args, **kwargs):
+            raise AssertionError("the plain version ran on the card")
+        mp.setattr(fa_ops, "flash_attention_reference", plain)
+        out = flash_attention(*leaves, **kw)
+        got = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.backward_calls) == \
+        (n + 1, nb + 1)
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_reference(*ref, **kw), ref, do)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        tol = (1e-4 if dtype == torch.float32 else 2e-2) * \
+            w.float().abs().max().item()
+        assert (g.float() - w.float()).abs().max().item() <= tol
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two AdamW steps of the reduced smollm: loss and grad_norm on the
+    card (K2 forward, its torch gradient) against the CPU."""
+    from repro_torch.launch.train import batch_at, token_base
+    from repro_torch.training import (OptConfig, TrainConfig, init_training,
+                                      make_train_step)
+    cfg = get_config("smollm-135m").reduced()
+    tcfg = TrainConfig(opt=OptConfig(lr=1e-3))
+    base = token_base(cfg, 4, 64)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        params, opt = init_training(cfg, 0, tcfg, device=device)
+        step = make_train_step(cfg, None, tcfg)
+        runs[device] = []
+        for i in range(2):
+            params, opt, m = step(params, opt, batch_at(base, i, device), i)
+            runs[device].append((float(m["loss"]), float(m["grad_norm"])))
+    for (lc, gc), (lg, gg) in zip(runs["cpu"], runs["cuda"]):
+        assert lg == pytest.approx(lc, rel=1e-4)
+        assert gg == pytest.approx(gc, rel=1e-3)
