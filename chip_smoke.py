@@ -30,7 +30,10 @@ Phases, in order; any failed check exits non-zero:
    cluster and some blocks own none; whisper-medium's non-causal encoder
    and cross-attention prefills (Sq != Skv) and its cross decode over
    1,536 rows; llama4-maverick's group 5, 40 over 8 heads at D = 128, at its
-   serve and long shapes for all three attention kernels); then flash
+   serve and long shapes for all three attention kernels; phase 16's
+   shard shapes of chatglm2-6b: a tp_dp rank's 2 x 1024 prefill and
+   decode on 16 over 1 heads, a longctx_seqshard rank's 256 query rows
+   over 1,024 keys at q_offset 768); then flash
    attention's gradient on the card (the kernel's forward and its torch-ops
    backward through the ``autograd.Function``) against autograd of the plain
    version, dq, dk and dv, f32 and bf16, at smollm-135m's training shape,
@@ -233,6 +236,29 @@ Phases, in order; any failed check exits non-zero:
    cut to 2 layers at 4 x 256 tokens against the CPU (loss within 1e-4
    relative, each gradient within 1e-3 of its leaf's largest magnitude),
    and runs Adafactor for 5 steps (launches exact, the loss falls).
+16. sharded serve (``[sharded]`` lines): multi-device serving as 4 ranks
+   of ``torch.distributed`` that share the one card (gloo: NCCL takes one
+   rank a GPU; every collective goes through host memory), spawned after
+   the kernels are built.  chatglm2-6b at full width and 14 layers (f32)
+   and qwen2-moe-a2.7b at full width and 2 layers (capacity factor 8: no
+   drops, so the batch-sharded MoE is the unsharded function) are first
+   served on the card alone, then by the ranks through
+   ``InferenceEngine(plan=)``: chatglm2-6b under tp_dp on {data: 2,
+   model: 2} (batch over data, head-TP: 16 over 1 heads a rank) and
+   longctx_seqshard on {data: 1, model: 4} (the sequence-parallel prefill,
+   256 query rows a rank of a 1,024-token prompt; the cache
+   sequence-sharded, decoded by partial softmax and merge), qwen2-moe
+   under ep_tp (30 of its 60 experts a rank, the all-to-all on CUDA
+   tensors).  Each on the 12 serve requests in batches of 4, chatglm2-6b
+   also on a 4 x 1024 batch (32 new tokens); each rank draws the full
+   weights in turn from the seeded CUDA generator (one full copy on the
+   card at a time) and keeps its slices.  Checks that every run's tokens
+   equal the card's alone, the first batch's prefill and decode logits
+   within 1e-3, and K2 and K3 launched on every rank exactly layers x
+   prefills and layers x decode steps (K3 none where the cache is
+   sequence-sharded), on rank 0 also as device activities of one batch
+   under torch.profiler; prints each batch's prefill and decode times
+   beside the card's alone.
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
 the launch counts set to 0 just before it and read just after.  A
@@ -257,7 +283,7 @@ import subprocess
 import sys
 import time
 import warnings
-from dataclasses import replace
+from dataclasses import asdict, replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -265,12 +291,14 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.distributed as dist  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import (H100, SHAPES, get_config,  # noqa: E402
                                  group_period)
 from repro_torch.core import helr_mesh  # noqa: E402
 from repro_torch.core.types import Batch, Request  # noqa: E402
+from repro_torch.distributed.ranks import run_ranks  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention, decode_attention_reference)
@@ -289,12 +317,14 @@ from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import api, mamba, moe  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
+from repro_torch.params import shard_params  # noqa: E402
 from repro_torch.obs import (CostProfiler, Tracer,  # noqa: E402
                              check_invariants, validate_metrics,
                              validate_trace)
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  PagedEngine, PagedEngineConfig, Replica,
                                  greedy, paper_cluster)
+from repro_torch.sharding import Mesh, ShardingPlan, set_mesh  # noqa: E402
 from repro_torch.training import (OptConfig, TrainConfig,  # noqa: E402
                                   init_training, load_train_state,
                                   make_train_step, train_state_tree)
@@ -379,6 +409,26 @@ GRAD_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_off
     ("chunk_q_offset", 4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
 ]
 
+# phase 16: 4 ranks share the card over gloo; each run (name, model, mesh
+# (data, model), plan as candidate_plans builds it, with the 4 x 1024
+# batch): chatglm2-6b under tp_dp (head-TP: 2 KV heads over model = 2) and
+# longctx_seqshard (sequence-parallel prefill, sequence-sharded decode),
+# qwen2-moe-a2.7b under ep_tp (60 experts over data, the all-to-all on
+# CUDA tensors staged through the host)
+SHARDED_WORLD, SHARDED_CACHE = 4, 64
+SHARDED_MOE_LAYERS, SHARDED_MOE_CAPACITY = 2, 8.0
+SHARDED_RUNS = [
+    ("chatglm2 tp_dp", "chatglm2", (2, 2),
+     ShardingPlan(batch_axes=("data",), model_axis="model",
+                  seq_axes=("model",), mla_absorbed=False), True),
+    ("chatglm2 longctx_seqshard", "chatglm2", (1, 4),
+     ShardingPlan(batch_axes=(), model_axis="model", mla_absorbed=False,
+                  seq_axes=("data", "model")), True),
+    ("qwen2_moe ep_tp", "qwen2_moe", (2, 2),
+     ShardingPlan(batch_axes=("data",), model_axis="model", ep_axis="data",
+                  seq_axes=("model",), mla_absorbed=False), False),
+]
+
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
     ("long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 9, 3, 64, 64, True, None, None, 0),
@@ -459,6 +509,14 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("jamba_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 64, 8, 128, 128,
      True, None, None, 0),
     ("jamba_serve_prefill", 4, 16, 16, 64, 8, 128, 128, True, None, None, 0),
+    # phase 16's shards of chatglm2-6b's 4 x 1024 prefill (D = 128): under
+    # tp_dp on {data: 2, model: 2} a rank's 2 rows and 16 over 1 heads
+    # (head-TP); under longctx_seqshard on {data: 1, model: 4} rank 3's 256
+    # query rows of every row over all 1,024 keys, 32 over 2 heads
+    ("chatglm2_tp2_prefill", 2, LONG_PROMPT, LONG_PROMPT, 16, 1, 128, 128,
+     True, None, None, 0),
+    ("chatglm2_sp4_prefill", 4, LONG_PROMPT // 4, LONG_PROMPT, 32, 2, 128,
+     128, True, None, None, 3 * LONG_PROMPT // 4),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
@@ -472,7 +530,8 @@ FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "qwen2_vl_serve_prefill", "whisper_encoder",
                "whisper_cross_prefill", "whisper_short_cross_prefill",
                "llama4_long_prefill", "llama4_serve_prefill",
-               "jamba_long_prefill", "jamba_serve_prefill")
+               "jamba_long_prefill", "jamba_serve_prefill",
+               "chatglm2_tp2_prefill", "chatglm2_sp4_prefill")
 DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("serve_decode", 4, 64, 9, 3, 64, 64, None, None, [24, 20, 17, 31]),
     ("long_decode", 4, LONG_CACHE, 9, 3, 64, 64, None, None, [1041] * 4),
@@ -534,6 +593,10 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      [1041] * 4),
     ("jamba_serve_decode", 4, 64, 64, 8, 128, 128, None, None,
      [24, 20, 17, 31]),
+    # phase 16: a tp_dp rank's first decode step of chatglm2-6b's long batch
+    # (2 rows, 16 over 1 heads of 128: head-TP)
+    ("chatglm2_tp2_decode", 2, LONG_CACHE, 16, 1, 128, 128, None, None,
+     [1041] * 2),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
@@ -543,7 +606,7 @@ DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "gemma2_serve_decode", "whisper_cross_decode",
                 "whisper_self_decode", "llama4_long_decode",
                 "llama4_serve_decode", "jamba_long_decode",
-                "jamba_serve_decode")
+                "jamba_serve_decode", "chatglm2_tp2_decode")
 # gemma2-27b's local layers in the long batch's decode: a ring of 4,096
 # slots after the wrap, as DECODE_CASES but with kv_len the query's
 # position; K3 over the first min(kv_len + 1, w) slots (``ring_kernel``)
@@ -3141,6 +3204,260 @@ def phase_train() -> dict:
             "parity": parity}
 
 
+# ---------------------------------------------------------------- phase 16
+
+def sharded_cfg(model: str):
+    """Phase 16's configs: chatglm2-6b at full width and 14 of its 28
+    layers; qwen2-moe-a2.7b at full width and 2 of its 24, at capacity
+    factor 8 (no drops), so that its batch-sharded block is the unsharded
+    function and the tokens can be held to one card's."""
+    if model == "chatglm2":
+        return replace(get_config("chatglm2-6b"), n_layers=CHATGLM2_LAYERS)
+    cfg = get_config("qwen2-moe-a2.7b")
+    return replace(cfg, n_layers=SHARDED_MOE_LAYERS, moe=replace(
+        cfg.moe, capacity_factor=SHARDED_MOE_CAPACITY))
+
+
+def sharded_draw(cfg):
+    """Full weights drawn on the card from the seeded CUDA generator: the
+    same on every rank and in the single-device run."""
+    return api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda",
+                           generator_device="cuda")
+
+
+def sharded_batches(cfg, long: bool) -> list:
+    """The 12 serve requests in batches of 4, in rid order, and with
+    ``long`` a 4 x 1024-token batch (LONG_NEW new tokens each)."""
+    reqs = serve.make_requests(cfg, 12, 16)
+    batches = [Batch(requests=reqs[i:i + 4]) for i in range(0, 12, 4)]
+    if long:
+        rng = np.random.default_rng(16)
+        batches.append(Batch(requests=[
+            Request(rid=100 + i, tokens=p, input_len=len(p), slo=1e9,
+                    arrival=0.0, true_output_len=LONG_NEW)
+            for i, p in enumerate(rng.integers(
+                2, cfg.vocab_size, (4, LONG_PROMPT)).tolist())]))
+    return batches
+
+
+def kernel_counts(names) -> dict:
+    return {k: sum(COLD[k] in n for n in names)
+            for k in ("flash_attention", "decode_attention")}
+
+
+def sharded_serve(cfg, params, plan, long: bool, clock=None) -> dict:
+    """Serve phase 16's batches on ``params``: one card's model (``plan``
+    None) or this rank's slices under ``plan`` (every rank runs the same
+    calls).  First the first batch's prefill and first decode-step logits
+    (and a warm-up); then that batch once more with rank 0 under
+    torch.profiler when ``profile`` (each kernel's device activities); then
+    every batch with the launch counts set to 0 just before and read just
+    after."""
+    ecfg = EngineConfig(max_batch=4, cache_len=SHARDED_CACHE, max_new_tokens=16)
+    eng = InferenceEngine(cfg, params, ecfg, plan=plan)
+    long_eng = InferenceEngine(cfg, params, replace(
+        ecfg, cache_len=LONG_CACHE, max_new_tokens=LONG_NEW), plan=plan)
+    batches = sharded_batches(cfg, long)
+    toks, kv_len = eng._pad_prompts([r.tokens for r in batches[0].requests])
+    lg, cache = eng._prefill(toks, kv_len)
+    lg2, _ = eng._decode(greedy(lg, cfg.vocab_size)[:, None].long(), cache,
+                         kv_len)
+    logits = torch.stack([lg[:4], lg2[:4]]).float().cpu().numpy()
+    del cache, lg, lg2
+    true = {r.rid: r.true_output_len for b in batches for r in b.requests}
+    seen = None
+    if plan is not None:
+        rank0 = dist.get_rank() == 0
+        for _ in range(3):      # rank 0 retries a window that lost its spins
+            ok = torch.ones(1)
+            if rank0:
+                with torch.profiler.profile(
+                        activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    for _ in range(PAD_SPINS):
+                        torch.cuda._sleep(50)
+                    res = eng.run_batch(batches[0], true_lens=true)
+                    torch.cuda.synchronize()
+                names = [e.name for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+                ok[0] = float(any(SPIN in n for n in names))
+                seen = {**kernel_counts(names), "steps": res.steps}
+            else:
+                eng.run_batch(batches[0], true_lens=true)
+            dist.broadcast(ok, 0)
+            if ok[0]:
+                break
+        else:
+            seen = {"lost": True}
+    torch.cuda.synchronize()
+    reset_launches()
+    if clock is not None:
+        clock.reset()
+    outs, runs = {}, []
+    for b in batches:
+        e = long_eng if len(b.requests[0].tokens) == LONG_PROMPT else eng
+        res = e.run_batch(b, true_lens=true)
+        outs.update(res.outputs)
+        runs.append({"prompt": max(len(r.tokens) for r in b.requests),
+                     "prefill_ms": res.prefill_s * 1e3,
+                     "decode_ms": res.decode_s * 1e3, "steps": res.steps})
+    torch.cuda.synchronize()
+    return {"outputs": {str(k): v for k, v in outs.items()}, "logits": logits,
+            "launches": read_launches(), "batches": runs, "profiled": seen,
+            "gloo": clock.read() if clock is not None else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+class GlooClock:
+    """Calls of the process group's collectives and the host seconds spent
+    in them (the staging copies to and from the card excluded), counted by
+    wrapping ``torch.distributed``'s functions in this rank."""
+
+    NAMES = ("all_reduce", "all_gather", "all_to_all_single")
+
+    def __init__(self):
+        self.reset()
+        for name in self.NAMES:
+            setattr(dist, name, self._timed(getattr(dist, name)))
+
+    def _timed(self, fn):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.calls += 1
+                self.seconds += time.perf_counter() - t0
+        return call
+
+    def reset(self) -> None:
+        self.calls, self.seconds = 0, 0.0
+
+    def read(self) -> dict:
+        return {"calls": self.calls, "s": self.seconds}
+
+
+def sharded_rank(rank: int, out_dir: str) -> None:
+    """One of phase 16's ranks on the card: every run of SHARDED_RUNS under
+    its mesh and plan, its weights drawn in turn (one full copy on the card
+    at a time) and cut to this rank's slices.  Writes its records and, on
+    rank 0, the gathered logits."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {shape: Mesh({"data": shape[0], "model": shape[1]}, device="cuda")
+              for shape in dict.fromkeys(r[2] for r in SHARDED_RUNS)}
+    recs = {}
+    gloo = GlooClock()
+    for name, model, shape, plan, long in SHARDED_RUNS:
+        cfg = sharded_cfg(model)
+        torch.cuda.reset_peak_memory_stats()
+        with set_mesh(meshes[shape]):
+            t0 = time.perf_counter()
+            for turn in range(dist.get_world_size()):
+                if turn == rank:
+                    params = sharded_draw(cfg)
+                    shard_params(cfg, params, plan)
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            draw_s = time.perf_counter() - t0
+            rec = sharded_serve(cfg, params, plan, long, clock=gloo)
+            del params
+            torch.cuda.empty_cache()
+        if rank == 0:
+            np.save(Path(out_dir) / f"{name}.npy", rec["logits"])
+        recs[name] = {k: v for k, v in rec.items() if k != "logits"} | {
+            "draw_s": draw_s}
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def phase_sharded() -> dict:
+    """chatglm2-6b (and qwen2-moe-a2.7b) served on one card, then by 4
+    ranks sharing it over gloo under each plan of SHARDED_RUNS: tokens
+    against the card's, the largest logit difference, K2 and K3 launches
+    (each rank's wrapper counts, and rank 0's device activities of one
+    batch under torch.profiler) against layers x calls, step times."""
+    out_dir = ROOT / "build" / "sharded"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    launches = {k: 0 for k in TIMED}
+    single = {}
+    for model in dict.fromkeys(r[1] for r in SHARDED_RUNS):
+        cfg = sharded_cfg(model)
+        params = sharded_draw(cfg)
+        long = any(r[4] for r in SHARDED_RUNS if r[1] == model)
+        single[model] = sharded_serve(cfg, params, None, long)
+        for k in launches:
+            launches[k] += single[model]["launches"][k]
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(sharded_rank, (str(out_dir),), world=SHARDED_WORLD,
+              timeout=300.0, join_timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_WORLD)]
+    print(f"[sharded] {SHARDED_WORLD} ranks on one card over gloo: "
+          f"{ranks_s:.1f} s from spawn to join", flush=True)
+    out = {"ranks_s": ranks_s, "runs": {}}
+    for name, model, shape, plan, long in SHARDED_RUNS:
+        cfg, ref = sharded_cfg(model), single[model]
+        rec = ranks[0][name]
+        same, total = agreement(rec["outputs"], ref["outputs"])
+        err = float(np.abs(np.load(out_dir / f"{name}.npy")
+                           - ref["logits"]).max())
+        layers = kernel_layers(cfg)
+        prefills = len(rec["batches"])
+        steps = sum(b["steps"] for b in rec["batches"])
+        head_tp = cfg.n_kv_heads % shape[1] == 0
+        want = {"flash_attention": layers * prefills,
+                "decode_attention": layers * steps if head_tp else 0}
+        got = [{k: r[name]["launches"][k] for k in want} for r in ranks]
+        prof = rec["profiled"]
+        prof_want = {"flash_attention": layers,
+                     "decode_attention": layers * prof.get("steps", 0)
+                     if head_tp else 0}
+        for r in ranks:
+            for k in launches:
+                launches[k] += r[name]["launches"][k]
+        step_ms = sum(b["decode_ms"] for b in rec["batches"]) / steps
+        run_s = sum(b["prefill_ms"] + b["decode_ms"] for b in rec["batches"]) / 1e3
+        ref_step = sum(b["decode_ms"] for b in ref["batches"]) / steps
+        print(f"[sharded] {name} on {{data: {shape[0]}, model: {shape[1]}}}: tokens "
+              f"{same}/{total} equal to one card's; logits max_abs_err "
+              f"{err:.3e} (tol {TOL_LOGITS}); launches a rank {got} "
+              f"(expected {want}); rank 0 profiled one batch: {prof} "
+              f"(expected {prof_want}); decode {step_ms:.2f} ms a step "
+              f"(one card {ref_step:.2f}); draw and shard {rec['draw_s']:.1f} "
+              f"s; peak {max(r[name]['peak_gib'] for r in ranks):.1f} GiB a "
+              f"rank; rank 0's collectives: {rec['gloo']['calls']} calls, "
+              f"{rec['gloo']['s']:.2f} s in gloo of the batches' {run_s:.2f} "
+              "s", flush=True)
+        for b, rb in zip(rec["batches"], ref["batches"]):
+            print(f"[sharded] {name} batch of prompts <= {b['prompt']}: "
+                  f"prefill {b['prefill_ms']:.1f} ms (one card "
+                  f"{rb['prefill_ms']:.1f}), {b['steps']} steps in "
+                  f"{b['decode_ms']:.1f} ms (one card {rb['decode_ms']:.1f})",
+                  flush=True)
+        if same != total or rec["outputs"] != ref["outputs"]:
+            fail(f"sharded {name}: {same}/{total} tokens equal one card's")
+        if not err <= TOL_LOGITS:
+            fail(f"sharded {name}: logits differ from one card's by {err}")
+        if any(g != want for g in got) or want["flash_attention"] <= 0:
+            fail(f"sharded {name}: launches {got}, expected {want}")
+        if prof.get("lost") or {k: prof[k] for k in prof_want} != prof_want:
+            fail(f"sharded {name}: profiled {prof}, expected {prof_want}")
+        out["runs"][name] = {
+            "mesh": list(shape), "plan": asdict(plan), "tokens_equal": [same, total],
+            "logits_max_abs_err": err, "launches_per_rank": got,
+            "profiled_rank0": prof, "decode_ms_per_step": step_ms,
+            "one_card_decode_ms_per_step": ref_step, "batches": rec["batches"],
+            "one_card_batches": ref["batches"], "draw_s": rec["draw_s"],
+            "gloo_rank0": rec["gloo"],
+            "peak_gib": [r[name]["peak_gib"] for r in ranks]}
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3166,6 +3483,7 @@ def main() -> None:
     jamba = run("jamba", phase_jamba)
     cluster = run("cluster", phase_cluster, dense)
     trained = run("train", phase_train)
+    sharded = run("sharded", phase_sharded)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -3173,7 +3491,8 @@ def main() -> None:
                 + dense["launches"][k] + window_mla["launches"][k]
                 + moe_vlm["launches"][k] + encdec["launches"][k]
                 + llama4["launches"][k] + jamba["launches"][k]
-                + trained["launches"][k] for k in TIMED}
+                + trained["launches"][k] + sharded["launches"][k]
+                for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
     for name, case, src, replaces in (
@@ -3214,7 +3533,7 @@ def main() -> None:
               **served, "paged": paged, "rwkv": rwkv, "dense": dense,
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
               "llama4": llama4, "jamba": jamba, "cluster": cluster,
-              "train": trained,
+              "train": trained, "sharded": sharded,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

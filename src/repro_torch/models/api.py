@@ -3,7 +3,9 @@ on the family (decoder-only, or encoder-decoder, whose loss and prefill
 take the audio stub's frame embeddings), and the paged decode and verify
 steps of the decoder-only family (the vision stub's prefill takes
 embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
-their slice)."""
+their slice).  ``prefill`` and ``decode_step`` take a sharding plan
+(``models.transformer``'s docstring); ``loss_fn`` under a plan comes with
+the sharded training slice."""
 from __future__ import annotations
 
 import torch
@@ -31,10 +33,11 @@ def loss_fn(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
             plan=None):
     """The training loss and its metrics; autograd runs through it (no
     ``inference_mode``).  batch: {"tokens", "labels", "mask"} (+ "frames"
-    for an encoder-decoder, + "embeds" for the vision stub).  Sharded plans
-    are not ported yet."""
+    for an encoder-decoder, + "embeds" for the vision stub).  A plan
+    raises: sharded training is the next slice."""
     if plan is not None:
-        raise NotImplementedError("sharded training plans are not ported yet")
+        raise NotImplementedError(
+            "loss_fn under a plan comes with the sharded training slice")
     if cfg.is_encdec:
         return E.encdec_loss(cfg, params, batch)
     return T.lm_loss(cfg, params, batch)
@@ -42,13 +45,15 @@ def loss_fn(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
-            cache_len: int, kv_len=None, prefix_kv=None):
+            cache_len: int, kv_len=None, prefix_kv=None, plan=None):
     """batch: {"tokens": [B, S]} (+ "embeds" [B, S, d] for the vision
     stub, used in place of the token embeddings; + "frames" [B, F, d], the
     audio stub's frame embeddings, which an encoder-decoder needs).
     Returns (logits [B, Vp], cache).  ``prefix_kv`` (per-layer K/V of an
     already computed prompt prefix) requests continuation prefill of the
-    uncached suffix — see T.lm_prefill."""
+    uncached suffix — see T.lm_prefill.  Under ``plan`` (a mesh set) the
+    batch and logits are whole on every rank, the cache this rank's."""
+    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         if prefix_kv is not None:
             raise NotImplementedError(
@@ -57,16 +62,17 @@ def prefill(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
                                 cache_len=cache_len, kv_len=kv_len)
     return T.lm_prefill(cfg, params, batch["tokens"], cache_len=cache_len,
                         kv_len=kv_len, embeds=batch.get("embeds"),
-                        prefix_kv=prefix_kv)
+                        prefix_kv=prefix_kv, plan=plan)
 
 
 @torch.inference_mode()
 def decode_step(cfg: ModelConfig, params: Transformer | EncDec, tokens, cache,
-                kv_len):
+                kv_len, *, plan=None):
     """tokens [B, 1]; kv_len [B] int32.  Returns (logits [B, Vp], cache)."""
+    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         return E.encdec_decode_step(cfg, params, tokens, cache, kv_len)
-    return T.lm_decode_step(cfg, params, tokens, cache, kv_len)
+    return T.lm_decode_step(cfg, params, tokens, cache, kv_len, plan=plan)
 
 
 @torch.inference_mode()

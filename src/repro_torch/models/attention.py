@@ -16,8 +16,32 @@ kernel.  M-RoPE layers rotate q and k by three position streams; a decode
 path's single positions are broadcast to the three.  An encoder-decoder's
 cross-attention runs the flash-attention kernel non-causally over the
 projected encoder memory at prefill and keeps that memory's K/V as its
-cache; each decode step runs the flash-decoding kernel over all of it.  The
-sharded branches raise ``NotImplementedError`` until their slice lands.
+cache; each decode step runs the flash-decoding kernel over all of it.
+
+Under a sharding plan (per-rank tensors, ``repro_torch.sharding``), chosen
+per call as the reference's ``_run_flash`` chooses:
+
+* prefill: head-TP when the KV heads divide the model axis (``_head_spec``;
+  q, k, v column-parallel, the kernel on this rank's heads, ``o``
+  row-parallel); otherwise sequence-parallel when the sequence divides the
+  model axis (``_seq_parallel_prefill``: this rank's S/n query rows, all
+  heads, over all S keys at ``q_offset`` = its index x S/n), else the
+  kernel on all heads.  Where q is head-sharded but K/V are not, q's heads
+  are gathered first; the output's sequence is gathered back and ``o``
+  takes this rank's heads.  MLA follows its query heads.
+* decode: head-TP is local to the head shard (the decode kernel on this
+  rank's heads); a cache sequence-sharded over ``plan.seq_axes`` decodes
+  flash-decoding style (``_sharded_decode``: each shard's partial
+  softmax, merged with a pmax and two psums), its new K/V written by the
+  one rank whose slot range holds the position; otherwise the kernel on
+  all heads of a replicated cache.  An MLA latent cache that is
+  sequence-sharded is gathered for the step and decoded on this rank's
+  heads.
+* caches take ``specs.cache_spec``'s layout, which rides on each cache
+  tensor as ``shard_spec``.
+Prefix continuation and paged decode under model or sequence axes raise,
+as in the reference; paged decode under a batch-only plan raises until
+the paged engine's plan is ported.
 """
 from __future__ import annotations
 
@@ -27,12 +51,19 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.distributed.collectives import (all_gather, axis_index,
+                                                 local_chunk)
+from repro_torch.kernels.decode_attention import (
+    combine_partials, decode_attention, decode_attention_partial)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_window_attention)
-from repro_torch.models.common import (Dense, apply_dense, apply_mrope,
-                                      apply_rope, softcap)
+from repro_torch.models.common import (Dense, apply_dense, apply_dense_rows,
+                                      apply_mrope, apply_rope, sharded_axis,
+                                      softcap)
+from repro_torch.sharding.mesh import axis_size, current_mesh, divisible
+from repro_torch.sharding.plan import ShardingPlan
+from repro_torch.sharding.specs import cache_spec
 
 
 class Attention(nn.Module):
@@ -56,31 +87,38 @@ class Attention(nn.Module):
         self.o = Dense(h * cfg.v_head_dim_eff, d, **kw)
 
 
-def _check_supported(cfg: ModelConfig, plan) -> None:
-    if plan is not None:
-        raise NotImplementedError("sharded attention plans are not ported yet")
+def _model_sharded(plan) -> bool:
+    return plan is not None and (plan.model_axis is not None
+                                 or bool(plan.seq_axes))
 
 
 def _check_paged(cfg: ModelConfig, spec: LayerSpec, plan) -> None:
     """The paged paths' gates, as the reference's (the serving runtime
     checks ``api.paged_compatible`` first)."""
-    _check_supported(cfg, plan)
     if cfg.mla is not None:
         raise NotImplementedError("paged decode: MLA uses the latent cache")
     if spec.attn == "window" and cfg.sliding_window:
         raise NotImplementedError("paged decode: window layers use ring cache")
+    if _model_sharded(plan):
+        raise NotImplementedError(
+            "paged decode: model/seq-sharded plans are not supported yet")
+    if plan is not None:
+        raise NotImplementedError(
+            "paged decode under a batch-only plan comes with the paged "
+            "engine's plan, a later slice")
 
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
          positions: torch.Tensor):
-    """Project + rope.  x: [B, S, d] -> q [B,S,H,hd], k [B,S,KV,hd], v.
-    positions [B, S], or for M-RoPE [3, B, S] (a [B, S] one is broadcast
-    to the three streams, as every decode path's is)."""
+    """Project + rope.  x: [B, S, d] -> q [B,S,H,hd], k [B,S,KV,hd], v
+    (this rank's heads of each head-sharded projection).  positions [B, S],
+    or for M-RoPE [3, B, S] (a [B, S] one is broadcast to the three
+    streams, as every decode path's is)."""
     b, s, _ = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
-    q = apply_dense(p.q, x).reshape(b, s, h, hd)
-    k = apply_dense(p.k, x).reshape(b, s, kv, hd)
-    v = apply_dense(p.v, x).reshape(b, s, kv, cfg.v_head_dim_eff)
+    hd = cfg.head_dim_eff
+    q = apply_dense(p.q, x).reshape(b, s, -1, hd)
+    k = apply_dense(p.k, x).reshape(b, s, -1, hd)
+    v = apply_dense(p.v, x).reshape(b, s, -1, cfg.v_head_dim_eff)
     if cfg.rope == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
@@ -99,7 +137,7 @@ def _mla_qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
     m = cfg.mla
     b, s, _ = x.shape
     q = apply_dense(p.q_up, apply_dense(p.q_down, x))
-    q_nope, q_rope = q.reshape(b, s, cfg.n_heads, m.qk_head_dim).split(
+    q_nope, q_rope = q.reshape(b, s, -1, m.qk_head_dim).split(
         [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
     q = torch.cat([q_nope, apply_rope(q_rope, positions, cfg.rope_theta)], dim=-1)
     c_kv, k_rope = apply_dense(p.kv_down, x).split(
@@ -114,10 +152,10 @@ def _mla_expand(cfg: ModelConfig, p: Attention, c_kv: torch.Tensor,
     k_rope [B,S,dr] (one rope key shared by every head)."""
     m = cfg.mla
     b, s, _ = c_kv.shape
-    h = cfg.n_heads
     k_nope, v = apply_dense(p.kv_up, c_kv).reshape(
-        b, s, h, m.qk_nope_head_dim + m.v_head_dim).split(
+        b, s, -1, m.qk_nope_head_dim + m.v_head_dim).split(
         [m.qk_nope_head_dim, m.v_head_dim], dim=-1)
+    h = k_nope.shape[2]
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         b, s, h, m.qk_rope_head_dim)], dim=-1)
     return k, v.contiguous()
@@ -133,11 +171,91 @@ def _pad_seq(x: torch.Tensor, target: int) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+def _head_spec(plan: Optional[ShardingPlan], n: int):
+    """The model axis when ``n`` heads divide it (head-TP), else None."""
+    if plan is None or plan.model_axis is None:
+        return None
+    return plan.model_axis if divisible(n, plan.model_axis) else None
+
+
+def _all_heads(w: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """t [..., heads, D] of a projection with weight w: all heads, gathered
+    over the model axis when w's columns (heads) are sharded."""
+    ax = sharded_axis(w, 1)
+    return all_gather(t, ax, t.dim() - 2) if ax is not None else t
+
+
+def _o_proj(cfg: ModelConfig, p: Attention, out: torch.Tensor, plan,
+            seq_out: bool = False) -> torch.Tensor:
+    """out [B, S, heads, dv] -> [B, S, d].  Under a plan ``o`` is
+    row-parallel when its rows (heads) are sharded: an all-heads ``out``
+    is cut to this rank's heads, and the product reduced
+    (``common.reduce_rows``)."""
+    b, s = out.shape[:2]
+    if plan is None:
+        return apply_dense(p.o, out.reshape(b, s, -1))
+    ax = sharded_axis(p.o.w, 0)
+    if ax is not None and out.shape[2] == cfg.n_heads:
+        out = local_chunk(out, ax, 2)
+    return apply_dense_rows(p.o, out.reshape(b, s, -1), plan, seq_out)
+
+
+def _seq_parallel_prefill(plan: ShardingPlan, q, k, v, *, causal, window,
+                          softcap) -> torch.Tensor:
+    """Context-parallel flash attention: this rank's S/n query rows (all
+    heads) over all S keys, causal at their absolute positions through the
+    kernel's ``q_offset``.  Returns [B, S/n, H, dv]."""
+    ax = plan.model_axis
+    s_loc = q.shape[1] // axis_size(ax)
+    return flash_attention(local_chunk(q, ax, 1), k, v, causal=causal,
+                           window=window, softcap=softcap,
+                           q_offset=axis_index(ax) * s_loc)
+
+
+def _run_flash(cfg: ModelConfig, plan, q, k, v, *, causal, window):
+    """Prefill attention, distributed as the reference's: head-TP when the
+    KV heads (MLA: the heads) divide the model axis, with q, k, v this
+    rank's heads; otherwise, with all heads, sequence-parallel when the
+    sequence divides the model axis (the output's sequence gathered back),
+    else the whole attention on every rank.  [B, S, heads, dv]."""
+    hs = _head_spec(plan, cfg.n_kv_heads if cfg.mla is None else cfg.n_heads)
+    if hs is None and plan is not None and plan.model_axis is not None:
+        n = axis_size(plan.model_axis)
+        if n > 1 and q.shape[1] % n == 0:
+            out = _seq_parallel_prefill(plan, q, k, v, causal=causal,
+                                        window=window, softcap=cfg.attn_softcap)
+            return all_gather(out, plan.model_axis, 1)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           softcap=cfg.attn_softcap)
+
+
+def _seq_axes(t: torch.Tensor):
+    """The axes a cache tensor's sequence is sharded over, or None."""
+    spec = getattr(t, "shard_spec", None)
+    return spec[1] if spec and len(spec) > 1 else None
+
+
+def _cache_layout(cfg: ModelConfig, plan, entry: dict) -> dict:
+    """A layer's new cache under ``specs.cache_spec``: each tensor cut to
+    this rank's sequence slice where the spec shards it, the spec kept on
+    the tensor as ``shard_spec``."""
+    mesh = current_mesh()
+    if plan is None or mesh is None:
+        return entry
+    for name, t in entry.items():
+        spec = cache_spec(cfg, plan, name, tuple(t.shape), mesh.shape)
+        if spec[1] is not None:
+            t = local_chunk(t, spec[1], 1)
+        t.shard_spec = spec
+        entry[name] = t
+    return entry
+
+
 def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                  x: torch.Tensor, *, positions: torch.Tensor, plan=None,
                  causal: bool = True, cache_len: int = 0,
                  kv_len: Optional[torch.Tensor] = None,
-                 prefix: Optional[dict] = None):
+                 prefix: Optional[dict] = None, seq_out: bool = False):
     """Full-sequence attention.  Returns (y, cache entry or None);
     ``cache_len`` > 0 allocates a cache: {"k", "v"} [B, cache_len, KV, hd],
     or on a window layer whose window is shorter than ``cache_len`` a ring
@@ -145,31 +263,36 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     gives each sequence's valid length, else the full sequence), or on an
     MLA layer {"c_kv" [B, cache_len, r], "k_rope" [B, cache_len, dr]}.
     Right-padded rows attend causally like every other row (no length
-    mask): their outputs are never read.
+    mask): their outputs are never read.  Under ``plan`` x is this rank's
+    batch rows and the cache takes its layout (module docstring);
+    ``seq_out`` returns y's sequence slice of this rank (a
+    sequence-parallel residual).
 
     ``prefix`` ({"k": [B, P, KV, hd], "v": [B, P, KV, dv]}) switches to
     continuation prefill: x holds only the uncached suffix (``positions``
     already offset by P), and the queries attend over the prefix K/V
     concatenated with the suffix's, causal at absolute positions through
     the kernel's ``q_offset``.  The returned cache covers the suffix only.
-    Plain GQA caches only: MLA and window layers raise, as in the
-    reference."""
-    _check_supported(cfg, plan)
+    Plain GQA caches only: MLA and window layers raise, as do plans with
+    model or sequence axes, as in the reference."""
     window = cfg.sliding_window if spec.attn == "window" else None
-    if prefix is not None and (cfg.mla is not None or window is not None):
-        raise NotImplementedError(
-            "prefix-continuation prefill needs a plain GQA cache")
+    if prefix is not None:
+        if cfg.mla is not None or window is not None:
+            raise NotImplementedError(
+                "prefix-continuation prefill needs a plain GQA cache")
+        if _model_sharded(plan):
+            raise NotImplementedError(
+                "prefix-continuation prefill: sharded plans not supported")
     if cfg.mla is not None:
         q, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
         k, v = _mla_expand(cfg, p, c_kv, k_rope)
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap)
-        b, s = q.shape[:2]
-        y = apply_dense(p.o, out.reshape(b, s, -1))
+        out = _run_flash(cfg, plan, q, k, v, causal=causal, window=window)
+        y = _o_proj(cfg, p, out, plan, seq_out)
         cache = None
         if cache_len:
-            cache = {"c_kv": _pad_seq(c_kv, cache_len),
-                     "k_rope": _pad_seq(k_rope, cache_len)}
+            cache = _cache_layout(cfg, plan, {
+                "c_kv": _pad_seq(c_kv, cache_len),
+                "k_rope": _pad_seq(k_rope, cache_len)})
         return y, cache
 
     q, k, v = _qkv(cfg, p, x, positions)
@@ -180,9 +303,10 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                               causal=causal, softcap=cfg.attn_softcap,
                               q_offset=prefix["k"].shape[1])
     else:
-        out = flash_attention(q, k, v, causal=causal, window=window,
-                              softcap=cfg.attn_softcap)
-    y = apply_dense(p.o, out.reshape(b, s, -1))
+        if sharded_axis(p.k.w, 1) is None:
+            q = _all_heads(p.q.w, q)
+        out = _run_flash(cfg, plan, q, k, v, causal=causal, window=window)
+    y = _o_proj(cfg, p, out, plan, seq_out)
     cache = None
     if cache_len:
         if window is not None and window < cache_len:
@@ -192,6 +316,7 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                      "v": build_window_cache(v, ln, window)}
         else:
             cache = {"k": _pad_seq(k, cache_len), "v": _pad_seq(v, cache_len)}
+        cache = _cache_layout(cfg, plan, cache)
     return y, cache
 
 
@@ -214,9 +339,42 @@ def _write_slot(buf: torch.Tensor, new: torch.Tensor,
                 idx: torch.Tensor) -> None:
     """buf [B, S, ...][b, idx[b]] <- new [B, ...], in place.  An index past
     the last slot writes the last slot, as the reference's clamped
-    ``dynamic_update_slice`` does."""
+    ``dynamic_update_slice`` does.  On a sequence-sharded cache only the
+    rank whose slot range holds the index writes (the others write back
+    what they hold, so no step waits for the host)."""
     rows = torch.arange(buf.shape[0], device=buf.device)
-    buf[rows, idx.clamp(0, buf.shape[1] - 1)] = new
+    axes = _seq_axes(buf)
+    if axes is None:
+        buf[rows, idx.clamp(0, buf.shape[1] - 1)] = new
+        return
+    s_loc = buf.shape[1]
+    local = idx.clamp(0, s_loc * axis_size(axes) - 1) - axis_index(axes) * s_loc
+    own = ((local >= 0) & (local < s_loc)).reshape((-1,) + (1,) * (new.dim() - 1))
+    local = local.clamp(0, s_loc - 1)
+    buf[rows, local] = torch.where(own, new.to(buf.dtype), buf[rows, local])
+
+
+def _gather_seq(t: torch.Tensor) -> torch.Tensor:
+    """The whole sequence of a cache tensor (gathered when it is sharded)."""
+    axes = _seq_axes(t)
+    return all_gather(t, axes, 1) if axes is not None else t
+
+
+def _sharded_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    kv_len: torch.Tensor, axes, *, softcap,
+                    window) -> torch.Tensor:
+    """Flash-decoding over a KV cache sequence-sharded over ``axes``: this
+    rank's rows start at its index (row-major over the axes) x S_loc; its
+    partial softmax over the valid ones, merged across the axes
+    (``combine_partials``).  q [B, H, D] all heads; kv_len [B] the valid
+    length (the query's position + 1).  Returns [B, H, Dv]."""
+    s_loc = k.shape[1]
+    start = axis_index(axes) * s_loc
+    local_len = (kv_len - start).clamp(0, s_loc)
+    window_lo = (kv_len - window).clamp_min(0) if window is not None else None
+    acc, m, l = decode_attention_partial(q, k, v, local_len, softcap=softcap,
+                                         window_lo=window_lo, pos_offset=start)
+    return combine_partials(acc, m, l, axis_name=axes).to(q.dtype)
 
 
 def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
@@ -230,32 +388,42 @@ def attn_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
 
     A window layer whose cache is no wider than its window is a ring (slot
     = position % w), decoded by ``ring_decode_attention``.  An MLA layer
-    decodes in the latent space (``_mla_decode_absorbed``), the reference's
-    path when no plan asks for the expanded one."""
-    _check_supported(cfg, plan)
-    b = x.shape[0]
+    decodes in the latent space (``_mla_decode_absorbed``) unless the plan
+    asks for the expanded path (``mla_absorbed=False``: the latent
+    expanded to K/V, then the decode kernel), as in the reference.  Under
+    a plan, x is this rank's batch rows (module docstring)."""
     window = cfg.sliding_window if spec.attn == "window" else None
     if cfg.mla is not None:
         q, c_kv, k_rope = _mla_qkv(cfg, p, x, kv_len[:, None])
         _write_slot(cache["c_kv"], c_kv[:, 0], kv_len)
         _write_slot(cache["k_rope"], k_rope[:, 0], kv_len)
-        out = _mla_decode_absorbed(cfg, p, q[:, 0], cache, kv_len + 1)
-        y = apply_dense(p.o, out.reshape(b, -1))
-        return y.reshape(b, 1, -1), cache
+        lat = {n: _gather_seq(cache[n]) for n in ("c_kv", "k_rope")}
+        if plan is None or plan.mla_absorbed:
+            out = _mla_decode_absorbed(cfg, p, q[:, 0], lat, kv_len + 1)
+        else:
+            k, v = _mla_expand(cfg, p, lat["c_kv"], lat["k_rope"])
+            out = decode_attention(q[:, 0], k, v, kv_len + 1,
+                                   softcap=cfg.attn_softcap, window=window)
+        return _o_proj(cfg, p, out[:, None], plan), cache
     q, k, v = _qkv(cfg, p, x, kv_len[:, None])
+    if sharded_axis(p.k.w, 1) is None:
+        q = _all_heads(p.q.w, q)
+    axes = _seq_axes(cache["k"])
     w = cache["k"].shape[1]
-    use_ring = window is not None and w <= window
+    use_ring = axes is None and window is not None and w <= window
     slot = kv_len % w if use_ring else kv_len
     _write_slot(cache["k"], k[:, 0], slot)
     _write_slot(cache["v"], v[:, 0], slot)
     if use_ring:
         out = ring_decode_attention(q[:, 0], cache["k"], cache["v"], kv_len,
                                     softcap=cfg.attn_softcap)
+    elif axes is not None:
+        out = _sharded_decode(q[:, 0], cache["k"], cache["v"], kv_len + 1,
+                              axes, softcap=cfg.attn_softcap, window=window)
     else:
         out = decode_attention(q[:, 0], cache["k"], cache["v"], kv_len + 1,
                                softcap=cfg.attn_softcap, window=window)
-    y = apply_dense(p.o, out.reshape(b, -1))
-    return y.reshape(b, 1, -1), cache
+    return _o_proj(cfg, p, out[:, None], plan), cache
 
 
 def ring_lengths(kv_len: torch.Tensor, w: int) -> torch.Tensor:

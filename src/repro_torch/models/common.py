@@ -3,6 +3,14 @@ activations, RoPE and M-RoPE, sinusoidal positions, softcap.  Port of ``repro/mo
 
 Parameters keep the JAX package's layouts (a dense weight is [d_in, d_out]
 and applies as ``x @ w``), so a converted JAX tree loads without transposes.
+
+Under a sharding plan each rank holds its slice of a parameter
+(``params.shard_params``), whose layout rides on the tensor as
+``shard_spec`` (``sharded_axis`` reads it).  A column-parallel dense is
+``apply_dense`` on the slice: its output holds this rank's columns.  A
+row-parallel one (``apply_dense_rows``) multiplies this rank's rows and
+finishes with ``reduce_rows``: a psum over the model axis, or with a
+sequence-parallel residual a reduce-scatter along the sequence.
 """
 from __future__ import annotations
 
@@ -13,6 +21,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.collectives import (local_chunk, psum,
+                                                 reduce_scatter)
 
 
 class Dense(nn.Module):
@@ -46,6 +56,36 @@ class Norm(nn.Module):
 
 def apply_dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
     y = x @ p.w
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+def sharded_axis(t: torch.Tensor, dim: int):
+    """The mesh axis along which dimension ``dim`` of parameter ``t`` holds
+    only this rank's slice, or None (not sharded, or no plan)."""
+    spec = getattr(t, "shard_spec", None)
+    return spec[dim] if spec else None
+
+
+def reduce_rows(y: torch.Tensor, plan, partial: bool,
+                seq_out: bool = False) -> torch.Tensor:
+    """Finish a row-parallel product y [B, S, ...]: ``partial`` sums over
+    the model axis are psummed, or with ``seq_out`` (a sequence-parallel
+    residual) reduce-scattered along the sequence; a full ``y`` is kept,
+    or its sequence slice taken."""
+    ax = plan.model_axis if plan is not None else None
+    if partial:
+        return reduce_scatter(y, ax, 1) if seq_out else psum(y, ax)
+    return local_chunk(y, ax, 1) if seq_out else y
+
+
+def apply_dense_rows(p: Dense, x: torch.Tensor, plan,
+                     seq_out: bool = False) -> torch.Tensor:
+    """``x @ w (+ b)`` with x's last dim and w's rows this rank's slice
+    when w is row-sharded: the partial product is reduced (``reduce_rows``)
+    before the bias is added."""
+    y = reduce_rows(x @ p.w, plan, sharded_axis(p.w, 0) is not None, seq_out)
     if p.b is not None:
         y = y + p.b
     return y

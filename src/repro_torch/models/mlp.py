@@ -1,12 +1,16 @@
 """Feed-forward blocks: gated (SwiGLU/GeGLU) and plain MLPs, plus the RWKV
-channel mix (squared ReLU, token-shifted).  Port of ``repro/models/mlp.py``."""
+channel mix (squared ReLU, token-shifted).  Port of ``repro/models/mlp.py``.
+
+Under a plan the MLP is Megatron's: ``up`` and ``gate`` column-parallel
+(this rank's hidden units), ``down`` row-parallel, reduced once."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Dense, activation, apply_dense
+from repro_torch.models.common import (Dense, activation, apply_dense,
+                                      apply_dense_rows)
 
 
 class MLP(nn.Module):
@@ -23,13 +27,19 @@ class MLP(nn.Module):
         self.gate = Dense(cfg.d_model, hidden, **kw) if cfg.gated_mlp else None
 
 
-def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(cfg: ModelConfig, p: MLP, x: torch.Tensor, *, plan=None,
+              seq_out: bool = False) -> torch.Tensor:
+    """x [B, S, d] -> [B, S, d]; under ``plan`` the hidden units are this
+    rank's and ``down``'s partial sums are reduced (``seq_out``: to this
+    rank's sequence slice, for a sequence-parallel residual)."""
     up = apply_dense(p.up, x)
     if p.gate is not None:
         up = activation(cfg, apply_dense(p.gate, x)) * up
     else:
         up = activation(cfg, up)
-    return apply_dense(p.down, up)
+    if plan is None:
+        return apply_dense(p.down, up)
+    return apply_dense_rows(p.down, up, plan, seq_out)
 
 
 # ------------------------------------------------------------ rwkv channel mix

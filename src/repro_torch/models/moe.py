@@ -1,5 +1,6 @@
 """Mixture-of-Experts block with sort-based (capacity-dropping) dispatch.
-Port of ``repro/models/moe.py``, the single-device path (``_moe_local``).
+Port of ``repro/models/moe.py``: ``_moe_local``, and under a plan the
+per-rank body of the reference's ``_moe_sharded``.
 
 Tokens are stably sorted by expert id, ranked within their expert, gathered
 into an [E, C, d] buffer (a token past its expert's capacity C is dropped),
@@ -8,6 +9,19 @@ combined back by a gate-weighted scatter-add; the shared experts see every
 token.  The reference runs this outside any Pallas kernel, so it is torch
 ops here.  Capacity counts every token of the call, right padding included,
 as the reference's does.
+
+Under a plan each rank runs the block on its batch shard's tokens, so the
+capacity, the drops and the aux metrics are per shard, as in the
+reference's ``shard_map`` body (not the unsharded function): the expert
+FFNs are TP over the model axis where ``d_expert`` divides it (partial
+sums, reduced once at the end with the shared experts'), the experts EP
+over ``ep_axis`` where their count divides it (the [E, C, d] dispatch
+buffer goes out by a tiled all-to-all and the results come back by
+another), and ``lb_loss`` and ``drop_frac`` are the pmean over the batch
+axes.  With the batch replicated (``batch_axes=()``) every rank holds
+every token, so the block is the unsharded function, as the reference's
+GSPMD path is; its EP all-to-all then carries equal buffers from every
+rank (the reference's ``ep_pvary`` case).
 """
 from __future__ import annotations
 
@@ -15,7 +29,9 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Dense, activation
+from repro_torch.distributed.collectives import all_to_all, pmean
+from repro_torch.models.common import (Dense, activation, reduce_rows,
+                                      sharded_axis)
 from repro_torch.models.mlp import MLP
 
 
@@ -76,12 +92,25 @@ def router_margin(cfg: ModelConfig, p: MoE, x: torch.Tensor) -> float:
     return (top[:, k - 1] - top[:, k]).min().item()
 
 
-def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, plan=None):
-    """x: [B, S, d] -> (y [B, S, d], {"lb_loss", "drop_frac"}).  Sharded
-    plans (expert or tensor parallel) are not ported yet."""
-    if plan is not None:
-        raise NotImplementedError("sharded MoE plans are not ported yet")
-    return _moe_local(cfg, p, x)
+def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, plan=None,
+              seq_out: bool = False):
+    """x: [B, S, d] -> (y [B, S, d], {"lb_loss", "drop_frac"}).  Under
+    ``plan`` x is this rank's batch rows and the block runs sharded as the
+    module docstring says, its TP and EP axes read from the banks'
+    layouts; ``seq_out`` returns y's sequence slice of this rank (a
+    sequence-parallel residual)."""
+    if plan is None:
+        return _moe_local(cfg, p, x)
+    tp_axis, ep_axis = sharded_axis(p.up, 2), sharded_axis(p.up, 0)
+    for i in range(cfg.moe.n_shared_experts):
+        if sharded_axis(getattr(p, f"shared_{i}").down.w, 0) != tp_axis:
+            raise ValueError("MoE under a plan: the shared experts' hidden "
+                             "units must be sharded as the routed ones'")
+    y, aux = _moe_local(cfg, p, x, ep_axis=ep_axis)
+    y = reduce_rows(y, plan, tp_axis is not None, seq_out)
+    if plan.batch_axes:
+        aux = {k: pmean(v, plan.batch_axes) for k, v in aux.items()}
+    return y, aux
 
 
 def expert_capacity(cfg: ModelConfig, tokens: int) -> int:
@@ -100,11 +129,14 @@ def _count(ids: torch.Tensor, n: int) -> torch.Tensor:
         0, ids, torch.ones_like(ids))
 
 
-def _moe_local(cfg: ModelConfig, p: MoE, x: torch.Tensor):
+def _moe_local(cfg: ModelConfig, p: MoE, x: torch.Tensor, *, ep_axis=None):
     """Token-local MoE, in the reference's order: softmax router, top-k,
     capacity over all B·S tokens, stable sort by expert, rank within
     expert, drop past capacity, batched expert MLPs over [E, C, d], gated
-    scatter-add back, shared experts on every token."""
+    scatter-add back, shared experts on every token.  With ``ep_axis`` the
+    banks hold this rank's E/n experts: the buffer is exchanged to
+    [E/n, n·C, d] and back.  With banks whose hidden units are sharded the
+    output is this rank's partial sum (the caller reduces it)."""
     m = cfg.moe
     b, s, d = x.shape
     t, k, e = b * s, m.top_k, m.n_experts
@@ -130,13 +162,18 @@ def _moe_local(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     buf = x.new_zeros((e * capacity + 1, d))
     buf[torch.where(keep, slot, e * capacity)] = xf[sorted_token]
     buf = buf[:-1].reshape(e, capacity, d)
+    if ep_axis is not None:
+        buf = all_to_all(buf, ep_axis, 0, 1)                      # [E/n, n*C, d]
 
     up = torch.matmul(buf, p.up)                                  # [E, C, f]
     if p.gate is not None:
         up = activation(cfg, torch.matmul(buf, p.gate)) * up
     else:
         up = activation(cfg, up)
-    out_buf = torch.matmul(up, p.down).reshape(-1, d)             # [E*C, d]
+    out_full = torch.matmul(up, p.down)                           # [E, C, d]
+    if ep_axis is not None:
+        out_full = all_to_all(out_full, ep_axis, 1, 0)
+    out_buf = out_full.reshape(-1, d)                             # [E*C, d]
 
     contrib = torch.where(keep[:, None], out_buf[slot] * sorted_gate[:, None],
                           0)

@@ -11,6 +11,22 @@ cache_len, ...], or a ring [B, window, ...] on a window layer whose window
 is shorter than the cache), {"c_kv", "k_rope"} for MLA, {"conv" [B,
 d_conv - 1, d_in], "ssm" [B, d_in, N] f32} for Mamba, {"shift", "state",
 "cm_shift"} for RWKV-6.
+
+Under a sharding plan (``repro_torch.sharding``; the caller sets the mesh)
+prefill and decode take the whole batch on every rank and return the
+whole batch's logits on every rank, with the cache this rank's shard:
+the batch is split over ``plan.batch_axes``; the embedding is
+vocab-parallel (each rank looks up the ids of its vocab range, zeros
+elsewhere, then a psum over the model axis); attention, MLP and MoE run
+tensor-, sequence- and expert-parallel in their modules; the head is
+vocab-parallel and its logits are gathered over the model axis, then over
+the batch axes, so every rank samples the same token.  With
+``plan.seq_parallel`` and a sequence the model axis divides, the residual
+between blocks holds this rank's sequence slice: each mixer and MLP input
+is all-gathered along the sequence and each output reduce-scattered
+(``resid_spec``).  Mamba and RWKV-6 blocks, encoder-decoder models and
+any ``fsdp_axes`` raise under a plan (``check_plan``): they come with
+later slices.
 """
 from __future__ import annotations
 
@@ -22,13 +38,17 @@ from torch import nn
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.collectives import (all_gather, axis_index,
+                                                 local_chunk, psum)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.common import Norm, apply_norm, last_valid, softcap
+from repro_torch.models.common import (Norm, apply_norm, last_valid,
+                                      sharded_axis, softcap)
 from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
                                     mlp_apply, token_shift)
+from repro_torch.sharding.plan import ShardingPlan, resid_spec
 
 
 class Block(nn.Module):
@@ -98,7 +118,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
                 *, positions, cache, kv_len, mode: str, cache_len: int,
-                block_tables=None, spec_scatter=None):
+                block_tables=None, spec_scatter=None, plan=None,
+                seq_par: bool = False):
     """Returns (x, new cache entry or None).  With ``block_tables`` the
     decode reads and writes the layer's paged pool (``cache``), and
     ``spec_scatter`` ((blk, off) [B, T]) makes it the multi-token verify
@@ -106,8 +127,10 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     from.  An MoE layer's aux metrics are dropped, as the reference's
     serve path drops them.  In train mode (the loss's forward: a prefill
     that keeps no cache) it returns (x, aux) instead: the MoE layer's
-    {"lb_loss", "drop_frac"}, {} for a dense one."""
-    h = apply_norm(cfg, p.norm1, x)
+    {"lb_loss", "drop_frac"}, {} for a dense one.  Under ``plan`` x is
+    this rank's batch rows, and with ``seq_par`` its sequence slice (the
+    sequence-parallel residual)."""
+    h = _seq_gather(apply_norm(cfg, p.norm1, x), plan, seq_par)
     if block_tables is not None and spec.mixer != "attn":
         raise NotImplementedError(
             f"paged decode only supports attention mixers, got {spec.mixer}")
@@ -132,23 +155,25 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     elif mode == "decode" and block_tables is not None \
             and spec_scatter is not None:
         mx, c = attn.attn_paged_spec(cfg, spec, p.mixer, h, cache,
-                                     block_tables, kv_len, *spec_scatter)
+                                     block_tables, kv_len, *spec_scatter,
+                                     plan=plan)
     elif mode == "decode" and block_tables is not None:
         mx, c = attn.attn_paged_decode(cfg, spec, p.mixer, h, cache,
-                                       block_tables, kv_len)
+                                       block_tables, kv_len, plan=plan)
     elif mode == "decode":
-        mx, c = attn.attn_decode(cfg, spec, p.mixer, h, cache, kv_len)
+        mx, c = attn.attn_decode(cfg, spec, p.mixer, h, cache, kv_len,
+                                 plan=plan)
     else:
         mx, c = attn.attn_prefill(cfg, spec, p.mixer, h, positions=positions,
                                   cache_len=cache_len, kv_len=kv_len,
-                                  prefix=cache)
+                                  prefix=cache, plan=plan, seq_out=seq_par)
     if cfg.post_block_norms:
         mx = apply_norm(cfg, p.norm1_post, mx)
     x = x + mx
-    h2 = apply_norm(cfg, p.norm2, x)
+    h2 = _seq_gather(apply_norm(cfg, p.norm2, x), plan, seq_par)
     aux = {}
     if spec.mlp == "moe":
-        my, aux = moe_mod.moe_apply(cfg, p.mlp, h2)
+        my, aux = moe_mod.moe_apply(cfg, p.mlp, h2, plan=plan, seq_out=seq_par)
     elif spec.mixer == "rwkv6":
         if mode == "decode":
             my = channel_mix_apply(cfg, p.mlp, h2, cache["cm_shift"][:, None])
@@ -158,7 +183,7 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
             if c is not None:
                 c["cm_shift"] = last_valid(h2, kv_len)
     else:
-        my = mlp_apply(cfg, p.mlp, h2)
+        my = mlp_apply(cfg, p.mlp, h2, plan=plan, seq_out=seq_par)
     if cfg.post_block_norms:
         my = apply_norm(cfg, p.norm2_post, my)
     return x + my, (aux if mode == "train" else c)
@@ -167,7 +192,7 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
 def apply_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                 positions, mode: str, cache: Optional[list] = None,
                 kv_len=None, cache_len: int = 0, block_tables=None,
-                spec_scatter=None):
+                spec_scatter=None, plan=None, seq_par: bool = False):
     """Run every block.  Returns (x, new cache list or None); in train mode
     (x, {"lb_loss": the MoE layers' load-balance losses summed, f32})."""
     specs = cfg.layer_plan()
@@ -178,7 +203,8 @@ def apply_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                            cache=cache[i] if cache is not None else None,
                            kv_len=kv_len, mode=mode, cache_len=cache_len,
                            block_tables=block_tables,
-                           spec_scatter=spec_scatter)
+                           spec_scatter=spec_scatter, plan=plan,
+                           seq_par=seq_par)
         if mode == "train":
             if "lb_loss" in c:
                 lb_loss = lb_loss + c["lb_loss"]
@@ -191,15 +217,77 @@ def apply_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
 
 def embed_tokens(cfg: ModelConfig, params: Transformer,
                  tokens: torch.Tensor) -> torch.Tensor:
-    x = params.embed.w[tokens]
+    """Token embeddings; vocab-parallel when the table's rows are sharded
+    (each rank's rows looked up, zeros elsewhere, psummed)."""
+    w = params.embed.w
+    ax = sharded_axis(w, 0)
+    if ax is None:
+        x = w[tokens]
+    else:
+        ids = tokens - axis_index(ax) * w.shape[0]
+        ok = (ids >= 0) & (ids < w.shape[0])
+        x = psum(torch.where(ok[..., None], w[ids.clamp(0, w.shape[0] - 1)],
+                             0), ax)
     if cfg.scale_embeddings:
         x = x * math.sqrt(cfg.d_model)
     return x
 
 
 def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
-    w = params.embed.w.T if cfg.tie_embeddings else params.head.w
-    return softcap((x @ w).float(), cfg.final_softcap)
+    """Logits [..., Vp] f32; vocab-parallel when the head's (or the tied
+    table's) vocab is sharded, the slices gathered over the model axis."""
+    if cfg.tie_embeddings:
+        w, ax = params.embed.w.T, sharded_axis(params.embed.w, 0)
+    else:
+        w, ax = params.head.w, sharded_axis(params.head.w, 1)
+    logits = x @ w
+    if ax is not None:
+        logits = all_gather(logits, ax, logits.dim() - 1)
+    return softcap(logits.float(), cfg.final_softcap)
+
+
+def check_plan(cfg: ModelConfig, plan: Optional[ShardingPlan]) -> None:
+    """Raise for what a plan cannot shard yet, naming the slice that
+    takes it."""
+    if plan is None:
+        return
+    if plan.fsdp_axes:
+        raise NotImplementedError(
+            "fsdp_axes shard the weights for training: they come with the "
+            "sharded training slice")
+    mixers = {sp.mixer for sp in cfg.layer_plan()}
+    if cfg.is_encdec or mixers - {"attn"}:
+        kind = "encoder-decoder" if cfg.is_encdec else \
+            "/".join(sorted(mixers - {"attn"}))
+        raise NotImplementedError(
+            f"{cfg.name}: {kind} blocks under a plan come with the slice "
+            "after sharded training")
+
+
+def split_batch(plan: Optional[ShardingPlan], *xs):
+    """This rank's rows of each tensor (None passes) under ``plan``'s
+    batch axes; the batch must divide them."""
+    if plan is None or not plan.batch_axes:
+        return xs
+    return tuple(None if x is None else local_chunk(x, plan.batch_axes, 0)
+                 for x in xs)
+
+
+def gather_batch(plan: Optional[ShardingPlan], x: torch.Tensor) -> torch.Tensor:
+    """All rows of a per-rank batch tensor, on every rank."""
+    if plan is None or not plan.batch_axes:
+        return x
+    return all_gather(x, plan.batch_axes, 0)
+
+
+def _seq_par(plan: Optional[ShardingPlan], shape) -> bool:
+    """Whether the residual of global ``shape`` is sequence-sharded."""
+    spec = resid_spec(plan, tuple(shape))
+    return plan is not None and len(spec) > 1 and spec[1] is not None
+
+
+def _seq_gather(h: torch.Tensor, plan, seq_par: bool) -> torch.Tensor:
+    return all_gather(h, plan.model_axis, 1) if seq_par else h
 
 
 def default_positions(cfg: ModelConfig, b: int, s: int, offset: int = 0,
@@ -273,7 +361,7 @@ def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict, *,
 def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
                cache_len: int, kv_len: Optional[torch.Tensor] = None,
                embeds: Optional[torch.Tensor] = None,
-               prefix_kv: Optional[list] = None):
+               prefix_kv: Optional[list] = None, plan=None):
     """Prompt processing.  tokens [B, S]; kv_len [B] valid prompt lengths of
     the right-padded rows; ``embeds`` [B, S, d] (the vision stub's patch
     embeddings) in place of the tokens' embeddings.  Returns (logits [B,
@@ -282,26 +370,39 @@ def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     ``prefix_kv`` (one {"k": [B, P, KV, hd], "v": ...} per layer) switches
     to continuation prefill: ``tokens`` holds only the uncached suffix at
     positions P.., the prefix K/V is attended through, the returned cache
-    covers the suffix only, and ``kv_len`` counts valid suffix tokens."""
+    covers the suffix only, and ``kv_len`` counts valid suffix tokens.
+    Under ``plan`` (module docstring; ``check_plan`` first) the inputs and
+    logits are the whole batch's and the cache is this rank's."""
+    tokens, kv_len, embeds = split_batch(plan, tokens, kv_len, embeds)
+    if prefix_kv is not None and plan is not None:
+        prefix_kv = [{n: split_batch(plan, t)[0] for n, t in e.items()}
+                     for e in prefix_kv]
     x = embeds if embeds is not None else embed_tokens(cfg, params, tokens)
     b, s = x.shape[:2]
     p_len = prefix_kv[0]["k"].shape[1] if prefix_kv is not None else 0
     positions = default_positions(cfg, b, s, p_len, device=x.device)
+    seq_par = _seq_par(plan, x.shape)
+    if seq_par:
+        x = local_chunk(x, plan.model_axis, 1)
     x, cache = apply_stack(cfg, params, x, positions=positions, mode="prefill",
-                           kv_len=kv_len, cache_len=cache_len, cache=prefix_kv)
-    x = apply_norm(cfg, params.final_norm, x)
-    return lm_head(cfg, params, last_valid(x, kv_len)), cache
+                           kv_len=kv_len, cache_len=cache_len, cache=prefix_kv,
+                           plan=plan, seq_par=seq_par)
+    x = apply_norm(cfg, params.final_norm, _seq_gather(x, plan, seq_par))
+    return gather_batch(plan, lm_head(cfg, params, last_valid(x, kv_len))), cache
 
 
 def lm_decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
-                   cache: list, kv_len: torch.Tensor):
+                   cache: list, kv_len: torch.Tensor, *, plan=None):
     """One decode step.  tokens [B, 1]; kv_len [B] int32 current lengths.
-    Returns (logits [B, Vp], cache) — the cache is updated in place."""
+    Returns (logits [B, Vp], cache) — the cache is updated in place.  Under
+    ``plan`` tokens, kv_len and logits are the whole batch's, the cache
+    this rank's."""
+    tokens, kv_len = split_batch(plan, tokens, kv_len)
     x = embed_tokens(cfg, params, tokens)
     x, cache = apply_stack(cfg, params, x, positions=None, mode="decode",
-                           cache=cache, kv_len=kv_len)
+                           cache=cache, kv_len=kv_len, plan=plan)
     x = apply_norm(cfg, params.final_norm, x)
-    return lm_head(cfg, params, x[:, 0]), cache
+    return gather_batch(plan, lm_head(cfg, params, x[:, 0])), cache
 
 
 def lm_paged_decode_step(cfg: ModelConfig, params: Transformer,

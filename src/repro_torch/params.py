@@ -12,7 +12,8 @@ taking group ``g``'s slice of ``l{i}``) or of ``models.encdec.EncDec``
 stack).  ``to_jax_tree`` goes the other way, for checkpoints the reference
 reads.  ``stacked_leaves`` names the port tensors that make up each of the
 reference's stacked leaves (Adafactor factors and clips per such leaf).
-No JAX import happens here.
+``shard_params`` cuts a loaded model to one rank's slices under a sharding
+plan (``sharding.specs``).  No JAX import happens here.
 """
 from __future__ import annotations
 
@@ -139,3 +140,25 @@ def predictor_from_numpy(params: dict, cfg: PredictorConfig = PredictorConfig(),
         for name, p in pred.net.named_parameters():
             p.copy_(torch.from_numpy(np.array(params[name], copy=True)))
     return pred
+
+
+def shard_params(cfg: ModelConfig, model: torch.nn.Module, plan) -> None:
+    """Cut every parameter of ``model`` (full tensors, e.g. a converted
+    reference tree loaded with ``load_state_dict``, or weights drawn at
+    full size) to this rank's slice under ``plan`` on the current mesh, in
+    place; each slice carries its spec as ``shard_spec``, which the model
+    code reads.  The full tensors are freed as their slices replace them."""
+    from repro_torch.sharding.mesh import current_mesh
+    from repro_torch.sharding.specs import param_spec, shard_tensor
+    mesh = current_mesh()
+    if mesh is None:
+        raise RuntimeError("shard_params needs a mesh (sharding.mesh.set_mesh)")
+    for name, p in list(model.named_parameters()):
+        spec = param_spec(cfg, plan, name, tuple(p.shape), mesh.shape)
+        part = shard_tensor(p.data, spec)
+        if part.numel() < p.numel():      # a view would keep the full one
+            part = part.clone()
+        part = torch.nn.Parameter(part, requires_grad=False)
+        part.shard_spec = spec
+        owner, _, leaf = name.rpartition(".")
+        setattr(model.get_submodule(owner), leaf, part)

@@ -13,6 +13,14 @@ Both drive the same prefill and decode ops, so both run the same kernels
 (the two attention kernels, or WKV6 on every rwkv6 prefill), and treat the
 cache as opaque: an attention decode step writes its KV cache in place, an
 rwkv6 or Mamba one returns the new state.
+
+With a ``ShardingPlan`` the engine is one rank of a multi-device server:
+every rank builds it on its own slices of the parameters
+(``params.shard_params``), enters the same mesh (``sharding.mesh.set_mesh``)
+and runs the same host loop on the same requests; prefill and decode take
+the whole batch and give every rank the whole batch's logits, so every
+rank samples the same tokens.  A batch the batch axes do not divide is
+padded with one-token rows, whose outputs are dropped.
 """
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ from repro_torch.core.types import Batch, Request
 from repro_torch.models import api
 from repro_torch.models.transformer import Transformer
 from repro_torch.serving.sampling import greedy
+from repro_torch.sharding.mesh import axis_size
+from repro_torch.sharding.plan import ShardingPlan
 
 
 @dataclass
@@ -52,24 +62,33 @@ def _sync(device: torch.device) -> None:
 
 
 class InferenceEngine:
-    """Serves on the device its parameters live on."""
+    """Serves on the device its parameters live on; under ``plan``, as one
+    rank of the current mesh."""
 
     def __init__(self, cfg: ModelConfig, params: Transformer,
-                 engine_cfg: EngineConfig):
+                 engine_cfg: EngineConfig,
+                 plan: Optional[ShardingPlan] = None):
         self.cfg = cfg
         self.params = params
         self.ecfg = engine_cfg
+        self.plan = plan
         self.device = params.embed.w.device
 
     def _prefill(self, toks, kv_len):
         return api.prefill(self.cfg, self.params, {"tokens": toks},
-                           cache_len=self.ecfg.cache_len, kv_len=kv_len)
+                           cache_len=self.ecfg.cache_len, kv_len=kv_len,
+                           plan=self.plan)
 
     def _decode(self, toks, cache, kv_len):
-        return api.decode_step(self.cfg, self.params, toks, cache, kv_len)
+        return api.decode_step(self.cfg, self.params, toks, cache, kv_len,
+                               plan=self.plan)
 
     def _pad_prompts(self, prompts: list[list[int]]):
-        """Right-padded token rows [B, S] and their lengths [B] (int32)."""
+        """Right-padded token rows [B, S] and their lengths [B] (int32);
+        under a plan, B rounded up to a multiple of the batch shards with
+        one-token rows."""
+        n = axis_size(self.plan.batch_axes) if self.plan is not None else 1
+        prompts = prompts + [[0]] * (-len(prompts) % n)
         s = max(len(p) for p in prompts)
         toks = np.zeros((len(prompts), s), np.int32)
         for i, p in enumerate(prompts):

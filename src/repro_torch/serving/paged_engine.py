@@ -294,7 +294,9 @@ class PagedEngine:
         if not ok:
             raise ValueError(f"{cfg.name} cannot serve paged: {why}")
         if plan is not None:
-            raise NotImplementedError("sharded plans are not ported yet")
+            raise NotImplementedError(
+                "the paged engine's plan comes with a later slice (sharded "
+                "serving runs through InferenceEngine(plan=))")
         self.cfg = cfg
         self.params = params
         self.pcfg = pcfg

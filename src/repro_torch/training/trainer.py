@@ -43,7 +43,8 @@ def make_train_step(cfg: ModelConfig, plan, tcfg: TrainConfig):
     opt_state, {"loss", "grad_norm"}): ``params`` is the model, updated in
     place; ``step`` the 0-based step (the update takes step + 1)."""
     if plan is not None:
-        raise NotImplementedError("sharded training plans are not ported yet")
+        raise NotImplementedError(
+            "make_train_step under a plan comes with the sharded training slice")
 
     def grads_of(names, plist, params, mb):
         loss, _ = api.loss_fn(cfg, params, mb)

@@ -79,6 +79,11 @@ FLASH_CASES = [
     # runs them in bf16)
     (4, 16, 16, 64, 8, 128, 128, True, None, None, 0),
     (4, 1024, 1024, 64, 8, 128, 128, True, None, None, 0),
+    # chatglm2-6b's shards on 4 ranks: a head-TP rank's 16 over 1 heads,
+    # and a sequence-parallel rank's 256 query rows over 1,024 keys at
+    # q_offset 768
+    (2, 1024, 1024, 16, 1, 128, 128, True, None, None, 0),
+    (4, 256, 1024, 32, 2, 128, 128, True, None, None, 768),
 ]
 
 DECODE_CASES = [
@@ -126,6 +131,8 @@ DECODE_CASES = [
     # batch's
     (4, 64, 64, 8, 128, 128, None, None, [24, 20, 17, 31]),
     (4, 1088, 64, 8, 128, 128, None, None, [1041, 1041, 1041, 1041]),
+    # a head-TP rank's chatglm2-6b decode: 16 over 1 heads
+    (2, 1088, 16, 1, 128, 128, None, None, [1041, 1041]),
 ]
 
 PAGED_CASES = [

@@ -37,6 +37,18 @@ ATOL = 1e-4                      # logits after the whole stack, f32
 CLOCKED_METRICS = ("queue_wait", "ttft", "itl", "e2e")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The paged serve path's monitor judges SLOs on the wall clock; under
+    the parallel test run the workers' intra-op thread pools oversubscribe
+    the cores and slow its small torch ops many times over, past a
+    request's deadline.  One thread per worker here, restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def init_weights():
     cfg, jcfg = get_config(ARCH).reduced(), jax_get_config(ARCH).reduced()

@@ -528,7 +528,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "obs/profile.py", "obs/calibrate.py", "training/optimizer.py",
             "training/trainer.py", "training/grad_compress.py",
             "checkpoint/manager.py", "data/pipeline.py",
-            "launch/train.py"} <= names
+            "launch/train.py", "sharding/mesh.py", "sharding/plan.py",
+            "sharding/specs.py", "distributed/collectives.py",
+            "distributed/ranks.py", "launch/mesh.py",
+            "kernels/decode_attention/partial.py"} <= names
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for path in files:
         text = path.read_text()
