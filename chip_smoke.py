@@ -30,16 +30,19 @@ Phases, in order; any failed check exits non-zero:
    cluster and some blocks own none; whisper-medium's non-causal encoder
    and cross-attention prefills (Sq != Skv) and its cross decode over
    1,536 rows; llama4-maverick's group 5, 40 over 8 heads at D = 128, at its
-   serve and long shapes for all three attention kernels; phase 16's
-   shard shapes of chatglm2-6b: a tp_dp rank's 2 x 1024 prefill and
-   decode on 16 over 1 heads, a longctx_seqshard rank's 256 query rows
-   over 1,024 keys at q_offset 768); then flash
+   serve and long shapes for all three attention kernels; chatglm2-6b's
+   4 x 512 batch of phase 16 on the card alone and its shards under phase
+   16's plans: a tp_dp rank's 2 x 512 prefill on 16 over 1 heads and its
+   decode at kv 516 of 528, longctx_seqshard ranks' 128 query rows over 512
+   keys at q_offsets 384 and 0; phase 17's forwards); then flash
    attention's gradient on the card (the kernel's forward and its torch-ops
    backward through the ``autograd.Function``) against autograd of the plain
    version, dq, dk and dv, f32 and bf16, at smollm-135m's training shape,
    chatglm2-6b's D = 128 at group 16, gemma2-27b's window of 4,096 with
    softcap 50, minicpm3-4b's D = 96 / Dv = 64, whisper's non-causal cross
-   attention (Sq != Skv) and a q_offset > 0.
+   attention (Sq != Skv), a q_offset > 0, and phase 17's shapes (4 x 512
+   a step: chatglm2-6b on the card alone and on a tp_dp or tp_dp_fsdp
+   rank, qwen2-moe-a2.7b on the card alone and on an ep_tp_fsdp rank).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
@@ -122,7 +125,8 @@ Phases, in order; any failed check exits non-zero:
    vocab 256,000, local layers with a 4,096-token window and softcap 50),
    its depth cut from 46 to 6 layers (3 local/global pairs; ``serve.main``
    would keep 24 on an 80 GB card, ``serve.fit_depth``, which is checked
-   on the host), drawn once and served through ``serve.serve``
+   on the host), drawn once on the card from a seeded CUDA generator
+   and served through ``serve.serve``
    padded and ``--continuous`` (cache_len 64: every local layer keeps a
    ring of 64), then one long padded batch of prompts of 4,608 and 4,300
    tokens (32 new, cache_len 4,640: the local layers keep a ring of 4,096
@@ -141,8 +145,9 @@ Phases, in order; any failed check exits non-zero:
    its 24 layers (``serve.fit_depth`` would keep all 24, 57.25 GB of f32
    weights, which is checked on the host), then qwen2-vl-7b at full width
    (d_model 3584, 28 heads over 4 KV heads of 128, M-RoPE) and 14 of its
-   28 layers (all 28, 30.46 GB, would fit), each drawn
-   once and served through ``serve.serve`` padded, ``--continuous`` and
+   28 layers (all 28, 30.46 GB, would fit), each drawn once on the card
+   from a seeded CUDA generator and served through
+   ``serve.serve`` padded, ``--continuous`` and
    ``--paged`` (a 1.1e8-byte pool: 34 pages of 8 tokens for qwen2-moe),
    then one long padded batch (4 x 1024-token prompts, 32 new tokens).
    Checks the launches as phase 8 does, prints the largest fraction of
@@ -246,11 +251,11 @@ Phases, in order; any failed check exits non-zero:
    ``InferenceEngine(plan=)``: chatglm2-6b under tp_dp on {data: 2,
    model: 2} (batch over data, head-TP: 16 over 1 heads a rank) and
    longctx_seqshard on {data: 1, model: 4} (the sequence-parallel prefill,
-   256 query rows a rank of a 1,024-token prompt; the cache
+   128 query rows a rank of a 512-token prompt; the cache
    sequence-sharded, decoded by partial softmax and merge), qwen2-moe
    under ep_tp (30 of its 60 experts a rank, the all-to-all on CUDA
    tensors).  Each on the 12 serve requests in batches of 4, chatglm2-6b
-   also on a 4 x 1024 batch (32 new tokens); each rank draws the full
+   also on a 4 x 512 batch (8 new tokens); each rank draws the full
    weights in turn from the seeded CUDA generator (one full copy on the
    card at a time) and keeps its slices.  Checks that every run's tokens
    equal the card's alone, the first batch's prefill and decode logits
@@ -259,6 +264,27 @@ Phases, in order; any failed check exits non-zero:
    sequence-sharded), on rank 0 also as device activities of one batch
    under torch.profiler; prints each batch's prefill and decode times
    beside the card's alone.
+17. sharded training (``[sharded_train]`` lines): ``make_train_step(cfg,
+   plan, tcfg)`` on 4 ranks sharing the card over gloo, as in phase 16,
+   on {data: 2, model: 2}.  chatglm2-6b at full width and 4 layers (f32,
+   4 x 512 tokens a step, the train launcher's rolled tokens) for 3 AdamW
+   steps under tp_dp (seq_parallel, remat, micro-batches 2) and under
+   tp_dp_fsdp (the weights cut over data too, gathered a block at a time);
+   qwen2-moe-a2.7b at full width and 2 layers (capacity factor 8) for 2
+   Adafactor steps under ep_tp_fsdp.  Rank 0 first trains each model on
+   the card alone from the same weights (the MoE's loss and gradient the
+   mean over the two batch shards, whose capacity and lb_loss the sharded
+   block computes per shard).  Checks every rank's loss and grad norm at
+   every step within 1e-4 relative of the card alone's, step 1's
+   gradients, gathered, within 1e-3 of each leaf's largest, and flash
+   attention's forward on each rank exactly layers x micro-batches x
+   steps x 2 (remat runs it again in the backward) and its gradient
+   layers x micro-batches x steps, no other kernel, and every shape at
+   which a rank called K2 a parity case of phase 3 (those under grad a
+   gradient case); prints each step's time beside the card alone's, rank
+   0's bytes of parameters and optimizer state, its peak memory and its
+   seconds in gloo.  Step 1's gradients come from a pass of their own
+   before the counted steps.
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
 the launch counts set to 0 just before it and read just after.  A
@@ -314,10 +340,10 @@ from repro_torch.kernels.paged_attention.ops import paged_splits  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve, train  # noqa: E402
-from repro_torch.models import api, mamba, moe  # noqa: E402
+from repro_torch.models import api, attention, mamba, moe  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
-from repro_torch.params import shard_params  # noqa: E402
+from repro_torch.params import shard_params, stacked_leaves  # noqa: E402
 from repro_torch.obs import (CostProfiler, Tracer,  # noqa: E402
                              check_invariants, validate_metrics,
                              validate_trace)
@@ -325,9 +351,12 @@ from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  PagedEngine, PagedEngineConfig, Replica,
                                  greedy, paper_cluster)
 from repro_torch.sharding import Mesh, ShardingPlan, set_mesh  # noqa: E402
+from repro_torch.sharding.specs import gather_tensor  # noqa: E402
 from repro_torch.training import (OptConfig, TrainConfig,  # noqa: E402
-                                  init_training, load_train_state,
-                                  make_train_step, train_state_tree)
+                                  init_opt_state, init_training,
+                                  load_train_state, make_train_step,
+                                  train_state_tree)
+from repro_torch.training import trainer  # noqa: E402
 
 # Bounds use the H100 data sheet's peaks: HBM bytes/s, and FLOP/s of bf16
 # and of fp32 at fp32 accuracy, the fastest route to which is the TF32
@@ -407,6 +436,17 @@ GRAD_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_off
     ("minicpm3_d96_dv64", 4, 1024, 1024, 40, 40, 96, 64, True, None, None, 0),
     ("whisper_cross", 4, 448, 1536, 16, 16, 64, 64, False, None, None, 0),
     ("chunk_q_offset", 4, 16, 32, 9, 3, 64, 64, True, None, None, 16),
+    # phase 17's K2 calls under grad (4 x 512 tokens a step, D = 128,
+    # causal): chatglm2-6b on the card alone (2 rows a micro-batch, 32 over
+    # 2 heads) and on a rank (16 over 1 heads: 1 row a micro-batch under
+    # tp_dp, 2 under tp_dp_fsdp); qwen2-moe-a2.7b on the card alone (2 rows
+    # a batch shard, 16 over 16) and on an ep_tp_fsdp rank (2 rows, 8 over 8)
+    *((name, b, 512, 512, h, kv, 128, 128, True, None, None, 0)
+      for name, b, h, kv in (("chatglm2_train_alone", 2, 32, 2),
+                             ("chatglm2_train_tp2_micro", 1, 16, 1),
+                             ("chatglm2_train_tp2", 2, 16, 1),
+                             ("qwen2_moe_train_alone", 2, 16, 16),
+                             ("qwen2_moe_train_tp2", 2, 8, 8))),
 ]
 
 # phase 16: 4 ranks share the card over gloo; each run (name, model, mesh
@@ -416,6 +456,10 @@ GRAD_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_off
 # qwen2-moe-a2.7b under ep_tp (60 experts over data, the all-to-all on
 # CUDA tensors staged through the host)
 SHARDED_WORLD, SHARDED_CACHE = 4, 64
+# phase 16's long batch: 4 x 512-token prompts, 8 new tokens (shorter than
+# the other phases' 4 x 1024 and 32, to keep the script under 900 s)
+SHARDED_LONG_PROMPT, SHARDED_LONG_NEW = 512, 8
+SHARDED_LONG_CACHE = SHARDED_LONG_PROMPT + SHARDED_LONG_NEW + 8
 SHARDED_MOE_LAYERS, SHARDED_MOE_CAPACITY = 2, 8.0
 SHARDED_RUNS = [
     ("chatglm2 tp_dp", "chatglm2", (2, 2),
@@ -427,6 +471,30 @@ SHARDED_RUNS = [
     ("qwen2_moe ep_tp", "qwen2_moe", (2, 2),
      ShardingPlan(batch_axes=("data",), model_axis="model", ep_axis="data",
                   seq_axes=("model",), mla_absorbed=False), False),
+]
+
+# phase 17: training under a plan, 4 ranks sharing the card over gloo; each
+# run (name, model, plan as candidate_plans builds it for training on
+# {data: 2, model: 2}, optimizer, steps), on the launcher's rolled tokens,
+# 4 x 512 a step: chatglm2-6b at full width and 4 layers under tp_dp
+# (micro-batches 2) and tp_dp_fsdp (one: fsdp's gathers and reductions
+# through gloo run once a micro-batch), AdamW, both against one card-alone
+# run at 2 micro-batches (the same function); qwen2-moe-a2.7b at full width
+# and 2 layers (capacity factor 8) under ep_tp_fsdp (Adafactor, as above
+# 20B)
+SHARDED_TRAIN_LAYERS = {"chatglm2": 4, "qwen2_moe": 2}
+SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ = 4, 512
+TOL_SHARDED_TRAIN = 1e-4        # loss and grad_norm vs the card alone, relative
+_TRAIN_PLAN = dict(batch_axes=("data",), model_axis="model", seq_parallel=True,
+                   mla_absorbed=False, remat=True)
+SHARDED_TRAIN_RUNS = [
+    ("chatglm2 tp_dp", "chatglm2",
+     ShardingPlan(**_TRAIN_PLAN, microbatches=2), "adamw", 3),
+    ("chatglm2 tp_dp_fsdp", "chatglm2",
+     ShardingPlan(**_TRAIN_PLAN, fsdp_axes=("data",)), "adamw", 3),
+    ("qwen2_moe ep_tp_fsdp", "qwen2_moe",
+     ShardingPlan(**_TRAIN_PLAN, ep_axis="data", fsdp_axes=("data",)),
+     "adafactor", 2),
 ]
 
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
@@ -509,14 +577,24 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("jamba_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 64, 8, 128, 128,
      True, None, None, 0),
     ("jamba_serve_prefill", 4, 16, 16, 64, 8, 128, 128, True, None, None, 0),
-    # phase 16's shards of chatglm2-6b's 4 x 1024 prefill (D = 128): under
-    # tp_dp on {data: 2, model: 2} a rank's 2 rows and 16 over 1 heads
-    # (head-TP); under longctx_seqshard on {data: 1, model: 4} rank 3's 256
-    # query rows of every row over all 1,024 keys, 32 over 2 heads
-    ("chatglm2_tp2_prefill", 2, LONG_PROMPT, LONG_PROMPT, 16, 1, 128, 128,
-     True, None, None, 0),
-    ("chatglm2_sp4_prefill", 4, LONG_PROMPT // 4, LONG_PROMPT, 32, 2, 128,
-     128, True, None, None, 3 * LONG_PROMPT // 4),
+    # phase 16's long batch of chatglm2-6b (4 x 512, D = 128) on the card
+    # alone and its shards under phase 16's plans: under tp_dp on {data: 2,
+    # model: 2} a rank's 2 rows and 16 over 1 heads (head-TP; also a
+    # tp_dp_fsdp rank's in phase 17); under longctx_seqshard on {data: 1,
+    # model: 4} rank 3's and rank 0's 128 query rows of every row over all
+    # 512 keys, 32 over 2 heads
+    ("chatglm2_sharded_long", 4, SHARDED_LONG_PROMPT, SHARDED_LONG_PROMPT, 32,
+     2, 128, 128, True, None, None, 0),
+    ("chatglm2_tp2_prefill", 2, SHARDED_LONG_PROMPT, SHARDED_LONG_PROMPT, 16,
+     1, 128, 128, True, None, None, 0),
+    ("chatglm2_sp4_prefill", 4, SHARDED_LONG_PROMPT // 4, SHARDED_LONG_PROMPT,
+     32, 2, 128, 128, True, None, None, 3 * SHARDED_LONG_PROMPT // 4),
+    ("chatglm2_sp4_prefill_r0", 4, SHARDED_LONG_PROMPT // 4,
+     SHARDED_LONG_PROMPT, 32, 2, 128, 128, True, None, None, 0),
+    # phase 17's (GRAD_CASES), forward alone; chatglm2_tp2_prefill above is
+    # a tp_dp_fsdp rank's
+    *(c for c in GRAD_CASES if c[0].endswith(("_alone", "_micro"))
+      or c[0] == "qwen2_moe_train_tp2"),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
@@ -593,10 +671,13 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      [1041] * 4),
     ("jamba_serve_decode", 4, 64, 64, 8, 128, 128, None, None,
      [24, 20, 17, 31]),
-    # phase 16: a tp_dp rank's first decode step of chatglm2-6b's long batch
-    # (2 rows, 16 over 1 heads of 128: head-TP)
-    ("chatglm2_tp2_decode", 2, LONG_CACHE, 16, 1, 128, 128, None, None,
-     [1041] * 2),
+    # phase 16: chatglm2-6b's 4 x 512 batch halfway through its 8 decode
+    # steps, on the card alone and on a tp_dp rank (2 rows, 16 over 1 heads
+    # of 128: head-TP)
+    ("chatglm2_sharded_long_decode", 4, SHARDED_LONG_CACHE, 32, 2, 128, 128,
+     None, None, [SHARDED_LONG_PROMPT + SHARDED_LONG_NEW // 2] * 4),
+    ("chatglm2_tp2_decode", 2, SHARDED_LONG_CACHE, 16, 1, 128, 128, None,
+     None, [SHARDED_LONG_PROMPT + SHARDED_LONG_NEW // 2] * 2),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
@@ -2349,7 +2430,8 @@ def phase_window_mla() -> dict:
     nbytes = 4 * cfg.param_count()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda",
+                             generator_device="cuda")
     init_s = {"gemma2": time.perf_counter() - t0}
     plan = {"gemma2": helr_mesh(full, SHAPES["decode_32k"]).name}
     print(f"[window] gemma2-27b at full width (d_model {cfg.d_model}, "
@@ -2387,7 +2469,8 @@ def phase_window_mla() -> dict:
     cfg = replace(get_config("minicpm3-4b"), n_layers=MINICPM3_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+    params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda",
+                             generator_device="cuda")
     init_s["minicpm3"] = time.perf_counter() - t0
     plan["minicpm3"] = helr_mesh(get_config("minicpm3-4b"),
                                  SHAPES["decode_32k"]).name
@@ -2555,7 +2638,8 @@ def phase_moe_vlm() -> dict:
                       else QWEN2_VL_LAYERS)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda")
+        params = api.init_params(cfg, seed=0, dtype=torch.float32, device="cuda",
+                                 generator_device="cuda")
         init_s[name] = time.perf_counter() - t0
         plan[name] = helr_mesh(full, SHAPES["decode_32k"]).name
         experts = "" if cfg.moe is None else (
@@ -3227,16 +3311,17 @@ def sharded_draw(cfg):
 
 def sharded_batches(cfg, long: bool) -> list:
     """The 12 serve requests in batches of 4, in rid order, and with
-    ``long`` a 4 x 1024-token batch (LONG_NEW new tokens each)."""
+    ``long`` a 4 x SHARDED_LONG_PROMPT-token batch (SHARDED_LONG_NEW new
+    tokens each)."""
     reqs = serve.make_requests(cfg, 12, 16)
     batches = [Batch(requests=reqs[i:i + 4]) for i in range(0, 12, 4)]
     if long:
         rng = np.random.default_rng(16)
         batches.append(Batch(requests=[
             Request(rid=100 + i, tokens=p, input_len=len(p), slo=1e9,
-                    arrival=0.0, true_output_len=LONG_NEW)
+                    arrival=0.0, true_output_len=SHARDED_LONG_NEW)
             for i, p in enumerate(rng.integers(
-                2, cfg.vocab_size, (4, LONG_PROMPT)).tolist())]))
+                2, cfg.vocab_size, (4, SHARDED_LONG_PROMPT)).tolist())]))
     return batches
 
 
@@ -3256,7 +3341,8 @@ def sharded_serve(cfg, params, plan, long: bool, clock=None) -> dict:
     ecfg = EngineConfig(max_batch=4, cache_len=SHARDED_CACHE, max_new_tokens=16)
     eng = InferenceEngine(cfg, params, ecfg, plan=plan)
     long_eng = InferenceEngine(cfg, params, replace(
-        ecfg, cache_len=LONG_CACHE, max_new_tokens=LONG_NEW), plan=plan)
+        ecfg, cache_len=SHARDED_LONG_CACHE, max_new_tokens=SHARDED_LONG_NEW),
+        plan=plan)
     batches = sharded_batches(cfg, long)
     toks, kv_len = eng._pad_prompts([r.tokens for r in batches[0].requests])
     lg, cache = eng._prefill(toks, kv_len)
@@ -3294,7 +3380,8 @@ def sharded_serve(cfg, params, plan, long: bool, clock=None) -> dict:
         clock.reset()
     outs, runs = {}, []
     for b in batches:
-        e = long_eng if len(b.requests[0].tokens) == LONG_PROMPT else eng
+        e = long_eng if len(b.requests[0].tokens) == SHARDED_LONG_PROMPT \
+            else eng
         res = e.run_batch(b, true_lens=true)
         outs.update(res.outputs)
         runs.append({"prompt": max(len(r.tokens) for r in b.requests),
@@ -3458,6 +3545,282 @@ def phase_sharded() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 17
+
+def sharded_train_cfg(model: str):
+    """Phase 17's configs: phase 16's at SHARDED_TRAIN_LAYERS layers."""
+    return replace(sharded_cfg(model), n_layers=SHARDED_TRAIN_LAYERS[model])
+
+
+def train_bytes(named: dict, opt_state: dict) -> int:
+    """Bytes of the parameters and the optimizer state this process holds."""
+    return sum(t.numel() * t.element_size() for t in named.values()) + sum(
+        t.numel() * t.element_size() for part in opt_state.values()
+        for t in part.values())
+
+
+def step_gradients(cfg, plan, params, batch: dict, microbatches: int,
+                   shards: int = 1) -> tuple:
+    """(loss, gradients) of a train step: ``trainer.value_and_grad``'s, or
+    for the card alone's batch-sharded MoE (``shards`` > 1: its capacity
+    and lb_loss are per shard) their mean over the shards' rows."""
+    if shards == 1:
+        loss, _, grads = trainer.value_and_grad(cfg, plan, params, batch,
+                                                microbatches)
+        return loss, grads
+    parts = [trainer.value_and_grad(
+        cfg, None, params, {k: v.chunk(shards)[j] for k, v in batch.items()},
+        microbatches) for j in range(shards)]
+    return (sum(p[0] for p in parts) / shards,
+            {k: sum(p[2][k] for p in parts) / shards for k in parts[0][2]})
+
+
+def alone_step(cfg, tcfg, shards: int):
+    """The card alone's train step for a batch-sharded MoE: the mean
+    gradients of ``step_gradients``, then the port's clip and update."""
+    def step(params, opt, batch, i):
+        loss, grads = step_gradients(cfg, None, params, batch,
+                                     tcfg.microbatches, shards)
+        gnorm = trainer.clip_and_update(cfg, None, tcfg, params, opt, grads, i)
+        return params, opt, {"loss": loss, "grad_norm": gnorm}
+    return step
+
+
+class FlashShapes:
+    """The shapes at which the attention module calls K2's wrapper in this
+    process, as FLASH_CASES rows without their names: every call, and
+    those under grad (the forwards whose backward runs K2's gradient),
+    recorded by wrapping ``models.attention.flash_attention``."""
+
+    def __init__(self):
+        self.calls, self.grad = set(), set()
+        orig = attention.flash_attention
+
+        def logged(q, k, v, **kw):
+            row = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+                   q.shape[3], v.shape[3], kw.get("causal", True),
+                   kw.get("window"), kw.get("softcap"),
+                   int(kw.get("q_offset", 0)))
+            self.calls.add(row)
+            if torch.is_grad_enabled() and any(
+                    t.requires_grad for t in (q, k, v)):
+                self.grad.add(row)
+            return orig(q, k, v, **kw)
+        attention.flash_attention = logged
+
+    def read(self) -> dict:
+        return {"calls": sorted(self.calls, key=str),
+                "grad": sorted(self.grad, key=str)}
+
+
+def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
+                      shards: int = 1) -> dict:
+    """Step 1's gradients handed to ``step1`` (one pass of its own, before
+    the steps), then ``steps`` train steps through ``make_train_step``
+    (or, for the card alone's batch-sharded MoE, ``alone_step``) with the
+    launch counts set to 0 just before and read just after (K2's forward
+    and its gradient): each step's loss, grad_norm and wall time, the bytes
+    of parameters and state, the peak memory, the calls and seconds in
+    gloo (``gloo``, a ``GlooClock``)."""
+    base = train.token_base(cfg, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ)
+    named = {k: p.detach() for k, p in params.named_parameters()}
+    opt = init_opt_state(named, tcfg.opt, stacked_leaves(cfg, named))
+    step_fn = make_train_step(cfg, plan, tcfg) if shards == 1 \
+        else alone_step(cfg, tcfg, shards)
+    step1(step_gradients(cfg, plan, params, train.batch_at(base, 0, "cuda"),
+                         tcfg.microbatches, shards)[1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    gloo.reset()
+    losses, norms, walls = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, train.batch_at(base, i, "cuda"),
+                                 i)
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        walls.append(time.perf_counter() - t0)
+    launches = {"flash_attention": flash_attention.launches,
+                "flash_attention_backward": flash_attention.backward_calls,
+                "others": sum(v for k, v in read_launches().items()
+                              if k != "flash_attention")}
+    return {"losses": losses, "grad_norms": norms,
+            "step_ms": [w * 1e3 for w in walls], "launches": launches,
+            "bytes": train_bytes(named, opt), "gloo": gloo.read(),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def sharded_train_rank(rank: int, out_dir: str) -> None:
+    """One of phase 17's ranks on the card.  For each model rank 0 first
+    trains it on the card alone (every rank's copy of the weights is drawn
+    from the same seeded CUDA generator) and keeps its step-1 gradients;
+    then every rank runs each of SHARDED_TRAIN_RUNS on its slices: its
+    losses and grad norms, and rank 0 the largest error of each gathered
+    step-1 gradient leaf against the card alone's.  Each rank also records
+    the shapes at which it called K2 (``FlashShapes``)."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = Mesh({"data": 2, "model": 2}, device="cuda")
+    gloo, shapes = GlooClock(), FlashShapes()
+    recs = {}
+    for model in SHARDED_TRAIN_LAYERS:
+        cfg = sharded_train_cfg(model)
+        runs = [r for r in SHARDED_TRAIN_RUNS if r[1] == model]
+        shards = 2 if cfg.moe is not None else 1     # the data axis
+        alone = {}
+        if rank == 0:
+            params = sharded_draw(cfg).requires_grad_(True)
+            tcfg = TrainConfig(opt=OptConfig(kind=runs[0][3]),
+                               microbatches=runs[0][2].microbatches)
+            recs[f"{model} alone"] = sharded_train_run(
+                cfg, params, None, tcfg, runs[0][4], gloo, alone.update,
+                shards)
+            del params
+            torch.cuda.empty_cache()
+        dist.barrier()
+        for name, _, plan, optimizer, steps in runs:
+            errs = {}
+
+            def compare(grads):
+                for k, g in grads.items():
+                    full = gather_tensor(g, specs[k])
+                    if rank == 0:
+                        ref = alone[k]
+                        errs[k] = ((full - ref).abs().max()
+                                   / ref.abs().max().clamp_min(1e-30)).item()
+                    del full
+            with set_mesh(mesh):
+                t0 = time.perf_counter()
+                for turn in range(dist.get_world_size()):
+                    if turn == rank:
+                        params = sharded_draw(cfg)
+                        shard_params(cfg, params, plan)
+                        params.requires_grad_(True)
+                        torch.cuda.empty_cache()
+                    dist.barrier()
+                draw_s = time.perf_counter() - t0
+                specs = {k: p.shard_spec for k, p in params.named_parameters()}
+                tcfg = TrainConfig(opt=OptConfig(kind=optimizer),
+                                   microbatches=plan.microbatches)
+                rec = sharded_train_run(cfg, params, plan, tcfg, steps,
+                                        gloo, compare)
+                del params
+                torch.cuda.empty_cache()
+            worst = max(errs, key=errs.get) if errs else None
+            recs[name] = rec | {"draw_s": draw_s, "grad_rel_err":
+                                errs.get(worst), "grad_worst_leaf": worst,
+                                "leaves": len(errs)}
+        alone.clear()
+        torch.cuda.empty_cache()
+    recs["k2_shapes"] = shapes.read()
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def shape_coverage(seen: list) -> dict:
+    """Fail unless every shape at which phase 17's ranks called K2 is a
+    FLASH_CASES row, and every one under grad a GRAD_CASES row too: the
+    parity phase has held the kernel, and its gradient, against the plain
+    version at each."""
+    calls = {tuple(r) for s in seen for r in s["calls"]}
+    grad = {tuple(r) for s in seen for r in s["grad"]}
+    names = {tuple(c[1:]): c[0] for c in FLASH_CASES}
+    grad_names = {tuple(c[1:]): c[0] for c in GRAD_CASES}
+    missing = sorted((calls - set(names)) | (grad - set(grad_names)), key=str)
+    print(f"[sharded_train] K2 shapes: {len(calls)} "
+          f"({sorted(names.get(r, '?') for r in calls)}), under grad "
+          f"{len(grad)} ({sorted(grad_names.get(r, '?') for r in grad)}); "
+          f"with no parity case: {missing}", flush=True)
+    if missing or not grad:
+        fail(f"sharded train: K2 shapes with no parity case: {missing}")
+    return {"calls": sorted(names[r] for r in calls),
+            "grad": sorted(grad_names[r] for r in grad)}
+
+
+def phase_sharded_train() -> dict:
+    """Training under a plan on 4 ranks sharing the card (SHARDED_TRAIN_RUNS):
+    every rank's loss and grad_norm at every step against the card alone's
+    run from the same weights, step 1's gathered gradients against the
+    card alone's, K2's forward on each rank exactly layers x micro-batches
+    x steps x 2 (remat runs it again in the backward) and its gradient
+    layers x micro-batches x steps, no other kernel; every K2 shape a
+    parity case (``shape_coverage``); step times beside the card alone's,
+    rank 0's bytes a device."""
+    out_dir = ROOT / "build" / "sharded_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    run_ranks(sharded_train_rank, (str(out_dir),), world=SHARDED_WORLD,
+              timeout=300.0, join_timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_WORLD)]
+    print(f"[sharded_train] {SHARDED_WORLD} ranks on one card over gloo: "
+          f"{ranks_s:.1f} s from spawn to join", flush=True)
+    out = {"ranks_s": ranks_s, "runs": {},
+           "k2_shapes": shape_coverage([r["k2_shapes"] for r in ranks])}
+    launches = {k: 0 for k in TIMED}
+    launches["flash_attention_backward"] = 0
+    for model in SHARDED_TRAIN_LAYERS:
+        alone = ranks[0][f"{model} alone"]
+        launches["flash_attention"] += alone["launches"]["flash_attention"]
+        launches["flash_attention_backward"] += \
+            alone["launches"]["flash_attention_backward"]
+        out["runs"][f"{model} alone"] = alone
+    for name, model, plan, optimizer, steps in SHARDED_TRAIN_RUNS:
+        cfg = sharded_train_cfg(model)
+        alone = ranks[0][f"{model} alone"]
+        layers = kernel_layers(cfg)
+        want = {"flash_attention": layers * plan.microbatches * steps * 2,
+                "flash_attention_backward": layers * plan.microbatches * steps,
+                "others": 0}
+        got = [r[name]["launches"] for r in ranks]
+        for g in got:
+            launches["flash_attention"] += g["flash_attention"]
+            launches["flash_attention_backward"] += g["flash_attention_backward"]
+        loss_err = max(abs(a - b) / abs(b) for r in ranks for a, b in
+                       zip(r[name]["losses"], alone["losses"]))
+        norm_err = max(abs(a - b) / abs(b) for r in ranks for a, b in
+                       zip(r[name]["grad_norms"], alone["grad_norms"]))
+        rec = ranks[0][name]
+        same = all(r[name]["losses"] == rec["losses"] for r in ranks)
+        print(f"[sharded_train] {name} ({optimizer}, micro-batches "
+              f"{plan.microbatches}, {steps} steps of {SHARDED_TRAIN_BATCH} x "
+              f"{SHARDED_TRAIN_SEQ}): losses {rec['losses']} (card alone "
+              f"{alone['losses']}, rel err {loss_err:.2e}); grad norms "
+              f"{rec['grad_norms']} (card alone {alone['grad_norms']}, rel err "
+              f"{norm_err:.2e}); tol {TOL_SHARDED_TRAIN}; step 1's gradients "
+              f"of {rec['leaves']} leaves, worst {rec['grad_rel_err']:.2e} of "
+              f"the leaf's largest |g| ({rec['grad_worst_leaf']}; tol "
+              f"{TOL_TRAIN_GRAD}); launches a rank {got} (expected {want})",
+              flush=True)
+        print(f"[sharded_train] {name} step ms {['%.1f' % t for t in rec['step_ms']]}"
+              f" (card alone {['%.1f' % t for t in alone['step_ms']]}); rank 0 "
+              f"holds {rec['bytes'] / 1e9:.2f} GB of parameters and optimizer "
+              f"state (card alone {alone['bytes'] / 1e9:.2f}), peak "
+              f"{rec['peak_gib']:.1f} GiB (card alone {alone['peak_gib']:.1f}); "
+              f"draw and shard {rec['draw_s']:.1f} s; rank 0's collectives "
+              f"in the steps: {rec['gloo']['calls']} calls, "
+              f"{rec['gloo']['s']:.2f} s in gloo", flush=True)
+        if not (loss_err <= TOL_SHARDED_TRAIN and norm_err <= TOL_SHARDED_TRAIN
+                and same):
+            fail(f"sharded train {name}: losses or grad norms off the card "
+                 "alone's, or unequal across ranks")
+        if not rec["grad_rel_err"] <= TOL_TRAIN_GRAD:
+            fail(f"sharded train {name}: gradients off the card alone's")
+        if any(g != want for g in got):
+            fail(f"sharded train {name}: launches {got}, expected {want}")
+        out["runs"][name] = {k: [r[name][k] for r in ranks] if k in
+                             ("losses", "grad_norms", "launches", "step_ms",
+                              "bytes", "peak_gib") else v
+                             for k, v in rec.items()} | {
+            "mesh": [2, 2], "plan": asdict(plan), "optimizer": optimizer,
+            "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -3484,6 +3847,7 @@ def main() -> None:
     cluster = run("cluster", phase_cluster, dense)
     trained = run("train", phase_train)
     sharded = run("sharded", phase_sharded)
+    sharded_train = run("sharded_train", phase_sharded_train)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -3492,6 +3856,7 @@ def main() -> None:
                 + moe_vlm["launches"][k] + encdec["launches"][k]
                 + llama4["launches"][k] + jamba["launches"][k]
                 + trained["launches"][k] + sharded["launches"][k]
+                + sharded_train["launches"][k]
                 for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
@@ -3519,7 +3884,8 @@ def main() -> None:
         "name": "flash_attention_grad", "route": "torch ops",
         "source": "src/repro_torch/kernels/flash_attention/grad.py",
         "replaces": None, "backward_calls":
-            trained["launches"]["flash_attention_backward"],
+            trained["launches"]["flash_attention_backward"]
+            + sharded_train["launches"]["flash_attention_backward"],
         "max_abs_err": parity[GRAD_PARITY_TAG]["dq"]["max_abs_err"],
         **{k: grad[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "grad_ms", "grad_bound_ms",
@@ -3534,6 +3900,7 @@ def main() -> None:
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
               "llama4": llama4, "jamba": jamba, "cluster": cluster,
               "train": trained, "sharded": sharded,
+              "sharded_train": sharded_train,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

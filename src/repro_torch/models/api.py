@@ -3,9 +3,9 @@ on the family (decoder-only, or encoder-decoder, whose loss and prefill
 take the audio stub's frame embeddings), and the paged decode and verify
 steps of the decoder-only family (the vision stub's prefill takes
 embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
-their slice).  ``prefill`` and ``decode_step`` take a sharding plan
-(``models.transformer``'s docstring); ``loss_fn`` under a plan comes with
-the sharded training slice."""
+their slice).  ``loss_fn``, ``prefill`` and ``decode_step`` take a
+sharding plan (``models.transformer``'s docstring); Mamba, RWKV-6 and
+encoder-decoder models raise under one (``transformer.check_plan``)."""
 from __future__ import annotations
 
 import torch
@@ -33,14 +33,13 @@ def loss_fn(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
             plan=None):
     """The training loss and its metrics; autograd runs through it (no
     ``inference_mode``).  batch: {"tokens", "labels", "mask"} (+ "frames"
-    for an encoder-decoder, + "embeds" for the vision stub).  A plan
-    raises: sharded training is the next slice."""
-    if plan is not None:
-        raise NotImplementedError(
-            "loss_fn under a plan comes with the sharded training slice")
+    for an encoder-decoder, + "embeds" for the vision stub).  Under
+    ``plan`` (a mesh set) the batch is the whole batch on every rank, and
+    the loss and metrics are the global ones on every rank."""
+    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         return E.encdec_loss(cfg, params, batch)
-    return T.lm_loss(cfg, params, batch)
+    return T.lm_loss(cfg, params, batch, plan=plan)
 
 
 @torch.inference_mode()

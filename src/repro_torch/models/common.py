@@ -10,7 +10,12 @@ Under a sharding plan each rank holds its slice of a parameter
 ``apply_dense`` on the slice: its output holds this rank's columns.  A
 row-parallel one (``apply_dense_rows``) multiplies this rank's rows and
 finishes with ``reduce_rows``: a psum over the model axis, or with a
-sequence-parallel residual a reduce-scatter along the sequence.
+sequence-parallel residual a reduce-scatter along the sequence.  A weight
+whose slice the plan's fsdp axes also cut (``fsdp_spec``, ZeRO-3) is
+gathered over them before it is used, one block (or the embedding, or the
+head) at a time (``gather_params``, ``unshard``); the all-gather's
+gradient is the reduce-scatter that sums the data-parallel gradient into
+this rank's slice.
 """
 from __future__ import annotations
 
@@ -21,8 +26,8 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.collectives import (local_chunk, psum,
-                                                 reduce_scatter)
+from repro_torch.distributed.collectives import (all_gather, local_chunk,
+                                                 psum, reduce_scatter)
 
 
 class Dense(nn.Module):
@@ -63,9 +68,59 @@ def apply_dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
 
 def sharded_axis(t: torch.Tensor, dim: int):
     """The mesh axis along which dimension ``dim`` of parameter ``t`` holds
-    only this rank's slice, or None (not sharded, or no plan)."""
+    only this rank's slice, or None (not sharded, or no plan).  A weight
+    still cut by fsdp axes must be gathered first (``unshard``)."""
+    if getattr(t, "fsdp_spec", None) is not None:
+        raise RuntimeError("an fsdp-sharded weight is read before it was "
+                           "gathered (models.common.unshard)")
     spec = getattr(t, "shard_spec", None)
     return spec[dim] if spec else None
+
+
+def unshard(t: torch.Tensor) -> torch.Tensor:
+    """``t`` with the dimensions its ``fsdp_spec`` names gathered over
+    those axes (a differentiable all-gather), carrying the tensor-parallel
+    spec that remains; ``t`` itself when no fsdp axis cuts it."""
+    fsdp = getattr(t, "fsdp_spec", None)
+    if fsdp is None:
+        return t
+    out = t
+    for dim, axes in enumerate(fsdp):
+        if axes is not None:
+            out = all_gather(out, axes, dim)
+    out.shard_spec = tuple(None if f is not None else s
+                           for s, f in zip(t.shard_spec, fsdp))
+    return out
+
+
+class _Gathered:
+    """A module's parameters as the model code reads them, with every
+    fsdp-sharded one gathered (``full``: gathered tensors by dotted name
+    under the root module); submodules come back wrapped in turn, other
+    attributes as they are."""
+
+    __slots__ = ("_module", "_full", "_prefix")
+
+    def __init__(self, module: nn.Module, full: dict, prefix: str):
+        self._module, self._full, self._prefix = module, full, prefix
+
+    def __getattr__(self, name):
+        key = self._prefix + name
+        if key in self._full:
+            return self._full[key]
+        val = getattr(self._module, name)
+        if isinstance(val, nn.Module):
+            return _Gathered(val, self._full, key + ".")
+        return val
+
+
+def gather_params(module: nn.Module):
+    """``module`` with its fsdp-sharded parameters gathered (in the order
+    of ``named_parameters``, the same on every rank), or ``module`` itself
+    when none is."""
+    full = {n: unshard(p) for n, p in module.named_parameters()
+            if getattr(p, "fsdp_spec", None) is not None}
+    return _Gathered(module, full, "") if full else module
 
 
 def reduce_rows(y: torch.Tensor, plan, partial: bool,

@@ -24,28 +24,41 @@ the batch axes, so every rank samples the same token.  With
 ``plan.seq_parallel`` and a sequence the model axis divides, the residual
 between blocks holds this rank's sequence slice: each mixer and MLP input
 is all-gathered along the sequence and each output reduce-scattered
-(``resid_spec``).  Mamba and RWKV-6 blocks, encoder-decoder models and
-any ``fsdp_axes`` raise under a plan (``check_plan``): they come with
-later slices.
+(``resid_spec``).  Weights that the plan's ``fsdp_axes`` shard are
+gathered one block at a time (``common.gather_params``), and the embedding
+and the head each before their use.
+
+The training loss under a plan (``lm_loss(plan=)``) takes the whole batch
+on every rank and returns the global loss on every rank: this rank's rows
+run as above, the logits stay vocab-sharded over the model axis and the
+cross entropy is the vocab-parallel one (``nll_sum``), and the nll and
+mask sums are psummed over the batch axes before the division.  With
+``plan.remat`` each block runs under ``torch.utils.checkpoint`` (its
+forward again in the backward, the reference's ``jax.checkpoint`` of the
+scanned group).  Mamba and RWKV-6 blocks and encoder-decoder models raise
+under a plan (``check_plan``): they come with a later slice.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.distributed.collectives import (all_gather, axis_index,
-                                                 local_chunk, psum)
+                                                 local_chunk, pmax, psum)
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.common import (Norm, apply_norm, last_valid,
-                                      sharded_axis, softcap)
+from repro_torch.models.common import (Norm, apply_norm, gather_params,
+                                      last_valid, sharded_axis, softcap,
+                                      unshard)
 from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
                                     mlp_apply, token_shift)
 from repro_torch.sharding.plan import ShardingPlan, resid_spec
@@ -129,7 +142,10 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     that keeps no cache) it returns (x, aux) instead: the MoE layer's
     {"lb_loss", "drop_frac"}, {} for a dense one.  Under ``plan`` x is
     this rank's batch rows, and with ``seq_par`` its sequence slice (the
-    sequence-parallel residual)."""
+    sequence-parallel residual); under a plan with fsdp axes its
+    fsdp-sharded weights are gathered here."""
+    if plan is not None and plan.fsdp_axes:
+        p = gather_params(p)
     h = _seq_gather(apply_norm(cfg, p.norm1, x), plan, seq_par)
     if block_tables is not None and spec.mixer != "attn":
         raise NotImplementedError(
@@ -194,17 +210,20 @@ def apply_stack(cfg: ModelConfig, params: Transformer, x: torch.Tensor, *,
                 kv_len=None, cache_len: int = 0, block_tables=None,
                 spec_scatter=None, plan=None, seq_par: bool = False):
     """Run every block.  Returns (x, new cache list or None); in train mode
-    (x, {"lb_loss": the MoE layers' load-balance losses summed, f32})."""
+    (x, {"lb_loss": the MoE layers' load-balance losses summed, f32}).  In
+    train mode under ``plan.remat`` each block is checkpointed: its
+    activations are recomputed in the backward (the fsdp gathers too)."""
     specs = cfg.layer_plan()
     new_cache = []
     lb_loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = mode == "train" and plan is not None and plan.remat
     for i, blk in enumerate(params.blocks):
-        x, c = block_apply(cfg, specs[i], blk, x, positions=positions,
-                           cache=cache[i] if cache is not None else None,
-                           kv_len=kv_len, mode=mode, cache_len=cache_len,
-                           block_tables=block_tables,
-                           spec_scatter=spec_scatter, plan=plan,
-                           seq_par=seq_par)
+        run = functools.partial(
+            block_apply, cfg, specs[i], blk, positions=positions,
+            cache=cache[i] if cache is not None else None, kv_len=kv_len,
+            mode=mode, cache_len=cache_len, block_tables=block_tables,
+            spec_scatter=spec_scatter, plan=plan, seq_par=seq_par)
+        x, c = checkpoint(run, x, use_reentrant=False) if remat else run(x)
         if mode == "train":
             if "lb_loss" in c:
                 lb_loss = lb_loss + c["lb_loss"]
@@ -219,7 +238,7 @@ def embed_tokens(cfg: ModelConfig, params: Transformer,
                  tokens: torch.Tensor) -> torch.Tensor:
     """Token embeddings; vocab-parallel when the table's rows are sharded
     (each rank's rows looked up, zeros elsewhere, psummed)."""
-    w = params.embed.w
+    w = unshard(params.embed.w)
     ax = sharded_axis(w, 0)
     if ax is None:
         x = w[tokens]
@@ -233,13 +252,20 @@ def embed_tokens(cfg: ModelConfig, params: Transformer,
     return x
 
 
+def _head_weight(cfg: ModelConfig, params: Transformer):
+    """The head's weight [d, Vp] (the tied table's transpose), gathered
+    over fsdp axes, and the axis its vocab is sharded over (or None)."""
+    if cfg.tie_embeddings:
+        w = unshard(params.embed.w)
+        return w.T, sharded_axis(w, 0)
+    w = unshard(params.head.w)
+    return w, sharded_axis(w, 1)
+
+
 def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Tensor:
     """Logits [..., Vp] f32; vocab-parallel when the head's (or the tied
     table's) vocab is sharded, the slices gathered over the model axis."""
-    if cfg.tie_embeddings:
-        w, ax = params.embed.w.T, sharded_axis(params.embed.w, 0)
-    else:
-        w, ax = params.head.w, sharded_axis(params.head.w, 1)
+    w, ax = _head_weight(cfg, params)
     logits = x @ w
     if ax is not None:
         logits = all_gather(logits, ax, logits.dim() - 1)
@@ -247,21 +273,17 @@ def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Ten
 
 
 def check_plan(cfg: ModelConfig, plan: Optional[ShardingPlan]) -> None:
-    """Raise for what a plan cannot shard yet, naming the slice that
-    takes it."""
+    """Raise for the blocks a plan cannot shard yet: Mamba, RWKV-6 and
+    encoder-decoder models, which come with a later slice."""
     if plan is None:
         return
-    if plan.fsdp_axes:
-        raise NotImplementedError(
-            "fsdp_axes shard the weights for training: they come with the "
-            "sharded training slice")
     mixers = {sp.mixer for sp in cfg.layer_plan()}
     if cfg.is_encdec or mixers - {"attn"}:
         kind = "encoder-decoder" if cfg.is_encdec else \
             "/".join(sorted(mixers - {"attn"}))
         raise NotImplementedError(
-            f"{cfg.name}: {kind} blocks under a plan come with the slice "
-            "after sharded training")
+            f"{cfg.name}: {kind} blocks under a plan are not ported yet; "
+            "they come with the recurrent and encoder-decoder sharding slice")
 
 
 def split_batch(plan: Optional[ShardingPlan], *xs):
@@ -318,41 +340,66 @@ def nll_sum(cfg: ModelConfig, params, x: torch.Tensor, labels: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
     """Summed masked cross entropy of the final-normed x [B, S, d] (one
     sequence chunk, the reference's ``_nll_chunk``); the padded
-    vocabulary's columns are masked to -1e30."""
-    logits = lm_head(cfg, params, x)
-    valid = torch.arange(cfg.padded_vocab, device=x.device) < cfg.vocab_size
-    logits = torch.where(valid, logits, torch.full_like(logits, -1e30))
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    return (nll * mask).sum()
+    vocabulary's columns are masked to -1e30.  When the head's vocab is
+    sharded (under a plan's model axis) the logits stay this rank's
+    columns and the log-softmax is vocab-parallel: the max is the pmax of
+    the shards' (detached) maxima, the exponentials' sum a psum, and the
+    label's logit comes from the rank whose columns hold it, psummed; the
+    result is then the same on every rank of the model axis."""
+    w, ax = _head_weight(cfg, params)
+    logits = softcap((x @ w).float(), cfg.final_softcap)
+    v_loc = logits.shape[-1]
+    start = axis_index(ax) * v_loc if ax is not None else 0
+    col = start + torch.arange(v_loc, device=x.device)
+    logits = torch.where(col < cfg.vocab_size, logits,
+                         torch.full_like(logits, -1e30))
+    if ax is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -torch.gather(logp, -1, labels[..., None].long())[..., 0]
+        return (nll * mask).sum()
+    m = pmax(logits.detach().amax(dim=-1, keepdim=True), ax)
+    lse = m[..., 0] + torch.log(psum(torch.exp(logits - m).sum(-1), ax))
+    ids = labels.long() - start
+    mine = (ids >= 0) & (ids < v_loc)
+    picked = torch.gather(logits, -1, ids.clamp(0, v_loc - 1)[..., None])[..., 0]
+    label_logit = psum(torch.where(mine, picked, torch.zeros_like(picked)), ax)
+    return ((lse - label_logit) * mask).sum()
 
 
 def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict, *,
-            loss_chunk: int = 2048):
+            plan: Optional[ShardingPlan] = None, loss_chunk: int = 2048):
     """batch: {"tokens" [B, S] (or "embeds" [B, S, d]), "labels" [B, S]
     (the next tokens), "mask" [B, S] (optional)}.  The cross entropy is
     summed over sequence chunks of ``loss_chunk`` (the whole sequence when
     it does not divide), the [B, chunk, Vp] logits computed a chunk at a
     time, and divided by the mask's sum; an MoE model adds 0.01 x its
     summed load-balance loss / n_layers.  Returns (loss, {"nll",
-    "lb_loss"})."""
-    x = batch.get("embeds")
+    "lb_loss"}).  Under ``plan`` (a mesh set; module docstring) the batch
+    is the whole batch on every rank and so are the results."""
+    labels, mask = batch["labels"], batch.get("mask")
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device) \
+        if mask is None else mask.float()
+    tokens, x, labels, mask = split_batch(plan, batch.get("tokens"),
+                                          batch.get("embeds"), labels, mask)
     if x is None:
-        x = embed_tokens(cfg, params, batch["tokens"])
+        x = embed_tokens(cfg, params, tokens)
     b, s = x.shape[:2]
     positions = default_positions(cfg, b, s, device=x.device)
-    x, aux = apply_stack(cfg, params, x, positions=positions, mode="train")
-    x = apply_norm(cfg, params.final_norm, x)
-    labels = batch["labels"]
-    mask = batch.get("mask")
-    mask = torch.ones(labels.shape, dtype=torch.float32, device=x.device) \
-        if mask is None else mask.float()
+    seq_par = _seq_par(plan, x.shape)
+    if seq_par:
+        x = local_chunk(x, plan.model_axis, 1)
+    x, aux = apply_stack(cfg, params, x, positions=positions, mode="train",
+                         plan=plan, seq_par=seq_par)
+    x = apply_norm(cfg, params.final_norm, _seq_gather(x, plan, seq_par))
     c = min(loss_chunk, s)
     if s % c:
         c = s
     total = sum(nll_sum(cfg, params, x[:, i:i + c], labels[:, i:i + c],
                         mask[:, i:i + c]) for i in range(0, s, c))
-    loss = total / mask.sum().clamp_min(1.0)
+    count = mask.sum()
+    if plan is not None:
+        total, count = psum(total, plan.batch_axes), psum(count, plan.batch_axes)
+    loss = total / count.clamp_min(1.0)
     if cfg.moe is not None:
         loss = loss + 0.01 * aux["lb_loss"] / max(cfg.n_layers, 1)
     return loss, {"nll": loss, "lb_loss": aux["lb_loss"]}

@@ -13,7 +13,8 @@ stack).  ``to_jax_tree`` goes the other way, for checkpoints the reference
 reads.  ``stacked_leaves`` names the port tensors that make up each of the
 reference's stacked leaves (Adafactor factors and clips per such leaf).
 ``shard_params`` cuts a loaded model to one rank's slices under a sharding
-plan (``sharding.specs``).  No JAX import happens here.
+plan (``sharding.specs``), marking the dimensions the plan's fsdp axes
+shard.  No JAX import happens here.
 """
 from __future__ import annotations
 
@@ -147,18 +148,29 @@ def shard_params(cfg: ModelConfig, model: torch.nn.Module, plan) -> None:
     reference tree loaded with ``load_state_dict``, or weights drawn at
     full size) to this rank's slice under ``plan`` on the current mesh, in
     place; each slice carries its spec as ``shard_spec``, which the model
-    code reads.  The full tensors are freed as their slices replace them."""
+    code reads.  Where the plan's ``fsdp_axes`` shard a dimension, the
+    slice also carries ``fsdp_spec`` (those axes at those dimensions, None
+    elsewhere): the model code gathers such a weight before it uses it
+    (``models.common.gather_params``).  The full tensors are freed as their
+    slices replace them; a slice keeps the parameter's ``requires_grad``."""
+    import dataclasses
     from repro_torch.sharding.mesh import current_mesh
     from repro_torch.sharding.specs import param_spec, shard_tensor
     mesh = current_mesh()
     if mesh is None:
         raise RuntimeError("shard_params needs a mesh (sharding.mesh.set_mesh)")
+    tp_plan = dataclasses.replace(plan, fsdp_axes=()) if plan is not None \
+        else None
     for name, p in list(model.named_parameters()):
         spec = param_spec(cfg, plan, name, tuple(p.shape), mesh.shape)
+        tp_spec = param_spec(cfg, tp_plan, name, tuple(p.shape), mesh.shape)
         part = shard_tensor(p.data, spec)
         if part.numel() < p.numel():      # a view would keep the full one
             part = part.clone()
-        part = torch.nn.Parameter(part, requires_grad=False)
+        part = torch.nn.Parameter(part, requires_grad=p.requires_grad)
         part.shard_spec = spec
+        if spec != tp_spec:
+            part.fsdp_spec = tuple(s if s != t else None
+                                   for s, t in zip(spec, tp_spec))
         owner, _, leaf = name.rpartition(".")
         setattr(model.get_submodule(owner), leaf, part)

@@ -18,7 +18,9 @@ A spec is a tuple as in ``repro_torch.sharding.plan``, one axis written
 as its name, as ``PartitionSpec`` writes it.  ``shard_tree``
 cuts this rank's slice of each full tensor (the reference's
 ``device_put`` onto a ``NamedSharding``); ``gather_tree`` puts the full
-tensors back together, for tests.
+tensors back together, for tests.  ``spec_axes`` and ``replicated_axes``
+name the mesh axes a spec shards over and those it is replicated along
+(the sharded train step psums a gradient over the latter).
 """
 from __future__ import annotations
 
@@ -182,6 +184,23 @@ def cache_specs_tree(cfg: ModelConfig, plan: Optional[ShardingPlan], cache,
         shape = tuple(node.shape) if isinstance(node, torch.Tensor) else tuple(node)
         return cache_spec(cfg, plan, name, shape, mesh_shape)
     return walk(cache)
+
+
+def spec_axes(spec: tuple, axis_names) -> tuple[str, ...]:
+    """The axes of ``axis_names`` (a mesh's, in its order) that ``spec``
+    shards any dimension over."""
+    named = set()
+    for entry in spec:
+        if entry is not None:
+            named.update((entry,) if isinstance(entry, str) else entry)
+    return tuple(a for a in axis_names if a in named)
+
+
+def replicated_axes(spec: tuple, axis_names) -> tuple[str, ...]:
+    """The axes of ``axis_names`` along which a tensor of ``spec`` is
+    replicated: every one the spec does not name."""
+    named = spec_axes(spec, axis_names)
+    return tuple(a for a in axis_names if a not in named)
 
 
 def shard_tensor(x: torch.Tensor, spec: tuple) -> torch.Tensor:

@@ -1,12 +1,14 @@
-"""Gradient compression, single-device pieces.  Port of
-``repro/training/grad_compress.py``: int8 quantization (per-tensor absmax
-scale) and top-k sparsification with its error-feedback residual.  The
-data-parallel mean over compressed gradients (``dp_mean_compressed``)
-needs a process group and comes with the multi-device slice.
+"""Gradient compression.  Port of ``repro/training/grad_compress.py``:
+int8 quantization (per-tensor absmax scale), the data-parallel mean over
+int8-compressed gradients (``dp_mean_compressed``, over an axis of the
+current mesh), and top-k sparsification with its error-feedback residual.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.distributed.collectives import pmax, psum
+from repro_torch.sharding.mesh import Axes, axis_size
 
 
 def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -17,6 +19,25 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
+
+
+@torch.no_grad()
+def dp_mean_compressed(grads: dict, axis: Axes) -> dict:
+    """The mean of each gradient over the ranks of ``axis``, sent as int8:
+    each rank quantizes its gradient (its own absmax scale), the int8
+    payloads are psummed as int32, and the sum is dequantized with the
+    largest of the ranks' scales (pmax) and divided by their number.  The
+    reference's body under ``shard_map``, with the gradients replicated
+    over the other axes."""
+    n = axis_size(axis)
+
+    def one(g):
+        q, s = quantize_int8(g.float())
+        total = psum(q.to(torch.int32), axis)
+        s_max = pmax(s, axis)
+        return (total.float() * s_max / n).to(g.dtype)
+
+    return {k: one(g) for k, g in grads.items()}
 
 
 def topk_sparsify(g: torch.Tensor, frac: float = 0.01):

@@ -4,8 +4,9 @@ full, under every plan ``candidate_plans`` builds (train, prefill and
 decode shapes), on {data: 2, model: 2}, {data: 1, model: 4} and {data: 16,
 model: 16}; the flash-decoding partial and its merge against the JAX
 package's; the mesh's rank order and collectives on 4 gloo ranks, and the
-backend it picks from where the ranks compute; and the places a plan
-raises, as the reference does or until a later slice."""
+backend it picks from where the ranks compute; the optimizer state's
+specs under every train plan; and the places a plan raises, as the
+reference does or until a later slice."""
 import dataclasses
 import functools
 import json
@@ -24,6 +25,8 @@ from repro.core import deployer as jax_deployer
 from repro.kernels.decode_attention import xla as jax_decode
 from repro.models import api as jax_api
 from repro.sharding import specs as jax_specs
+from repro.training import OptConfig as JaxOptConfig
+from repro.training import optimizer as jax_opt
 from repro_torch.configs import get_config
 from repro_torch.distributed.ranks import run_ranks
 from repro_torch.kernels.decode_attention import (combine_partials,
@@ -37,7 +40,9 @@ from repro_torch.sharding import ShardingPlan
 from repro_torch.sharding import specs
 from repro_torch.sharding.mesh import (axis_size, choose_backend, divisible,
                                        placement)
-from repro_torch.training import TrainConfig, make_train_step
+from repro_torch.params import stacked_leaves
+from repro_torch.training import (OptConfig, TrainConfig, make_train_step,
+                                  opt_state_specs)
 
 import torch_sharded_port
 
@@ -294,23 +299,92 @@ def test_plans_raise_where_the_reference_does():
 def test_recurrent_and_encdec_blocks_raise_under_a_plan(arch):
     cfg = get_config(arch).reduced()
     toks = torch.zeros((2, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="slice after sharded training"):
+    match = "recurrent and encoder-decoder sharding slice"
+    with pytest.raises(NotImplementedError, match=match):
         api.prefill(cfg, None, {"tokens": toks}, cache_len=8, plan=TP_DP)
-    with pytest.raises(NotImplementedError, match="slice after sharded training"):
+    with pytest.raises(NotImplementedError, match=match):
         api.decode_step(cfg, None, toks[:, :1], None,
                         torch.zeros(2, dtype=torch.int32), plan=TP_DP)
+    with pytest.raises(NotImplementedError, match=match):
+        api.loss_fn(cfg, None, {"tokens": toks, "labels": toks}, plan=TP_DP)
 
 
 def test_training_paged_and_fsdp_raise_under_a_plan():
+    """Only the paged engine still raises under a plan.  Training and an
+    fsdp plan run (``test_torch_sharded_train.py`` holds them on 4 ranks);
+    without a mesh every axis has size 1, so each is the unsharded
+    function."""
     cfg = get_config("smollm-135m").reduced()
     model = api.init_params(cfg, device="cpu")
-    toks = torch.zeros((2, 4), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="sharded training slice"):
-        api.loss_fn(cfg, model, {"tokens": toks, "labels": toks}, plan=TP_DP)
-    with pytest.raises(NotImplementedError, match="sharded training slice"):
-        make_train_step(cfg, TP_DP, TrainConfig())
-    with pytest.raises(NotImplementedError, match="sharded training slice"):
-        api.prefill(cfg, model, {"tokens": toks}, cache_len=8,
-                    plan=ShardingPlan(batch_axes=("data",), fsdp_axes=("data",)))
+    toks = torch.arange(8, dtype=torch.long).reshape(2, 4) + 2
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    fsdp = ShardingPlan(batch_axes=("data",), model_axis="model",
+                        fsdp_axes=("data",), seq_parallel=True, remat=True)
+    with torch.no_grad():
+        want = api.loss_fn(cfg, model, batch)[0]
+        for plan in (TP_DP, fsdp):
+            assert torch.equal(api.loss_fn(cfg, model, batch, plan=plan)[0],
+                               want)
+        lg = api.prefill(cfg, model, {"tokens": toks}, cache_len=8)[0]
+        assert torch.equal(api.prefill(cfg, model, {"tokens": toks},
+                                       cache_len=8, plan=fsdp)[0], lg)
+    assert callable(make_train_step(cfg, TP_DP, TrainConfig()))
     with pytest.raises(NotImplementedError, match="later slice"):
         PagedEngine(cfg, model, PagedEngineConfig(), plan=TP_DP)
+
+
+def _train_plans(jcfg):
+    return [p for p in _plans(jcfg) if p.remat]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_opt_state_specs_equal_the_reference(arch):
+    """AdamW's and Adafactor's state specs on the port's names (a stacked
+    leaf's factors under its ``stacked_leaves`` key) against the
+    reference's ``opt_state_specs`` of its ``param_specs``, for every train
+    plan of ``candidate_plans`` on the three meshes, reduced and full."""
+    for reduced in (True, False):
+        jcfg, cfg, struct, _, plans = _arch(arch, reduced)
+        period = len(struct.get("blocks", {})) or 1
+        leaves = _leaves(struct)
+        for mesh in MESHES:
+            for jplan in _train_plans(jcfg):
+                plan = _port_plan(jplan)
+                ref_specs = jax_specs.param_specs(jcfg, jplan, struct, mesh)
+                port = {}
+                for path, leaf in leaves:
+                    stacked = path[0] in ("blocks", "enc_blocks", "dec_blocks")
+                    body = leaf.shape[1:] if stacked else leaf.shape
+                    for name in _port_names(path, leaf.shape, period):
+                        port[name] = specs.param_spec(cfg, plan, name, body, mesh)
+                stacks = stacked_leaves(cfg, port)
+                for kind in ("adamw", "adafactor"):
+                    ref = jax_opt.opt_state_specs(ref_specs,
+                                                  JaxOptConfig(kind=kind))
+                    got = opt_state_specs(port, OptConfig(kind=kind), stacks)
+                    assert set(got) == set(ref)
+                    for part, tree in ref.items():
+                        want = {}
+                        for path, spec in _leaves(tree):
+                            stacked = path[0] in ("blocks", "enc_blocks",
+                                                  "dec_blocks")
+                            if kind == "adafactor" or not stacked:
+                                key = _state_key(path)
+                                want[key] = tuple(spec)
+                            else:
+                                for name in _port_names(
+                                        path, dict(leaves)[path].shape, period):
+                                    want[name] = tuple(spec)[1:]
+                        assert got[part] == want, (arch, reduced, jplan, kind,
+                                                   part)
+
+
+def _state_key(path) -> str:
+    """The port's key of a reference leaf: its ``stacked_leaves`` key in a
+    stack, its name elsewhere."""
+    top = path[0]
+    if top == "blocks":
+        return f"blocks.{path[1][1:]}." + ".".join(path[2:])
+    if top in ("enc_blocks", "dec_blocks"):
+        return f"{top}.0." + ".".join(path[1:])
+    return ".".join(path)

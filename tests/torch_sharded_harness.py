@@ -1,19 +1,23 @@
-"""Harness of the sharded serve tests (``test_torch_sharded_*.py``): the
-port's multi-device serve path on 4 gloo ranks on the CPU, held to the JAX
-package's sharded functions on an ``Auto`` mesh of 4 placeholder devices
-and to the port's unsharded functions, on the same numpy weights and
-inputs.
+"""Harness of the sharded tests (``test_torch_sharded_*.py``): the port's
+multi-device serve and train paths on 4 gloo ranks on the CPU, held to the
+JAX package's sharded functions on an ``Auto`` mesh of 4 placeholder
+devices and to the port's unsharded functions, on the same numpy weights
+and inputs.
 
 ``run_cases(cases, tmp)`` draws each arch's weights once with the JAX
 package's initialiser (f32, numpy), writes them, the inputs and the spec
-to ``tmp``, runs the 4 port ranks (``torch_sharded_port.rank_main``),
-then the JAX oracle subprocess (``torch_sharded_jax.py``) and, while it
-runs, the unsharded port on every case in this process; every wait is
+to ``tmp``, starts the JAX oracle subprocess (``torch_sharded_jax.py``)
+and, while it runs, the 4 port ranks (``torch_sharded_port.rank_main``)
+and then the unsharded port on every case in this process; every wait is
 bounded.  It returns the three sets of results and each rank's log of
 kernel-wrapper calls.
 
 Plans are built as the deployer's ``candidate_plans`` builds them, on the
-meshes {data: 2, model: 2} and {data: 1, model: 4}.
+meshes {data: 2, model: 2} and {data: 1, model: 4}.  The train cases
+(``grad``: the loss and every gradient; ``step``: three train steps;
+``opt``: two optimizer updates on given gradients; ``compress``:
+``dp_mean_compressed`` over data) take the train form of
+each plan (``remat``, ``seq_parallel``, no sequence axes).
 """
 import dataclasses
 import json
@@ -30,6 +34,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.models import api as jax_api
 from repro_torch.distributed.ranks import run_ranks
+from repro_torch.params import to_jax_tree
 
 import torch_sharded_port as port
 
@@ -54,6 +59,21 @@ PLANS = {
     # tests/sharded_numerics_worker.py's plan (absorbed MLA decode)
     "worker": dict(batch_axes=["data"], model_axis="model",
                    seq_axes=["model"]),
+    # the train forms: tp16_dp16[_fsdp][_mbN], ep16_tp16_fsdp, dp
+    "tp_dp_train": dict(batch_axes=["data"], model_axis="model",
+                        seq_parallel=True, mla_absorbed=False, remat=True),
+    "tp_dp_noremat": dict(batch_axes=["data"], model_axis="model",
+                          seq_parallel=True, mla_absorbed=False),
+    "tp_dp_fsdp": dict(batch_axes=["data"], model_axis="model",
+                       fsdp_axes=["data"], seq_parallel=True,
+                       mla_absorbed=False, remat=True),
+    "tp_dp_fsdp_mb2": dict(batch_axes=["data"], model_axis="model",
+                           fsdp_axes=["data"], seq_parallel=True,
+                           mla_absorbed=False, remat=True, microbatches=2),
+    "ep_tp_fsdp": dict(batch_axes=["data"], model_axis="model",
+                       ep_axis="data", fsdp_axes=["data"], seq_parallel=True,
+                       mla_absorbed=False, remat=True),
+    "dp_train": dict(batch_axes=["data", "model"], remat=True),
 }
 # chatglm2-6b with its full config's 2 KV heads: model = 2 takes head-TP
 OVERRIDES = {"chatglm2-6b": {"n_kv_heads": 2}}
@@ -63,6 +83,7 @@ ENGINE_CACHE = 32
 PROMPT_LENS = [5, 16, 9, 12, 7, 14]
 NEW = [6, 4, 5, 6, 3, 5]
 TIMEOUT = 240.0
+TRAIN_STEPS = 3
 
 
 def plan_case(kind, arch, mesh, plan, capacity=None, **extra):
@@ -72,6 +93,8 @@ def plan_case(kind, arch, mesh, plan, capacity=None, **extra):
         cid += f"-cf{capacity:g}"
     if extra.get("n_prompts"):
         cid += f"-b{extra['n_prompts']}"
+    if extra.get("opt"):
+        cid += f"-{extra['opt']}"
     return dict(id=cid, kind=kind, arch=arch, over=over, mesh=list(mesh),
                 plan=PLANS[plan], plan_name=plan, capacity=capacity, **extra)
 
@@ -95,6 +118,22 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _train_batch(cfg, rng, n_shards: int) -> dict:
+    """tokens, their next tokens as labels, and a mask whose count is the
+    same in each of ``n_shards`` equal row blocks (then a batch-sharded MoE
+    loss is the mean of the unsharded loss over the blocks)."""
+    toks = rng.integers(2, cfg.vocab_size, (B, S)).astype(np.int32)
+    mask = (rng.random((B // n_shards, S)) > 0.2).astype(np.float32)
+    mask = np.concatenate([np.roll(mask, i, 1) for i in range(n_shards)])
+    return {"tokens": toks, "labels": np.roll(toks, -1, 1), "mask": mask}
+
+
+def _shards(case) -> int:
+    """The batch shards of a case's plan on its mesh."""
+    sizes = dict(zip(("data", "model"), case["mesh"]))
+    return int(np.prod([sizes[a] for a in case["plan"].get("batch_axes", [])]))
+
+
 def _inputs(case, cfg, rng, inputs):
     cid = case["id"]
     if case["kind"] == "logits":
@@ -111,6 +150,42 @@ def _inputs(case, cfg, rng, inputs):
         case["new"] = NEW[:n]
         case["max_batch"] = 4
         case["cache_len"] = ENGINE_CACHE
+    elif case.get("inputs_from"):
+        src = case["inputs_from"] + "/"
+        for key in [k for k in inputs if k.startswith(src)]:
+            inputs[cid + "/" + key[len(src):]] = inputs[key]
+        case["per_shard"], case["steps"] = 1, 1
+    elif case["kind"] in ("grad", "step"):
+        # a batch-sharded MoE is the mean of the unsharded function over
+        # the batch shards, not the function of the whole batch
+        case["per_shard"] = _shards(case) if cfg.moe is not None else 1
+        case["steps"] = TRAIN_STEPS if case["kind"] == "step" else 1
+        for i in range(case["steps"]):
+            for k, v in _train_batch(cfg, rng, case["per_shard"]).items():
+                inputs[f"{cid}/{i}/{k}"] = v
+    elif case["kind"] == "opt":
+        # two updates, each on gradients drawn here: the optimizer on
+        # identical inputs, in the port's names and the reference's tree
+        cfg_p, model = port.load_model(case)
+        for i in range(2):
+            grads = {n: (rng.standard_normal(tuple(t.shape)) * 1e-2)
+                     .astype(np.float32) for n, t in model.state_dict().items()}
+            for name, g in grads.items():
+                inputs[f"{cid}/{i}/g/{name}"] = g
+            for path, g in _flat(to_jax_tree(cfg_p, grads)).items():
+                inputs[f"{cid}/{i}/jg/{path}"] = g
+    elif case["kind"] == "compress":
+        # each data rank's own gradient: the unsharded port's on its rows
+        cfg_p, model = port.load_model(case)
+        model.requires_grad_(True)
+        batch = _train_batch(cfg, rng, 1)
+        n = case["mesh"][0]
+        for i in range(n):
+            rows = {k: torch.as_tensor(v[i * B // n:(i + 1) * B // n])
+                    for k, v in batch.items()}
+            _, _, grads = port.value_and_grad(cfg_p, None, model, rows)
+            for name, g in grads.items():
+                inputs[f"{cid}/g{i}/{name}"] = g.numpy()
     else:
         inputs[f"{cid}/x"] = rng.standard_normal(
             (B, S, cfg.d_model)).astype(np.float32)
@@ -135,17 +210,17 @@ def run_cases(cases, tmp) -> dict:
 
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu")
     env.pop("XLA_FLAGS", None)
-    # the ranks first, then the oracle beside the unsharded port (one
-    # torch thread, as each rank): the file never loads more than ~4 cores
-    # of the 6-worker test run at once
-    run_ranks(port.rank_main, (str(spec), str(tmp)), world=4, timeout=60.0,
-              join_timeout=TIMEOUT)
+    # the oracle (compiles, one core) beside the 4 ranks, then beside the
+    # unsharded port (one torch thread, as each rank): the file loads at
+    # most ~5 cores of the 6-worker test run at once
     plain_arrays, plain_tokens = {}, {}
     with open(tmp / "jax.log", "w") as log:
         oracle = subprocess.Popen(
             [sys.executable, str(HERE / "torch_sharded_jax.py"), str(spec),
              str(tmp)], stdout=log, stderr=subprocess.STDOUT, env=env)
         try:
+            run_ranks(port.rank_main, (str(spec), str(tmp)), world=4,
+                      timeout=60.0, join_timeout=TIMEOUT)
             threads = torch.get_num_threads()
             torch.set_num_threads(1)
             try:
@@ -173,6 +248,25 @@ def run_cases(cases, tmp) -> dict:
         "plain": plain_arrays, "plain_tokens": plain_tokens,
         "calls": [json.loads((tmp / f"calls{r}.json").read_text()) for r in range(4)],
     }
+
+
+def jax_tree_of(arrays: dict, prefix: str) -> dict:
+    """The nested tree of the arrays keyed ``prefix/a/b/...``."""
+    tree = {}
+    for key, val in arrays.items():
+        if key.startswith(prefix + "/"):
+            node = tree
+            *parents, leaf = key[len(prefix) + 1:].split("/")
+            for part in parents:
+                node = node.setdefault(part, {})
+            node[leaf] = val
+    return tree
+
+
+def port_arrays(arrays: dict, prefix: str) -> dict:
+    """The arrays keyed ``prefix/NAME``, by NAME."""
+    return {k[len(prefix) + 1:]: v for k, v in arrays.items()
+            if k.startswith(prefix + "/")}
 
 
 def max_err(a, b) -> float:

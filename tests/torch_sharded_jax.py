@@ -1,14 +1,17 @@
 """The JAX package's sharded functions on 4 placeholder CPU devices: the
-oracle of the port's multi-device serve path (``torch_sharded_harness``).
+oracle of the port's multi-device serve and train paths
+(``torch_sharded_harness``).
 
     python torch_sharded_jax.py SPEC.json OUT_DIR
 
-Runs every case of SPEC (logits, engine, continuous, moe_block) under a
-mesh of ``Auto`` axes, the layout the reference's sharded code expects
-(``jax.make_mesh`` defaults to ``Explicit`` axes in JAX 0.9, under which
-the embedding gather and ``with_sharding_constraint`` fail), with the
-parameters placed by ``param_specs``.  Weights and inputs come from the
-harness's numpy files; results go to OUT_DIR/jax.npz and jax.json.
+Runs every case of SPEC (logits, engine, continuous, moe_block, grad,
+step, opt, compress) under a mesh of ``Auto`` axes, the layout the reference's
+sharded code expects (``jax.make_mesh`` defaults to ``Explicit`` axes in
+JAX 0.9, under which the embedding gather and ``with_sharding_constraint``
+fail), with the parameters placed by ``param_specs``, the optimizer state
+by ``opt_state_specs`` and the batch over the plan's batch axes, as
+``launch/dryrun.py`` lowers its train step.  Weights and inputs come from
+the harness's numpy files; results go to OUT_DIR/jax.npz and jax.json.
 """
 import os
 
@@ -31,9 +34,14 @@ from repro.configs import get_config  # noqa: E402
 from repro.core.types import Batch, Request  # noqa: E402
 from repro.models import api, moe  # noqa: E402
 from repro.serving.engine import EngineConfig, InferenceEngine  # noqa: E402
-from repro.sharding.compat import set_mesh  # noqa: E402
+from repro.sharding.compat import set_mesh, shard_map  # noqa: E402
 from repro.sharding.plan import ShardingPlan  # noqa: E402
 from repro.sharding.specs import param_specs  # noqa: E402
+from repro.training import OptConfig, TrainConfig  # noqa: E402
+from repro.training import init_opt_state, make_train_step  # noqa: E402
+from repro.training.grad_compress import dp_mean_compressed  # noqa: E402
+from repro.training.optimizer import apply_updates  # noqa: E402
+from repro.training.optimizer import opt_state_specs  # noqa: E402
 
 
 def config(case):
@@ -45,14 +53,22 @@ def config(case):
 
 
 def load_tree(path):
-    tree = {}
     with np.load(path) as f:
-        for key in f.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for part in parents:
-                node = node.setdefault(part, {})
-            node[leaf] = f[key]
+        return load_tree_of({k: f[k] for k in f.files}, "")
+
+
+def load_tree_of(arrays, prefix):
+    """The nested tree of the arrays keyed ``prefix/a/b/...`` (every
+    array when ``prefix`` is empty)."""
+    tree = {}
+    for key, val in arrays.items():
+        if prefix and not key.startswith(prefix + "/"):
+            continue
+        node = tree
+        *parents, leaf = key[len(prefix) + 1 if prefix else 0:].split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val
     return tree
 
 
@@ -60,6 +76,91 @@ def requests(case):
     return [Request(rid=i, tokens=p, input_len=len(p), slo=1e9, arrival=0.0,
                     true_output_len=n)
             for i, (p, n) in enumerate(zip(case["prompts"], case["new"]))]
+
+
+def _flat(tree, prefix):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}/{k}"))
+        else:
+            out[f"{prefix}/{k}"] = np.asarray(v)
+    return out
+
+
+def _place(mesh, tree, specs):
+    return jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(mesh, s)),
+                        tree, specs, is_leaf=lambda s: isinstance(s, P))
+
+
+def _batch(mesh, plan, inputs, cid, i=0):
+    axes = plan.batch_axes if len(plan.batch_axes) > 1 else plan.batch_axes[0]
+    return {k: jax.device_put(inputs[f"{cid}/{i}/{k}"],
+                              NamedSharding(mesh, P(axes)))
+            for k in ("tokens", "labels", "mask")}
+
+
+def run_train(case, cfg, plan, mesh, params, specs, inputs, out):
+    """grad: the loss, its metrics and every gradient of the sharded
+    ``loss_fn``; step: three steps of the sharded ``make_train_step``
+    (and Adafactor's moments after the first)."""
+    cid = case["id"]
+    if case["kind"] == "grad":
+        (loss, met), grads = jax.jit(jax.value_and_grad(
+            lambda p, b: api.loss_fn(cfg, p, b, plan=plan), has_aux=True))(
+            params, _batch(mesh, plan, inputs, cid))
+        out[f"{cid}/loss"] = np.asarray(loss)
+        out[f"{cid}/nll"] = np.asarray(met["nll"])
+        out[f"{cid}/lb_loss"] = np.asarray(met["lb_loss"])
+        out.update(_flat(grads, f"{cid}/grad"))
+        return
+    tcfg = TrainConfig(opt=OptConfig(kind=case["opt"]),
+                       microbatches=plan.microbatches)
+    opt = _place(mesh, init_opt_state(params, tcfg.opt),
+                 opt_state_specs(specs, tcfg.opt))
+    step_fn = jax.jit(make_train_step(cfg, plan, tcfg))
+    for i in range(case["steps"]):
+        params, opt, m = step_fn(params, opt, _batch(mesh, plan, inputs, cid, i),
+                                 jnp.asarray(i, jnp.int32))
+        out[f"{cid}/loss{i}"] = np.asarray(m["loss"])
+        out[f"{cid}/grad_norm{i}"] = np.asarray(m["grad_norm"])
+        if i == 0 and case["opt"] == "adafactor":
+            for part in ("vr", "vc"):
+                out.update(_flat(opt[part], f"{cid}/{part}"))
+
+
+def run_opt(case, mesh, params, specs, inputs, out):
+    """Two ``apply_updates`` of the case's optimizer on the harness's
+    gradients, everything placed by its specs; the new parameters and
+    the state."""
+    cid = case["id"]
+    ocfg = OptConfig(kind=case["opt"])
+    ospecs = opt_state_specs(specs, ocfg)
+    state = _place(mesh, init_opt_state(params, ocfg), ospecs)
+    update = jax.jit(lambda p, g, st, i: apply_updates(p, g, st, i, ocfg))
+    for i in range(2):
+        grads = _place(mesh, load_tree_of(inputs, f"{cid}/{i}/jg"), specs)
+        params, state = update(params, grads, state,
+                               jnp.asarray(i + 1, jnp.float32))
+    out.update(_flat(params, f"{cid}/p"))
+    for part, tree in state.items():
+        out.update(_flat(tree, f"{cid}/{part}"))
+
+
+def run_compress(case, mesh, inputs, out):
+    """``dp_mean_compressed`` under ``shard_map`` over data: data rank i
+    holds gradient i, replicated over model."""
+    cid = case["id"]
+    n = case["mesh"][0]
+    names = [k[len(f"{cid}/g0/"):] for k in inputs if k.startswith(f"{cid}/g0/")]
+    stacked = {k: np.stack([inputs[f"{cid}/g{i}/{k}"] for i in range(n)])
+               for k in names}
+    fn = shard_map(lambda g: dp_mean_compressed(
+        jax.tree.map(lambda a: a[0], g), "data"), mesh=mesh,
+        in_specs=(P("data"),), out_specs=P())
+    mean = jax.jit(fn)(stacked)
+    for k, v in mean.items():
+        out[f"{cid}/mean/{k}"] = np.asarray(v)
 
 
 def run(case, mesh, inputs, out_arrays, out_json):
@@ -74,7 +175,13 @@ def run(case, mesh, inputs, out_arrays, out_json):
     params = jax.tree.map(lambda a, s: jax.device_put(a, NamedSharding(mesh, s)),
                           params, specs, is_leaf=lambda s: isinstance(s, P))
     cid = case["id"]
-    if case["kind"] == "logits":
+    if case["kind"] in ("grad", "step"):
+        run_train(case, cfg, plan, mesh, params, specs, inputs, out_arrays)
+    elif case["kind"] == "opt":
+        run_opt(case, mesh, params, specs, inputs, out_arrays)
+    elif case["kind"] == "compress":
+        run_compress(case, mesh, inputs, out_arrays)
+    elif case["kind"] == "logits":
         toks = jnp.asarray(inputs[f"{cid}/tokens"])
         kv_len = jnp.asarray(inputs[f"{cid}/kv_len"])
         steps = inputs[f"{cid}/steps"]

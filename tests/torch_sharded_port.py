@@ -1,13 +1,17 @@
-"""The port's side of the sharded serve tests: one rank of a 4-rank gloo
-run on the CPU (``repro_torch.distributed.ranks.run_ranks``), started by
+"""The port's side of the sharded tests: one rank of a 4-rank gloo run on
+the CPU (``repro_torch.distributed.ranks.run_ranks``), started by
 ``torch_sharded_harness``.  Imports torch and the port only.
 
 Each rank loads the harness's numpy weights into the port's model, cuts
 them to its slices (``params.shard_params``) and runs every case of the
 spec under the case's mesh and plan: prefill and decode logits, the
-engine padded or continuous, or one MoE block.  Rank 0 writes the
-arrays and tokens; every rank writes which attention wrappers it called,
-with what shapes, to show which path each plan took."""
+engine padded or continuous, one MoE block, the loss and its gradients
+(gathered to full), three train steps, or ``dp_mean_compressed``.  Rank 0
+writes the arrays and tokens; every rank writes which attention wrappers
+it called, with what shapes, to show which path each plan took.
+``collective_probe`` holds each differentiable collective's backward to
+its transpose and its forward under ``no_grad`` to plain
+``torch.distributed`` calls."""
 import dataclasses
 import json
 import os
@@ -15,6 +19,7 @@ from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs import get_config
 from repro_torch.core.types import Batch, Request
@@ -23,10 +28,17 @@ from repro_torch.distributed.collectives import all_gather, local_chunk
 from repro_torch.models import api
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe
-from repro_torch.params import from_jax_params, shard_params
+from repro_torch.params import from_jax_params, shard_params, stacked_leaves
 from repro_torch.serving import EngineConfig, InferenceEngine
 from repro_torch.sharding import Mesh, ShardingPlan, set_mesh
-from repro_torch.sharding.specs import gather_tree, shard_tree
+from repro_torch.sharding.specs import (gather_tensor, gather_tree,
+                                        shard_tensor, shard_tree)
+from repro_torch.training import (OptConfig, TrainConfig, apply_updates,
+                                  init_opt_state, make_train_step,
+                                  opt_state_specs)
+from repro_torch.training.grad_compress import (dp_mean_compressed,
+                                                quantize_int8)
+from repro_torch.training.trainer import clip_and_update, value_and_grad
 
 
 def config(case):
@@ -64,10 +76,143 @@ def requests(case):
             for i, (p, n) in enumerate(zip(case["prompts"], case["new"]))]
 
 
+def train_batch(inputs, cid, i=0) -> dict:
+    return {k: torch.as_tensor(inputs[f"{cid}/{i}/{k}"])
+            for k in ("tokens", "labels", "mask")}
+
+
+def _rows(batch: dict, n: int, i: int) -> dict:
+    return {k: v.chunk(n)[i] for k, v in batch.items()}
+
+
+def grads_of(cfg, model, plan, batch, per_shard: int = 1, microbatches=1):
+    """(loss, metrics, full gradients): under ``plan`` this rank's slices
+    gathered; unsharded, with ``per_shard`` > 1, the mean of the unsharded
+    function over that many row blocks (a batch-sharded MoE's function)."""
+    if plan is not None or per_shard == 1:
+        loss, metrics, grads = value_and_grad(cfg, plan, model, batch,
+                                              microbatches)
+    else:
+        parts = [value_and_grad(cfg, None, model, _rows(batch, per_shard, i),
+                                microbatches) for i in range(per_shard)]
+        loss = sum(p[0] for p in parts) / per_shard
+        metrics = {k: sum(p[1][k] for p in parts) / per_shard
+                   for k in parts[0][1]}
+        grads = {k: sum(p[2][k] for p in parts) / per_shard
+                 for k in parts[0][2]}
+    if plan is not None:
+        specs = {n: p.shard_spec for n, p in model.named_parameters()}
+        grads = {n: gather_tensor(g, specs[n]) for n, g in grads.items()}
+    return loss, metrics, grads
+
+
+def per_shard_step(cfg, tcfg, n: int):
+    """The unsharded train step of a batch-sharded MoE: the loss and the
+    gradient the mean of the unsharded ones over ``n`` row blocks, then
+    the port's clip and update (``trainer.clip_and_update``)."""
+    def step(model, opt, batch, i):
+        loss, _, grads = grads_of(cfg, model, None, batch, n, tcfg.microbatches)
+        gnorm = clip_and_update(cfg, None, tcfg, model, opt, grads, i)
+        return model, opt, {"loss": loss, "grad_norm": gnorm}
+    return step
+
+
+def run_train_case(case, cfg, model, plan, inputs, arrays):
+    cid = case["id"]
+    model.requires_grad_(True)
+    per_shard = case["per_shard"]
+    if case["kind"] == "grad":
+        loss, metrics, grads = grads_of(cfg, model, plan,
+                                        train_batch(inputs, cid), per_shard)
+        arrays[f"{cid}/loss"] = loss.numpy()
+        for k, v in metrics.items():
+            arrays[f"{cid}/{k}"] = v.numpy()
+        for name, g in grads.items():
+            arrays[f"{cid}/grad/{name}"] = g.numpy()
+        return
+    tcfg = TrainConfig(opt=OptConfig(kind=case["opt"]),
+                       microbatches=case["plan"].get("microbatches", 1))
+    named = {k: p.detach() for k, p in model.named_parameters()}
+    stacks = stacked_leaves(cfg, named)
+    opt = init_opt_state(named, tcfg.opt, stacks)
+    if plan is None and per_shard > 1:
+        step_fn = per_shard_step(cfg, tcfg, per_shard)
+    else:
+        step_fn = make_train_step(cfg, plan, tcfg)
+    for i in range(case["steps"]):
+        model, opt, m = step_fn(model, opt, train_batch(inputs, cid, i), i)
+        arrays[f"{cid}/loss{i}"] = m["loss"].numpy()
+        arrays[f"{cid}/grad_norm{i}"] = m["grad_norm"].numpy()
+        if i == 0 and case["opt"] == "adafactor":
+            specs = opt_state_specs(
+                {n: getattr(p, "shard_spec", ()) for n, p in
+                 model.named_parameters()}, tcfg.opt, stacks)
+            for part in ("vr", "vc"):
+                for key, t in opt[part].items():
+                    full = gather_tensor(t, specs[part][key]) \
+                        if plan is not None else t
+                    arrays[f"{cid}/{part}/{key}"] = full.numpy()
+
+
+def run_opt_case(case, cfg, model, plan, inputs, arrays):
+    """Two updates of the case's optimizer on the harness's gradients
+    (this rank's slices of them under ``plan``); the new parameters and
+    the state, gathered to full."""
+    cid = case["id"]
+    ocfg = OptConfig(kind=case["opt"])
+    specs = {n: getattr(p, "shard_spec", ()) for n, p in model.named_parameters()}
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    stacks = stacked_leaves(cfg, params)
+    state = init_opt_state(params, ocfg, stacks)
+    for i in range(2):
+        grads = {n: torch.as_tensor(inputs[f"{cid}/{i}/g/{n}"]) for n in params}
+        if plan is not None:
+            grads = {n: shard_tensor(g, specs[n]) for n, g in grads.items()}
+        params, state = apply_updates(params, grads, state, float(i + 1), ocfg,
+                                      stacks, specs if plan is not None else None)
+    state_specs = opt_state_specs(specs, ocfg, stacks)
+    for n, t in params.items():
+        arrays[f"{cid}/p/{n}"] = (gather_tensor(t, specs[n]) if plan is not None
+                                  else t).numpy()
+    for part, tensors in state.items():
+        for key, t in tensors.items():
+            full = gather_tensor(t, state_specs[part][key]) \
+                if plan is not None else t
+            arrays[f"{cid}/{part}/{key}"] = full.numpy()
+
+
+def run_compress_case(case, plan, inputs, arrays):
+    """Each data rank's gradient (the harness's) averaged over data by
+    ``dp_mean_compressed``; unsharded, the same arithmetic from the
+    single-device pieces."""
+    cid = case["id"]
+    n = case["mesh"][0]
+    local = [{k[len(f"{cid}/g{i}/"):]: torch.as_tensor(v)
+              for k, v in inputs.items() if k.startswith(f"{cid}/g{i}/")}
+             for i in range(n)]
+    if plan is not None:
+        out = dp_mean_compressed(local[C.axis_index("data")], "data")
+    else:
+        out = {}
+        for name in local[0]:
+            qs = [quantize_int8(g[name].float()) for g in local]
+            total = sum(q.to(torch.int32) for q, _ in qs)
+            s_max = torch.stack([s for _, s in qs]).max()
+            out[name] = (total.float() * s_max / n).to(local[0][name].dtype)
+    for name, g in out.items():
+        arrays[f"{cid}/mean/{name}"] = g.numpy()
+
+
 def run_case(case, cfg, model, plan, inputs, arrays, tokens):
     """One case on this rank (plan None: the unsharded port)."""
     cid = case["id"]
-    if case["kind"] == "logits":
+    if case["kind"] in ("grad", "step"):
+        run_train_case(case, cfg, model, plan, inputs, arrays)
+    elif case["kind"] == "opt":
+        run_opt_case(case, cfg, model, plan, inputs, arrays)
+    elif case["kind"] == "compress":
+        run_compress_case(case, plan, inputs, arrays)
+    elif case["kind"] == "logits":
         toks = torch.as_tensor(inputs[f"{cid}/tokens"]).long()
         kv_len = torch.as_tensor(inputs[f"{cid}/kv_len"])
         lg, cache = api.prefill(cfg, model, {"tokens": toks},
@@ -198,3 +343,93 @@ def mesh_probe(rank: int, out_dir: str) -> None:
             }
     with open(os.path.join(out_dir, f"mesh{rank}.json"), "w") as f:
         json.dump(seen, f)
+
+
+def _old_forward(name, x, axis, *dims):
+    """Each collective's forward as plain ``torch.distributed`` calls on
+    the current mesh (the CPU ranks' gloo), the yardstick of its forward
+    under ``no_grad``."""
+    mesh = C.current_mesh()
+    group = mesh.group(axis)
+    n = dist.get_world_size(group)
+    idx = mesh.axis_index(axis)
+    buf = x.detach().contiguous().clone()
+    if name == "psum":
+        dist.all_reduce(buf, group=group)
+        return buf
+    if name == "all_gather":
+        parts = [torch.empty_like(buf) for _ in range(n)]
+        dist.all_gather(parts, buf, group=group)
+        return torch.cat(parts, dim=dims[0])
+    if name == "local_chunk":
+        size = x.shape[dims[0]] // n
+        return x.narrow(dims[0], idx * size, size).contiguous()
+    if name == "reduce_scatter":
+        dist.all_reduce(buf, group=group)
+        size = x.shape[dims[0]] // n
+        return buf.narrow(dims[0], idx * size, size).contiguous()
+    send = torch.stack(buf.chunk(n, dim=dims[0]))
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return torch.cat(recv.unbind(0), dim=dims[1])
+
+
+PROBES = [("psum", ()), ("all_gather", (1,)), ("local_chunk", (1,)),
+          ("reduce_scatter", (0,)), ("all_to_all", (0, 2)),
+          ("all_to_all", (2, 1))]
+
+
+def collective_probe(rank: int, out_dir: str) -> None:
+    """For each differentiable collective over "model", "data" and both on
+    {data: 2, model: 2} and {data: 1, model: 4}: the forward under
+    ``no_grad`` against ``_old_forward`` (equal bit for bit), and the
+    backward of a random cotangent against the transpose named in
+    ``collectives``' docstring, computed with the forward functions, plus
+    the adjoint identity sum_r <gy_r, f(x)_r> = sum_r <f^T(gy)_r, x_r>."""
+    transpose = {
+        "psum": lambda g, ax, d: C.psum(g, ax),
+        "all_gather": lambda g, ax, d: C.reduce_scatter(g, ax, d[0]),
+        "local_chunk": lambda g, ax, d: _placed(g, ax, d[0]),
+        "reduce_scatter": lambda g, ax, d: C.all_gather(g, ax, d[0]),
+        "all_to_all": lambda g, ax, d: C.all_to_all(g, ax, d[1], d[0]),
+    }
+    seen = {}
+    for shape in ({"data": 2, "model": 2}, {"data": 1, "model": 4}):
+        with set_mesh(Mesh(shape, device="cpu")):
+            for axis in ("model", "data", ("data", "model")):
+                if C.axis_size(axis) == 1:
+                    continue
+                for name, dims in PROBES:
+                    gen = torch.Generator().manual_seed(100 * rank + len(seen))
+                    x = torch.randn(4, 8, 4, generator=gen, dtype=torch.float64)
+                    fn = getattr(C, name)
+                    with torch.no_grad():
+                        y0 = fn(x, axis, *dims)
+                    same = bool(torch.equal(y0, _old_forward(name, x, axis,
+                                                             *dims)))
+                    xg = x.clone().requires_grad_(True)
+                    y = fn(xg, axis, *dims)
+                    gy = torch.randn(y.shape, generator=gen, dtype=x.dtype)
+                    gx, = torch.autograd.grad(y, xg, gy)
+                    with torch.no_grad():
+                        want = transpose[name](gy, axis, dims)
+                        dots = torch.stack([(gy * y).sum(), (gx * x).sum()])
+                        dots = C.psum(dots, ("data", "model"))
+                    key = f"{shape['data']}x{shape['model']}/{axis}/{name}{dims}"
+                    seen[key] = {
+                        "forward_equal": same,
+                        "backward_err": float((gx - want).abs().max()),
+                        "adjoint": [float(d) for d in dots],
+                        "shapes": [list(x.shape), list(y.shape)]}
+    with open(os.path.join(out_dir, f"probe{rank}.json"), "w") as f:
+        json.dump(seen, f)
+
+
+def _placed(g, axis, dim):
+    """This rank's slice g placed into zeros along ``dim``."""
+    n, i = C.axis_size(axis), C.axis_index(axis)
+    shape = list(g.shape)
+    shape[dim] *= n
+    out = g.new_zeros(shape)
+    out.narrow(dim, i * g.shape[dim], g.shape[dim]).copy_(g)
+    return out
