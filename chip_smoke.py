@@ -285,6 +285,23 @@ Phases, in order; any failed check exits non-zero:
    0's bytes of parameters and optimizer state, its peak memory and its
    seconds in gloo.  Step 1's gradients come from a pass of their own
    before the counted steps.
+18. sharded paged serve (``[sharded_paged]`` lines): ``PagedEngine(plan=
+   dp)`` on 4 ranks sharing the card over gloo on {data: 2, model: 2}
+   (batch over both axes: one of the 4 slots a rank; every rank holds a
+   whole replica and the whole pools).  chatglm2-6b at full width and 14
+   layers (f32, drawn on the card from the seeded CUDA generator, 16-token
+   pages, a 48-page pool) serves on the card alone, which is then freed,
+   and on the ranks: the 12 serve requests; the shared-prefix mix (8
+   requests) with the prefix cache and 16-token chunks, then a second wave
+   of 8 that extends the first's answers, in the first order whose run on
+   the card alone hits, on another slot, blocks a first-wave sequence
+   decoded; the 12 serve requests with 4 n-gram drafts.  Checks every
+   rank's tokens and admissions equal to the card alone's, its pools
+   within 1e-5 of the card alone's largest value, K1 layers x steps and
+   K2 layers x prefill chunks on every rank, gloo calls layers + 1 a step,
+   that second-wave hit, and every K1 and K2 shape a rank called a parity
+   case; prints the decode step's wall time beside the card alone's and
+   rank 0's calls and seconds in gloo.
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
 the launch counts set to 0 just before it and read just after.  A
@@ -300,6 +317,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import gc
 import json
 import math
 import resource
@@ -350,6 +368,7 @@ from repro_torch.obs import (CostProfiler, Tracer,  # noqa: E402
 from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  PagedEngine, PagedEngineConfig, Replica,
                                  greedy, paper_cluster)
+from repro_torch.serving import paged_engine  # noqa: E402
 from repro_torch.sharding import Mesh, ShardingPlan, set_mesh  # noqa: E402
 from repro_torch.sharding.specs import gather_tensor  # noqa: E402
 from repro_torch.training import (OptConfig, TrainConfig,  # noqa: E402
@@ -497,6 +516,27 @@ SHARDED_TRAIN_RUNS = [
      "adafactor", 2),
 ]
 
+# phase 18: the paged engine under dp on {data: 2, model: 2} (batch over
+# both axes: one slot row a rank), 4 ranks sharing the card over gloo, and
+# the card alone: chatglm2-6b at full width and phase 16's 14 layers on
+# 16-token pages, 5 a sequence, in a 48-page pool.  Runs (name, the
+# PagedEngineConfig's changes): the 12 serve requests; the shared-prefix mix
+# with the prefix cache and 16-token chunks (block-aligned hits, so every
+# chunk's prefix is a multiple of 16), then a second wave that extends the
+# first's answers; the 12 serve requests with 4 n-gram drafts
+SHARDED_PAGED_PLAN = ShardingPlan(batch_axes=("data", "model"))
+SHARDED_PAGED_PCFG = dict(max_batch=4, block_size=16, n_blocks=48,
+                          max_seq_len=80, max_new_tokens=16)
+SHARDED_PAGED_RUNS = {
+    "serve": {},
+    "waves": dict(prefix_cache=True, chunk_tokens=16,
+                  share_partial_tails=False),
+    "spec": dict(spec_tokens=4),
+}
+SHARDED_WAVE, SHARDED_WAVE_NEW = 8, 4   # first-wave requests; new tokens a
+#                                         second-wave prompt adds
+TOL_POOL = 1e-5                 # x the card alone's largest pool value
+
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
     ("long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 9, 3, 64, 64, True, None, None, 0),
@@ -528,6 +568,11 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     ("chatglm2_chunk_prefill", 1, 16, 32, 32, 2, 128, 128, True, None, None,
      16),
     ("chatglm2_chunk_tail", 1, 8, 24, 32, 2, 128, 128, True, None, None, 16),
+    # phase 18's one-prompt prefills and 16-token chunks at chatglm2-6b's
+    # widths over 16-token pages: a prefix of 0, 32, 48 or 64 cached keys
+    # (16 is chatglm2_chunk_prefill)
+    *((f"chatglm2_page16_p{p}", 1, 16, p + 16, 32, 2, 128, 128, True, None,
+       None, p) for p in (0, 32, 48, 64)),
     # the profile round trip's 8-token chunks on the reduced smollm-135m
     # (group 4, D = 16: ``fa_fwd_simt``): a prompt's first chunk and the
     # second over its 8 cached keys
@@ -599,7 +644,8 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
                "chatglm2_long_prefill", "chatglm2_chunk_prefill",
-               "chatglm2_chunk_tail", "smollm_reduced_chunk",
+               "chatglm2_chunk_tail", "chatglm2_page16_p0",
+               "chatglm2_page16_p48", "smollm_reduced_chunk",
                "smollm_reduced_chunk_next", "qwen2_serve_prefill",
                "gemma2_long_prefill", "gemma2_global_prefill",
                "gemma2_serve_prefill", "minicpm3_long_prefill",
@@ -749,12 +795,24 @@ PAGED_CASES = [  # name, entry, b, t, h, kv, d, dv, bs, nb, n, softcap, lengths
      [17, 29, 0, 22]),
     ("smollm_reduced_decode", "decode", 4, 1, 4, 1, 16, 16, 8, 8, 977, None,
      [18, 30, 1, 23]),
+    # phase 18: chatglm2-6b's paged engine under dp (16-token pages, 5 a
+    # sequence, a 48-page pool): a rank's one row and the card alone's 4,
+    # the decode and the 4-draft verify window
+    ("chatglm2_dp_rank_decode", "decode", 1, 1, 32, 2, 128, 128, 16, 5, 48,
+     None, [37]),
+    ("chatglm2_dp_rank_verify", "window", 1, 5, 32, 2, 128, 128, 16, 5, 48,
+     None, [30]),
+    ("chatglm2_dp_alone_decode", "decode", 4, 1, 32, 2, 128, 128, 16, 5, 48,
+     None, [24, 20, 17, 31]),
+    ("chatglm2_dp_alone_verify", "window", 4, 5, 32, 2, 128, 128, 16, 5, 48,
+     None, [17, 29, 0, 22]),
 ]
 PAGED_TIMED = ("paged_serve_decode", "paged_long_decode", "paged_long_window",
                "chatglm2_paged_serve_decode", "chatglm2_paged_long_decode",
                "qwen2_paged_serve_decode", "qwen2_moe_paged_serve_decode",
                "qwen2_vl_paged_serve_decode", "llama4_paged_serve_decode",
-               "smollm_reduced_verify")
+               "smollm_reduced_verify", "chatglm2_dp_rank_decode",
+               "chatglm2_dp_rank_verify")
 # cases timed in bf16, the dtype of their main path (every other one in f32)
 BF16_TIMED = ("llama4_long_prefill", "llama4_serve_prefill",
               "llama4_long_decode", "llama4_serve_decode",
@@ -3630,6 +3688,9 @@ def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
     step1(step_gradients(cfg, plan, params, train.batch_at(base, 0, "cuda"),
                          tcfg.microbatches, shards)[1])
     torch.cuda.synchronize()
+    step1_gib = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()        # the comparison's gathered leaves
+    free = [torch.cuda.mem_get_info()[0]]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
     gloo.reset()
@@ -3641,6 +3702,7 @@ def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         walls.append(time.perf_counter() - t0)
+        free.append(torch.cuda.mem_get_info()[0])
     launches = {"flash_attention": flash_attention.launches,
                 "flash_attention_backward": flash_attention.backward_calls,
                 "others": sum(v for k, v in read_launches().items()
@@ -3648,14 +3710,17 @@ def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
     return {"losses": losses, "grad_norms": norms,
             "step_ms": [w * 1e3 for w in walls], "launches": launches,
             "bytes": train_bytes(named, opt), "gloo": gloo.read(),
-            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
+            "step1_peak_gib": step1_gib, "free_gib": min(free) / 2**30}
 
 
 def sharded_train_rank(rank: int, out_dir: str) -> None:
     """One of phase 17's ranks on the card.  For each model rank 0 first
     trains it on the card alone (every rank's copy of the weights is drawn
-    from the same seeded CUDA generator) and keeps its step-1 gradients;
-    then every rank runs each of SHARDED_TRAIN_RUNS on its slices: its
+    from the same seeded CUDA generator) and keeps its step-1 gradients in
+    host memory (a leaf visits the card only for its comparison, so rank 0
+    needs no more of the shared card than the others); then every rank runs each of SHARDED_TRAIN_RUNS on its slices: its
     losses and grad norms, and rank 0 the largest error of each gathered
     step-1 gradient leaf against the card alone's.  Each rank also records
     the shapes at which it called K2 (``FlashShapes``)."""
@@ -3675,7 +3740,9 @@ def sharded_train_rank(rank: int, out_dir: str) -> None:
             tcfg = TrainConfig(opt=OptConfig(kind=runs[0][3]),
                                microbatches=runs[0][2].microbatches)
             recs[f"{model} alone"] = sharded_train_run(
-                cfg, params, None, tcfg, runs[0][4], gloo, alone.update,
+                cfg, params, None, tcfg, runs[0][4], gloo,
+                lambda grads: alone.update(
+                    {k: g.to("cpu") for k, g in grads.items()}),
                 shards)
             del params
             torch.cuda.empty_cache()
@@ -3687,7 +3754,7 @@ def sharded_train_rank(rank: int, out_dir: str) -> None:
                 for k, g in grads.items():
                     full = gather_tensor(g, specs[k])
                     if rank == 0:
-                        ref = alone[k]
+                        ref = alone[k].to(full.device)
                         errs[k] = ((full - ref).abs().max()
                                    / ref.abs().max().clamp_min(1e-30)).item()
                     del full
@@ -3718,24 +3785,60 @@ def sharded_train_rank(rank: int, out_dir: str) -> None:
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
-def shape_coverage(seen: list) -> dict:
-    """Fail unless every shape at which phase 17's ranks called K2 is a
-    FLASH_CASES row, and every one under grad a GRAD_CASES row too: the
-    parity phase has held the kernel, and its gradient, against the plain
-    version at each."""
-    calls = {tuple(r) for s in seen for r in s["calls"]}
-    grad = {tuple(r) for s in seen for r in s["grad"]}
+class PagedShapes:
+    """The shapes at which the attention module calls K1's wrappers in this
+    process, as PAGED_CASES rows without their names and lengths (entry,
+    b, t, h, kv, d, dv, bs, nb, n, softcap), recorded by wrapping
+    ``models.attention.paged_decode_attention`` and
+    ``paged_window_attention``."""
+
+    def __init__(self):
+        self.calls = set()
+        for entry, name in (("decode", "paged_decode_attention"),
+                            ("window", "paged_window_attention")):
+            setattr(attention, name, self._logged(entry,
+                                                  getattr(attention, name)))
+
+    def _logged(self, entry, orig):
+        def logged(q, k_pool, v_pool, tables, lengths, **kw):
+            t = q.shape[1] if entry == "window" else 1
+            self.calls.add((entry, q.shape[0], t, q.shape[-2], k_pool.shape[2],
+                            q.shape[-1], v_pool.shape[3], k_pool.shape[1],
+                            tables.shape[1], k_pool.shape[0],
+                            kw.get("softcap")))
+            return orig(q, k_pool, v_pool, tables, lengths, **kw)
+        return logged
+
+    def read(self) -> list:
+        return sorted(self.calls, key=str)
+
+
+def shape_coverage(tag: str, seen: list, need_grad: bool = True) -> dict:
+    """Fail unless every shape at which a phase's ranks called K2 is a
+    FLASH_CASES row, every one under grad a GRAD_CASES row too, and every
+    one at which they called K1 a PAGED_CASES row: the parity phase has
+    held the kernel, and K2's gradient, against the plain version at
+    each.  ``seen``: each rank's {"calls", "grad"} of ``FlashShapes`` and
+    {"paged"} of ``PagedShapes``."""
+    calls = {tuple(r) for s in seen for r in s.get("calls", ())}
+    grad = {tuple(r) for s in seen for r in s.get("grad", ())}
+    paged = {tuple(r) for s in seen for r in s.get("paged", ())}
     names = {tuple(c[1:]): c[0] for c in FLASH_CASES}
     grad_names = {tuple(c[1:]): c[0] for c in GRAD_CASES}
-    missing = sorted((calls - set(names)) | (grad - set(grad_names)), key=str)
-    print(f"[sharded_train] K2 shapes: {len(calls)} "
+    paged_names = {tuple(c[1:12]): c[0] for c in PAGED_CASES}
+    missing = sorted((calls - set(names)) | (grad - set(grad_names))
+                     | (paged - set(paged_names)), key=str)
+    print(f"[{tag}] K2 shapes: {len(calls)} "
           f"({sorted(names.get(r, '?') for r in calls)}), under grad "
           f"{len(grad)} ({sorted(grad_names.get(r, '?') for r in grad)}); "
+          f"K1 shapes: {len(paged)} "
+          f"({sorted(paged_names.get(r, '?') for r in paged)}); "
           f"with no parity case: {missing}", flush=True)
-    if missing or not grad:
-        fail(f"sharded train: K2 shapes with no parity case: {missing}")
+    if missing or (need_grad and not grad):
+        fail(f"{tag}: K1/K2 shapes with no parity case: {missing}")
     return {"calls": sorted(names[r] for r in calls),
-            "grad": sorted(grad_names[r] for r in grad)}
+            "grad": sorted(grad_names[r] for r in grad),
+            "paged": sorted(paged_names[r] for r in paged)}
 
 
 def phase_sharded_train() -> dict:
@@ -3759,7 +3862,8 @@ def phase_sharded_train() -> dict:
     print(f"[sharded_train] {SHARDED_WORLD} ranks on one card over gloo: "
           f"{ranks_s:.1f} s from spawn to join", flush=True)
     out = {"ranks_s": ranks_s, "runs": {},
-           "k2_shapes": shape_coverage([r["k2_shapes"] for r in ranks])}
+           "k2_shapes": shape_coverage("sharded_train",
+                                       [r["k2_shapes"] for r in ranks])}
     launches = {k: 0 for k in TIMED}
     launches["flash_attention_backward"] = 0
     for model in SHARDED_TRAIN_LAYERS:
@@ -3803,6 +3907,13 @@ def phase_sharded_train() -> dict:
               f"draw and shard {rec['draw_s']:.1f} s; rank 0's collectives "
               f"in the steps: {rec['gloo']['calls']} calls, "
               f"{rec['gloo']['s']:.2f} s in gloo", flush=True)
+        print(f"[sharded_train] {name} memory a rank (GiB): peak allocated "
+              f"in the steps {['%.2f' % r[name]['peak_gib'] for r in ranks]}, "
+              f"reserved {['%.2f' % r[name]['reserved_gib'] for r in ranks]}, "
+              f"in the step-1 gradient pass "
+              f"{['%.2f' % r[name]['step1_peak_gib'] for r in ranks]}; the "
+              f"card's least free memory seen by a rank "
+              f"{min(r[name]['free_gib'] for r in ranks):.2f} GiB", flush=True)
         if not (loss_err <= TOL_SHARDED_TRAIN and norm_err <= TOL_SHARDED_TRAIN
                 and same):
             fail(f"sharded train {name}: losses or grad norms off the card "
@@ -3813,10 +3924,272 @@ def phase_sharded_train() -> dict:
             fail(f"sharded train {name}: launches {got}, expected {want}")
         out["runs"][name] = {k: [r[name][k] for r in ranks] if k in
                              ("losses", "grad_norms", "launches", "step_ms",
-                              "bytes", "peak_gib") else v
+                              "bytes", "peak_gib", "reserved_gib",
+                              "step1_peak_gib", "free_gib") else v
                              for k, v in rec.items()} | {
             "mesh": [2, 2], "plan": asdict(plan), "optimizer": optimizer,
             "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
+    out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------- phase 18
+
+def request_rows(reqs) -> list:
+    """Requests as [rid, tokens, true_output_len, slo, arrival] rows."""
+    return [[r.rid, list(r.tokens), r.true_output_len, r.slo, r.arrival]
+            for r in reqs]
+
+
+def second_wave(cfg, rows: list, outputs: dict, order: list) -> list:
+    """The shared-prefix run's rows: the first wave, then second-wave
+    request j = first-wave request ``order[j]``'s prompt, the tokens it
+    generated (``outputs``) and SHARDED_WAVE_NEW new tokens."""
+    rng = np.random.default_rng(18)
+    n = len(rows)
+    wave = [[n + j, rows[i][1] + outputs[str(rows[i][0])]
+             + rng.integers(2, cfg.vocab_size, SHARDED_WAVE_NEW).tolist(),
+             rows[i][2], rows[i][3], rows[i][4]] for j, i in enumerate(order)]
+    return rows + wave
+
+
+def crossed_hits(rows: list, admits: list) -> list:
+    """Second-wave admissions whose prefix hit reaches past their
+    first-wave prompt (blocks its decode steps wrote) and whose slot is
+    not the one that wrote them: (rid, source rid, source slot, slot, hit
+    tokens).  At 4 slots over 4 batch shards slot s is rank s's row."""
+    prompts = {r[0]: r[1] for r in rows}
+    first = [r[0] for r in rows[:SHARDED_WAVE]]
+    slot_of, out = {}, []
+    for rid, slot, hit in admits:
+        # the longest first-wave prompt this one extends
+        src = max((f for f in first if rid not in first
+                   and prompts[rid][:len(prompts[f])] == prompts[f]),
+                  key=lambda f: len(prompts[f]), default=None)
+        if src is not None and hit > len(prompts[src]) and slot_of[src] != slot:
+            out.append([rid, src, slot_of[src], slot, hit])
+        slot_of[rid] = slot
+    return out
+
+
+def paged_run(cfg, params, plan, run: str, rows: list, gloo=None) -> tuple:
+    """One phase-18 run of ``PagedEngine(plan=)`` with the launch counts
+    (and ``gloo``'s) set to 0 just before it and read just after: its
+    outputs, counters, admissions (rid, slot, prefix tokens hit), wall,
+    decode and prefill seconds; and its pools at the end."""
+    reqs = [Request(rid=rid, tokens=toks, input_len=len(toks), slo=slo,
+                    arrival=arr, true_output_len=out)
+            for rid, toks, out, slo, arr in rows]
+    eng = PagedEngine(cfg, params, PagedEngineConfig(
+        **SHARDED_PAGED_PCFG, **SHARDED_PAGED_RUNS[run]), plan=plan)
+    admits, states = [], []
+    begin = eng._begin_prefill
+
+    def logged(st, slot, r, outs, res):
+        begin(st, slot, r, outs, res)
+        admits.append([r.rid, slot, st.prefilling[slot].done])
+    eng._begin_prefill = logged
+    create = paged_engine.PagedDecodeState.create
+
+    def kept(*args, **kw):
+        states.append(create(*args, **kw))
+        return states[-1]
+    paged_engine.PagedDecodeState.create = kept
+    torch.cuda.synchronize()
+    reset_launches()
+    if gloo is not None:
+        gloo.reset()
+    try:
+        t0 = time.perf_counter()
+        res = eng.run_continuous(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        paged_engine.PagedDecodeState.create = create
+    return {"outputs": {str(k): v for k, v in res.outputs.items()},
+            "steps": res.steps, "prefill_chunks": res.prefill_chunks,
+            "prefix_hits": res.prefix_hits,
+            "prefix_hit_tokens": res.prefix_hit_tokens,
+            "drafted": res.drafted_tokens, "accepted": res.accepted_tokens,
+            "admits": admits, "launches": read_launches(), "wall_s": wall,
+            "decode_ms": res.decode_s * 1e3, "prefill_ms": res.prefill_s * 1e3,
+            "gloo": gloo.read() if gloo is not None else None}, \
+        states[-1].pools
+
+
+def pool_error(pools: list, ref: dict) -> float:
+    """The largest difference of ``pools`` from the card alone's (``ref``,
+    by "layer/k"), on every page but the null one, over its largest
+    value."""
+    err = scale = 0.0
+    for i, pool in enumerate(pools):
+        for n in ("k", "v"):
+            want = ref[f"{i}/{n}"].to(pool[n].device)[1:]
+            err = max(err, (pool[n][1:] - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+    return err / scale
+
+
+def sharded_paged_rank(rank: int, out_dir: str) -> None:
+    """One of phase 18's ranks on the card: its full weights drawn in turn
+    (each rank holds a whole replica under dp), then every run of
+    SHARDED_PAGED_RUNS on the card alone's requests through
+    ``PagedEngine(plan=dp)``, after a warm-up on the first four serve
+    requests; each run's pools held to the card alone's.  Writes its
+    records, with the K1 and K2 shapes it called."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    rows = json.loads((out / "rows.json").read_text())
+    cfg = sharded_cfg("chatglm2")
+    mesh = Mesh({"data": 2, "model": 2}, device="cuda")
+    gloo, flash, paged = GlooClock(), FlashShapes(), PagedShapes()
+    recs = {}
+    with set_mesh(mesh):
+        t0 = time.perf_counter()
+        for turn in range(dist.get_world_size()):
+            if turn == rank:
+                params = sharded_draw(cfg)
+                shard_params(cfg, params, SHARDED_PAGED_PLAN)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        recs["draw_s"] = time.perf_counter() - t0
+        paged_run(cfg, params, SHARDED_PAGED_PLAN, "serve", rows["serve"][:4])
+        torch.cuda.reset_peak_memory_stats()
+        for run in SHARDED_PAGED_RUNS:
+            rec, pools = paged_run(cfg, params, SHARDED_PAGED_PLAN, run,
+                                   rows[run], gloo)
+            rec["pool_err"] = pool_error(pools, torch.load(
+                out / f"pools_{run}.pt", map_location="cuda"))
+            recs[run] = rec
+            del pools
+        recs["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        del params
+        torch.cuda.empty_cache()
+    recs["shapes"] = {"calls": flash.read()["calls"], "paged": paged.read()}
+    (out / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def phase_sharded_paged() -> dict:
+    """The paged engine under dp: chatglm2-6b served on the card alone,
+    then by 4 ranks sharing it over gloo (SHARDED_PAGED_RUNS): every run's
+    tokens equal to the card alone's, every rank's pools within TOL_POOL of
+    the card alone's, K1 on each rank layers x steps and K2 layers x
+    prefill chunks, gloo calls a step layers + 1 (one K/V all-gather a
+    layer, the logits' gather), a second-wave prefix hit on a slot of
+    another rank than the one that decoded its blocks, and every K1 and K2
+    shape a rank called a parity case; decode-step wall time beside the
+    card alone's."""
+    out_dir = ROOT / "build" / "sharded_paged"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cfg = sharded_cfg("chatglm2")
+    layers = kernel_layers(cfg)
+    params = sharded_draw(cfg)
+    rows = {"serve": request_rows(serve.make_requests(cfg, 12, 16))}
+    rows["spec"] = rows["serve"]
+    first = request_rows(serve.make_requests(cfg, SHARDED_WAVE, 16,
+                                             "shared-prefix"))
+    paged_run(cfg, params, None, "serve", rows["serve"][:4])     # warm-up
+    wave1 = paged_run(cfg, params, None, "waves", first)[0]["outputs"]
+    # the second wave's order: the first of these whose run has a hit on a
+    # slot that did not decode the blocks it hits
+    for shift in range(SHARDED_WAVE):
+        order = [(SHARDED_WAVE - 1 - j + shift) % SHARDED_WAVE
+                 for j in range(SHARDED_WAVE)]
+        rows["waves"] = second_wave(cfg, first, wave1, order)
+        probe = paged_run(cfg, params, None, "waves", rows["waves"])[0]
+        if crossed_hits(rows["waves"], probe["admits"]):
+            break
+    else:
+        fail("sharded paged: no second-wave order hits another slot's "
+             "decoded blocks")
+    (out_dir / "rows.json").write_text(json.dumps(rows))
+    alone, launches = {}, {k: 0 for k in TIMED}
+    for run in SHARDED_PAGED_RUNS:
+        alone[run], pools = paged_run(cfg, params, None, run, rows[run])
+        torch.save({f"{i}/{n}": p[n].cpu() for i, p in enumerate(pools)
+                    for n in ("k", "v")}, out_dir / f"pools_{run}.pt")
+        for k in launches:
+            launches[k] += alone[run]["launches"][k]
+        del pools
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(sharded_paged_rank, (str(out_dir),), world=SHARDED_WORLD,
+              timeout=300.0, join_timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_WORLD)]
+    print(f"[sharded_paged] {SHARDED_WORLD} ranks on one card over gloo "
+          f"under dp {{data: 2, model: 2}}: {ranks_s:.1f} s from spawn to "
+          f"join; each drew a whole replica of {layers} layers in "
+          f"{ranks[0]['draw_s']:.1f} s; peak "
+          f"{max(r['peak_gib'] for r in ranks):.1f} GiB a rank", flush=True)
+    out = {"ranks_s": ranks_s, "runs": {}, "shapes": shape_coverage(
+        "sharded_paged", [r["shapes"] for r in ranks], need_grad=False)}
+    for run in SHARDED_PAGED_RUNS:
+        ref = alone[run]
+        rec = ranks[0][run]
+        same, total = agreement(rec["outputs"], ref["outputs"])
+        want = {"flash_attention": layers * ref["prefill_chunks"],
+                "decode_attention": 0,
+                "paged_attention": layers * ref["steps"], "wkv6": 0}
+        got = [r[run]["launches"] for r in ranks]
+        for r in ranks:
+            for k in launches:
+                launches[k] += r[run]["launches"][k]
+        calls = [r[run]["gloo"]["calls"] for r in ranks]
+        errs = [r[run]["pool_err"] for r in ranks]
+        crossed = crossed_hits(rows[run], rec["admits"]) if run == "waves" \
+            else []
+        step_ms = rec["decode_ms"] / rec["steps"]
+        ref_ms = ref["decode_ms"] / ref["steps"]
+        print(f"[sharded_paged] {run}: {len(rows[run])} requests, tokens "
+              f"{same}/{total} equal to the card alone's; pools max err "
+              f"{max(errs):.3e} of the largest value (tol {TOL_POOL}); "
+              f"launches a rank {got} (expected {want}); {rec['steps']} "
+              f"steps, {rec['prefill_chunks']} prefill chunks, prefix hits "
+              f"{rec['prefix_hits']} ({rec['prefix_hit_tokens']} tokens), "
+              f"accepted {rec['accepted']} of {rec['drafted']} drafts; "
+              f"second-wave hits on another rank's decoded blocks "
+              f"{crossed}", flush=True)
+        print(f"[sharded_paged] {run}: decode {step_ms:.2f} ms a step (card "
+              f"alone {ref_ms:.2f}); wall {rec['wall_s']:.2f} s (card alone "
+              f"{ref['wall_s']:.2f}); rank 0's collectives {calls[0]} calls, "
+              f"{calls[0] / rec['steps']:.1f} a step (expected {layers + 1}), "
+              f"{rec['gloo']['s']:.3f} s in gloo", flush=True)
+        if same != total or any(r[run]["outputs"] != ref["outputs"]
+                                for r in ranks):
+            fail(f"sharded paged {run}: {same}/{total} tokens equal the "
+                 "card alone's")
+        if any(r[run]["admits"] != ref["admits"] for r in ranks):
+            fail(f"sharded paged {run}: admissions differ from the card "
+                 "alone's")
+        if not max(errs) <= TOL_POOL:
+            fail(f"sharded paged {run}: pools off the card alone's by {errs}")
+        if any(g != want for g in got) or min(
+                want[k] for k in ("flash_attention", "paged_attention")) <= 0:
+            fail(f"sharded paged {run}: launches {got}, expected {want}")
+        if any(c != rec["steps"] * (layers + 1) for c in calls):
+            fail(f"sharded paged {run}: gloo calls {calls}, expected "
+                 f"{layers + 1} a step")
+        if run == "waves" and not crossed:
+            fail("sharded paged: no second-wave hit on another rank's "
+                 "decoded blocks")
+        out["runs"][run] = {
+            "requests": len(rows[run]), "tokens_equal": [same, total],
+            "pool_err": errs, "launches_per_rank": got,
+            "steps": rec["steps"], "prefill_chunks": rec["prefill_chunks"],
+            "prefix_hits": rec["prefix_hits"],
+            "prefix_hit_tokens": rec["prefix_hit_tokens"],
+            "drafted": rec["drafted"], "accepted": rec["accepted"],
+            "crossed_hits": crossed, "decode_ms_per_step": step_ms,
+            "one_card_decode_ms_per_step": ref_ms,
+            "wall_s": [r[run]["wall_s"] for r in ranks],
+            "one_card_wall_s": ref["wall_s"],
+            "gloo": [r[run]["gloo"] for r in ranks]}
     out["launches"] = launches
     return out
 
@@ -3829,9 +4202,21 @@ def main() -> None:
         t0 = time.perf_counter()
         out = fn(*args)
         phase_s[name] = time.perf_counter() - t0
-        print(f"[phase] {name}: {phase_s[name]:.1f} s", flush=True)
+        gc.collect()                # the next phase finds the card free
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        print(f"[phase] {name}: {phase_s[name]:.1f} s; this process holds "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of the card "
+              f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved), the "
+              f"card has {free / 2**30:.2f} of {total / 2**30:.2f} GiB free",
+              flush=True)
         return out
     dev = run("device", phase_device)
+    # Phases 16-18 share the card with four ranks.  With expandable
+    # segments a freed block of this process goes back to the card, so a
+    # few live tensors of an earlier phase do not pin whole cached
+    # segments; the ranks keep the default allocator.
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
     built = run("build", phase_build)
     parity = run("parity", phase_parity)
     times = run("times", phase_times)
@@ -3848,6 +4233,7 @@ def main() -> None:
     trained = run("train", phase_train)
     sharded = run("sharded", phase_sharded)
     sharded_train = run("sharded_train", phase_sharded_train)
+    sharded_paged = run("sharded_paged", phase_sharded_paged)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -3856,7 +4242,7 @@ def main() -> None:
                 + moe_vlm["launches"][k] + encdec["launches"][k]
                 + llama4["launches"][k] + jamba["launches"][k]
                 + trained["launches"][k] + sharded["launches"][k]
-                + sharded_train["launches"][k]
+                + sharded_train["launches"][k] + sharded_paged["launches"][k]
                 for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
@@ -3900,7 +4286,7 @@ def main() -> None:
               "window_mla": window_mla, "moe_vlm": moe_vlm, "encdec": encdec,
               "llama4": llama4, "jamba": jamba, "cluster": cluster,
               "train": trained, "sharded": sharded,
-              "sharded_train": sharded_train,
+              "sharded_train": sharded_train, "sharded_paged": sharded_paged,
               "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"

@@ -8,8 +8,11 @@ calls ``fn(r, *args)``.  ``fn`` must be importable by name (a module's
 top-level function), since the processes start from a fresh interpreter.
 Every wait is bounded: the group's operations time out after ``timeout``
 seconds, and the parent kills every rank still alive when
-``join_timeout`` passes, then raises.  The collectives' own backend is
-chosen by the mesh the ranks make (``repro_torch.sharding.mesh``).
+``join_timeout`` passes, then raises.  A rank that raises notes its
+exception beside the store, and the parent's error lists every rank's,
+first-raised first: the cause, then the ranks that lost their peer.  The
+collectives' own backend is chosen by the mesh the ranks make
+(``repro_torch.sharding.mesh``).
 """
 from __future__ import annotations
 
@@ -26,15 +29,48 @@ import torch.distributed as dist
 def _rank_main(rank: int, world: int, store_path: str, timeout: float,
                fn, args: tuple) -> None:
     torch.set_num_threads(1)
-    store = dist.FileStore(store_path, world)
-    dist.init_process_group(
-        "gloo", store=store, rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=timeout))
     try:
-        fn(rank, *args)
-        dist.barrier()
-    finally:
-        dist.destroy_process_group()
+        store = dist.FileStore(store_path, world)
+        dist.init_process_group(
+            "gloo", store=store, rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=timeout))
+        try:
+            fn(rank, *args)
+            dist.barrier()
+        except BaseException as e:
+            _note(store_path, rank, e)      # before the peers lose this rank
+            raise
+        finally:
+            dist.destroy_process_group()
+    except BaseException as e:
+        _note(store_path, rank, e)
+        raise
+
+
+def _note(store_path: str, rank: int, e: BaseException) -> None:
+    """Note this rank's exception and when it was raised, once."""
+    msg = " ".join(str(e).split())[:400]
+    try:
+        with open(f"{store_path}.error{rank}", "x") as f:
+            f.write(f"{time.time()!r} {type(e).__name__}: {msg}")
+    except FileExistsError:
+        pass
+
+
+def _errors(store_path: str, ranks) -> str:
+    """The exceptions the failed ``ranks`` noted, first-raised first."""
+    notes = []
+    for r in ranks:
+        try:
+            with open(f"{store_path}.error{r}") as f:
+                at, _, msg = f.read().partition(" ")
+            notes.append((float(at), r, msg))
+        except (OSError, ValueError):
+            notes.append((float("inf"), r, "no exception noted"))
+    notes.sort()
+    t0 = notes[0][0]
+    return "; ".join(f"rank {r} (+{at - t0:.2f} s): {msg}" if at < float("inf")
+                     else f"rank {r}: {msg}" for at, r, msg in notes)
 
 
 def run_ranks(fn, args: tuple = (), *, world: int = 4, timeout: float = 120.0,
@@ -65,4 +101,5 @@ def run_ranks(fn, args: tuple = (), *, world: int = 4, timeout: float = 120.0,
                                f"{join_timeout} s")
         failed = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode}
         if failed:
-            raise RuntimeError(f"ranks failed (rank: exit code): {failed}")
+            raise RuntimeError(f"ranks failed (rank: exit code): {failed}; "
+                               f"{_errors(store, failed)}")

@@ -3,9 +3,10 @@ on the family (decoder-only, or encoder-decoder, whose loss and prefill
 take the audio stub's frame embeddings), and the paged decode and verify
 steps of the decoder-only family (the vision stub's prefill takes
 embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
-their slice).  ``loss_fn``, ``prefill`` and ``decode_step`` take a
-sharding plan (``models.transformer``'s docstring); Mamba, RWKV-6 and
-encoder-decoder models raise under one (``transformer.check_plan``)."""
+their slice).  ``loss_fn``, ``prefill``, ``decode_step`` and the paged
+steps (batch-only plans) take a sharding plan (``models.transformer``'s
+docstring); Mamba, RWKV-6 and encoder-decoder models raise under one
+(``transformer.check_plan``)."""
 from __future__ import annotations
 
 import torch
@@ -76,28 +77,34 @@ def decode_step(cfg: ModelConfig, params: Transformer | EncDec, tokens, cache,
 
 @torch.inference_mode()
 def paged_decode_step(cfg: ModelConfig, params: Transformer, tokens, pools,
-                      block_tables, kv_len):
+                      block_tables, kv_len, *, plan=None):
     """Decode one token per sequence against the paged pools (updated in
     place).  tokens [B, 1]; block_tables [B, nb] int32; kv_len [B] int32.
-    Returns (logits [B, Vp], pools)."""
+    Returns (logits [B, Vp], pools).  Under a batch-only ``plan`` (a mesh
+    set) the inputs and logits are the whole batch's and every rank holds
+    the whole pools (``T.lm_paged_decode_step``); model and sequence axes
+    raise, as in the reference."""
+    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         raise NotImplementedError("paged decode: enc-dec uses cross caches")
     return T.lm_paged_decode_step(cfg, params, tokens, pools, block_tables,
-                                  kv_len)
+                                  kv_len, plan=plan)
 
 
 @torch.inference_mode()
 def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
-                    block_tables, kv_len, blk, off):
+                    block_tables, kv_len, blk, off, *, plan=None):
     """Speculative-verification step: score T tokens per sequence (the
     current input token plus T-1 drafts) against the paged pools in one
     pass.  tokens [B, T]; blk/off [B, T] scatter targets (the null block
     where a position is invalid); kv_len [B] history before the window.
-    Returns (logits [B, T, Vp], pools)."""
+    Returns (logits [B, T, Vp], pools).  ``plan`` as in
+    ``paged_decode_step``."""
+    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         raise NotImplementedError("paged decode: enc-dec uses cross caches")
     return T.lm_paged_spec_step(cfg, params, tokens, pools, block_tables,
-                                kv_len, blk, off)
+                                kv_len, blk, off, plan=plan)
 
 
 def paged_compatible(cfg: ModelConfig) -> tuple[bool, str]:

@@ -39,9 +39,14 @@ per call as the reference's ``_run_flash`` chooses:
   heads.
 * caches take ``specs.cache_spec``'s layout, which rides on each cache
   tensor as ``shard_spec``.
+* paged decode and verify, batch-only plans alone: every rank holds the
+  whole block pool (it has no batch dimension, so the reference's GSPMD
+  keeps one copy on each device).  This rank's rows run q/k/v and
+  attention; their new K/V are all-gathered over the batch axes and every
+  row is written into every rank's pool, so the pools stay equal.  A
+  batch the axes do not divide runs whole on every rank.
 Prefix continuation and paged decode under model or sequence axes raise,
-as in the reference; paged decode under a batch-only plan raises until
-the paged engine's plan is ported.
+as in the reference.
 """
 from __future__ import annotations
 
@@ -62,7 +67,7 @@ from repro_torch.models.common import (Dense, apply_dense, apply_dense_rows,
                                       apply_mrope, apply_rope, sharded_axis,
                                       softcap)
 from repro_torch.sharding.mesh import axis_size, current_mesh, divisible
-from repro_torch.sharding.plan import ShardingPlan
+from repro_torch.sharding.plan import ShardingPlan, splits_batch
 from repro_torch.sharding.specs import cache_spec
 
 
@@ -102,10 +107,33 @@ def _check_paged(cfg: ModelConfig, spec: LayerSpec, plan) -> None:
     if _model_sharded(plan):
         raise NotImplementedError(
             "paged decode: model/seq-sharded plans are not supported yet")
-    if plan is not None:
-        raise NotImplementedError(
-            "paged decode under a batch-only plan comes with the paged "
-            "engine's plan, a later slice")
+
+
+def _paged_rows(plan, block_tables: torch.Tensor, kv_len: torch.Tensor):
+    """(split, this rank's block_tables and kv_len) of a paged step whose
+    inputs are the whole batch's: its rows under a batch-only plan whose
+    axes divide them (``splits_batch``), else all of them."""
+    split = splits_batch(plan, kv_len.shape[0])
+    if split:
+        return (split, local_chunk(block_tables, plan.batch_axes, 0),
+                local_chunk(kv_len, plan.batch_axes, 0))
+    return split, block_tables, kv_len
+
+
+def _paged_write(pool: dict, k: torch.Tensor, v: torch.Tensor,
+                 blk: torch.Tensor, off: torch.Tensor, plan,
+                 split: bool) -> None:
+    """pool[blk, off] <- the new K/V, in place; blk/off [B, ...] are the
+    whole batch's targets.  When the rows were split, this rank's K and V
+    ([B/n, ..., KV, hd] each) are first gathered over the batch axes in one
+    collective, so every rank writes every row and the pools stay equal on
+    all ranks (a sequence reads blocks that another rank's rows wrote once
+    the prefix cache shares them)."""
+    if split:
+        kv = all_gather(torch.cat([k, v], dim=-1), plan.batch_axes, 0)
+        k, v = kv.split([k.shape[-1], v.shape[-1]], dim=-1)
+    pool["k"][blk, off] = k
+    pool["v"][blk, off] = v
 
 
 def _qkv(cfg: ModelConfig, p: Attention, x: torch.Tensor,
@@ -509,18 +537,24 @@ def attn_paged_decode(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     padded with a valid null block); kv_len [B] int32 current lengths.  The
     new token's K/V is written into slot ``kv_len`` of its sequence's table
     in place — the reference returns a new pool — then attention reads
-    through the table.  Returns (y, pool)."""
+    through the table.  Returns (y, pool).
+
+    Under a batch-only plan every rank holds the whole pool, and
+    block_tables and kv_len are the whole batch's; x is this rank's rows
+    when the batch axes divide the batch (``_paged_rows``), else all rows.
+    Every row's K/V is written on every rank (``_paged_write``); attention
+    runs on this rank's rows."""
     _check_paged(cfg, spec, plan)
+    split, tables, lens = _paged_rows(plan, block_tables, kv_len)
     b = x.shape[0]
-    q, k, v = _qkv(cfg, p, x, kv_len[:, None])
+    q, k, v = _qkv(cfg, p, x, lens[:, None])
     bs = pool["k"].shape[1]
-    rows = torch.arange(b, device=x.device)
+    rows = torch.arange(kv_len.shape[0], device=x.device)
     blk = block_tables[rows, (kv_len // bs).long()].long()
-    off = (kv_len % bs).long()
-    pool["k"][blk, off] = k[:, 0]
-    pool["v"][blk, off] = v[:, 0]
-    out = paged_decode_attention(q[:, 0], pool["k"], pool["v"], block_tables,
-                                 kv_len + 1, softcap=cfg.attn_softcap)
+    _paged_write(pool, k[:, 0], v[:, 0], blk, (kv_len % bs).long(), plan,
+                 split)
+    out = paged_decode_attention(q[:, 0], pool["k"], pool["v"], tables,
+                                 lens + 1, softcap=cfg.attn_softcap)
     y = apply_dense(p.o, out.reshape(b, -1))
     return y.reshape(b, 1, -1), pool
 
@@ -535,15 +569,15 @@ def attn_paged_spec(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     engine's scatter targets for each window position's K/V (the null block
     where a position is invalid).  All T positions' K/V are written in one
     in-place scatter, then attention reads through the table, causal within
-    the window.  Returns (y [B, T, d], pool)."""
+    the window.  Returns (y [B, T, d], pool).  Under a batch-only plan as
+    ``attn_paged_decode``: blk/off are the whole batch's."""
     _check_paged(cfg, spec, plan)
+    split, tables, lens = _paged_rows(plan, block_tables, kv_len)
     b, t, _ = x.shape
-    positions = kv_len[:, None] + torch.arange(t, device=x.device)[None, :]
+    positions = lens[:, None] + torch.arange(t, device=x.device)[None, :]
     q, k, v = _qkv(cfg, p, x, positions)
-    blk, off = blk.long(), off.long()
-    pool["k"][blk, off] = k
-    pool["v"][blk, off] = v
-    out = paged_window_attention(q, pool["k"], pool["v"], block_tables, kv_len,
+    _paged_write(pool, k, v, blk.long(), off.long(), plan, split)
+    out = paged_window_attention(q, pool["k"], pool["v"], tables, lens,
                                  softcap=cfg.attn_softcap)
     return apply_dense(p.o, out.reshape(b, t, -1)), pool
 

@@ -15,7 +15,9 @@ d_conv - 1, d_in], "ssm" [B, d_in, N] f32} for Mamba, {"shift", "state",
 Under a sharding plan (``repro_torch.sharding``; the caller sets the mesh)
 prefill and decode take the whole batch on every rank and return the
 whole batch's logits on every rank, with the cache this rank's shard:
-the batch is split over ``plan.batch_axes``; the embedding is
+the batch is split over ``plan.batch_axes`` when they divide it, and
+otherwise runs whole on every rank, which only a dense model under a
+batch-only plan allows (``batch_rows``); the embedding is
 vocab-parallel (each rank looks up the ids of its vocab range, zeros
 elsewhere, then a psum over the model axis); attention, MLP and MoE run
 tensor-, sequence- and expert-parallel in their modules; the head is
@@ -26,7 +28,9 @@ between blocks holds this rank's sequence slice: each mixer and MLP input
 is all-gathered along the sequence and each output reduce-scattered
 (``resid_spec``).  Weights that the plan's ``fsdp_axes`` shard are
 gathered one block at a time (``common.gather_params``), and the embedding
-and the head each before their use.
+and the head each before their use.  The paged decode and verify steps
+take a batch-only plan: every rank holds the whole paged pools, and each
+layer writes every row's new K/V into them (``attention``'s docstring).
 
 The training loss under a plan (``lm_loss(plan=)``) takes the whole batch
 on every rank and returns the global loss on every rank: this rank's rows
@@ -61,7 +65,8 @@ from repro_torch.models.common import (Norm, apply_norm, gather_params,
                                       unshard)
 from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
                                     mlp_apply, token_shift)
-from repro_torch.sharding.plan import ShardingPlan, resid_spec
+from repro_torch.sharding.mesh import axis_size
+from repro_torch.sharding.plan import ShardingPlan, resid_spec, splits_batch
 
 
 class Block(nn.Module):
@@ -286,20 +291,36 @@ def check_plan(cfg: ModelConfig, plan: Optional[ShardingPlan]) -> None:
             "they come with the recurrent and encoder-decoder sharding slice")
 
 
-def split_batch(plan: Optional[ShardingPlan], *xs):
-    """This rank's rows of each tensor (None passes) under ``plan``'s
-    batch axes; the batch must divide them."""
-    if plan is None or not plan.batch_axes:
+def batch_rows(cfg: ModelConfig, plan: Optional[ShardingPlan],
+               rows: int) -> bool:
+    """Whether a call's ``rows`` are split over ``plan``'s batch axes
+    (``plan.splits_batch``); a batch they do not divide runs whole on
+    every rank.  An MoE block splits its rows under the reference's
+    ``shard_map``, which rejects such a batch: ValueError here too."""
+    split = splits_batch(plan, rows)
+    if not split and cfg.moe is not None and plan is not None \
+            and axis_size(plan.batch_axes) > 1:
+        raise ValueError(
+            f"{cfg.name}: the MoE block splits its {rows} rows over the "
+            f"batch axes {plan.batch_axes} ({axis_size(plan.batch_axes)} "
+            "shards), which do not divide them")
+    return split
+
+
+def split_batch(plan: Optional[ShardingPlan], split: bool, *xs):
+    """This rank's rows of each tensor (None passes) when ``split``
+    (``batch_rows``), else the tensors whole."""
+    if not split:
         return xs
     return tuple(None if x is None else local_chunk(x, plan.batch_axes, 0)
                  for x in xs)
 
 
-def gather_batch(plan: Optional[ShardingPlan], x: torch.Tensor) -> torch.Tensor:
-    """All rows of a per-rank batch tensor, on every rank."""
-    if plan is None or not plan.batch_axes:
-        return x
-    return all_gather(x, plan.batch_axes, 0)
+def gather_batch(plan: Optional[ShardingPlan], split: bool,
+                 x: torch.Tensor) -> torch.Tensor:
+    """All rows of a per-rank batch tensor, on every rank (``x`` itself
+    when its rows were not split)."""
+    return all_gather(x, plan.batch_axes, 0) if split else x
 
 
 def _seq_par(plan: Optional[ShardingPlan], shape) -> bool:
@@ -379,7 +400,8 @@ def lm_loss(cfg: ModelConfig, params: Transformer, batch: dict, *,
     labels, mask = batch["labels"], batch.get("mask")
     mask = torch.ones(labels.shape, dtype=torch.float32, device=labels.device) \
         if mask is None else mask.float()
-    tokens, x, labels, mask = split_batch(plan, batch.get("tokens"),
+    split = batch_rows(cfg, plan, labels.shape[0])
+    tokens, x, labels, mask = split_batch(plan, split, batch.get("tokens"),
                                           batch.get("embeds"), labels, mask)
     if x is None:
         x = embed_tokens(cfg, params, tokens)
@@ -420,9 +442,11 @@ def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     covers the suffix only, and ``kv_len`` counts valid suffix tokens.
     Under ``plan`` (module docstring; ``check_plan`` first) the inputs and
     logits are the whole batch's and the cache is this rank's."""
-    tokens, kv_len, embeds = split_batch(plan, tokens, kv_len, embeds)
-    if prefix_kv is not None and plan is not None:
-        prefix_kv = [{n: split_batch(plan, t)[0] for n, t in e.items()}
+    rows = (tokens if embeds is None else embeds).shape[0]
+    split = batch_rows(cfg, plan, rows)
+    tokens, kv_len, embeds = split_batch(plan, split, tokens, kv_len, embeds)
+    if prefix_kv is not None and split:
+        prefix_kv = [{n: split_batch(plan, split, t)[0] for n, t in e.items()}
                      for e in prefix_kv]
     x = embeds if embeds is not None else embed_tokens(cfg, params, tokens)
     b, s = x.shape[:2]
@@ -435,7 +459,8 @@ def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
                            kv_len=kv_len, cache_len=cache_len, cache=prefix_kv,
                            plan=plan, seq_par=seq_par)
     x = apply_norm(cfg, params.final_norm, _seq_gather(x, plan, seq_par))
-    return gather_batch(plan, lm_head(cfg, params, last_valid(x, kv_len))), cache
+    return gather_batch(plan, split,
+                        lm_head(cfg, params, last_valid(x, kv_len))), cache
 
 
 def lm_decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
@@ -444,41 +469,50 @@ def lm_decode_step(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor,
     Returns (logits [B, Vp], cache) — the cache is updated in place.  Under
     ``plan`` tokens, kv_len and logits are the whole batch's, the cache
     this rank's."""
-    tokens, kv_len = split_batch(plan, tokens, kv_len)
+    split = batch_rows(cfg, plan, tokens.shape[0])
+    tokens, kv_len = split_batch(plan, split, tokens, kv_len)
     x = embed_tokens(cfg, params, tokens)
     x, cache = apply_stack(cfg, params, x, positions=None, mode="decode",
                            cache=cache, kv_len=kv_len, plan=plan)
     x = apply_norm(cfg, params.final_norm, x)
-    return gather_batch(plan, lm_head(cfg, params, x[:, 0])), cache
+    return gather_batch(plan, split, lm_head(cfg, params, x[:, 0])), cache
 
 
 def lm_paged_decode_step(cfg: ModelConfig, params: Transformer,
                          tokens: torch.Tensor, pools: list,
-                         block_tables: torch.Tensor, kv_len: torch.Tensor):
+                         block_tables: torch.Tensor, kv_len: torch.Tensor, *,
+                         plan=None):
     """One decode step against the paged pools (one {"k", "v"} per layer,
     written in place).  tokens [B, 1]; block_tables [B, nb] int32; kv_len
-    [B] int32.  Returns (logits [B, Vp], pools)."""
-    x = embed_tokens(cfg, params, tokens)
+    [B] int32.  Returns (logits [B, Vp], pools).  Under a batch-only
+    ``plan`` the inputs and logits are the whole batch's and every rank
+    holds the whole pools: this rank's rows run the step (``batch_rows``:
+    all rows when the batch axes do not divide them) and every row's new
+    K/V is written into every rank's pools
+    (``attention.attn_paged_decode``)."""
+    split = batch_rows(cfg, plan, tokens.shape[0])
+    x = embed_tokens(cfg, params, split_batch(plan, split, tokens)[0])
     x, pools = apply_stack(cfg, params, x, positions=None, mode="decode",
                            cache=pools, kv_len=kv_len,
-                           block_tables=block_tables)
+                           block_tables=block_tables, plan=plan)
     x = apply_norm(cfg, params.final_norm, x)
-    return lm_head(cfg, params, x[:, 0]), pools
+    return gather_batch(plan, split, lm_head(cfg, params, x[:, 0])), pools
 
 
 def lm_paged_spec_step(cfg: ModelConfig, params: Transformer,
                        tokens: torch.Tensor, pools: list,
                        block_tables: torch.Tensor, kv_len: torch.Tensor,
-                       blk: torch.Tensor, off: torch.Tensor):
+                       blk: torch.Tensor, off: torch.Tensor, *, plan=None):
     """Multi-token (speculative-verification) step against the paged pools.
     tokens [B, T] = current input token + T-1 drafts; kv_len [B] history
     before the window; blk/off [B, T] per-position scatter targets.  Returns
     (logits [B, T, Vp], pools); logits[:, t] scores the token after window
-    position t."""
-    x = embed_tokens(cfg, params, tokens)
+    position t.  Under a batch-only ``plan`` as ``lm_paged_decode_step``."""
+    split = batch_rows(cfg, plan, tokens.shape[0])
+    x = embed_tokens(cfg, params, split_batch(plan, split, tokens)[0])
     x, pools = apply_stack(cfg, params, x, positions=None, mode="decode",
                            cache=pools, kv_len=kv_len,
                            block_tables=block_tables,
-                           spec_scatter=(blk, off))
+                           spec_scatter=(blk, off), plan=plan)
     x = apply_norm(cfg, params.final_norm, x)
-    return lm_head(cfg, params, x), pools
+    return gather_batch(plan, split, lm_head(cfg, params, x)), pools

@@ -43,6 +43,17 @@ prompt scatter is one ``index_put_`` per layer, the copy-on-write fork one
 block copy per layer, the prefix gather an index + reshape, and the decode,
 verify and prefill steps direct calls into ``models.api``.  The pools are a
 list with one {"k": [N, bs, KV, hd], "v": [N, bs, KV, dv]} per layer.
+
+Under a batch-only sharding plan (``plan=``, a mesh set; one process a
+device) every rank runs this engine on the same requests.  The host side
+(block tables, allocator, prefix tree, drafts) is global and the same on
+every rank, and so are the pools: each rank holds all of them.  The decode
+and verify steps run each rank's slot rows and write every row's new K/V
+into every rank's pools; prefills, prefix continuations and chunks (one
+row) run whole on every rank; the logits are gathered before the host's
+argmax, so every rank takes the same decisions.  A model or sequence axis,
+or an MoE model under batch axes, raises as the reference's engine does
+(``_check_plan``).
 """
 from __future__ import annotations
 
@@ -64,6 +75,7 @@ from repro_torch.serving.kv_cache import BlockAllocator, kv_block_bytes
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.sampling import greedy
 from repro_torch.serving.speculative import get_drafter
+from repro_torch.sharding.mesh import axis_size, divisible
 
 
 @dataclass
@@ -293,13 +305,10 @@ class PagedEngine:
         ok, why = api.paged_compatible(cfg)
         if not ok:
             raise ValueError(f"{cfg.name} cannot serve paged: {why}")
-        if plan is not None:
-            raise NotImplementedError(
-                "the paged engine's plan comes with a later slice (sharded "
-                "serving runs through InferenceEngine(plan=))")
         self.cfg = cfg
         self.params = params
         self.pcfg = pcfg
+        self.plan = plan
         self.monitor = monitor
         self.device = params.embed.w.device
         # online cost profiler (obs.profile.CostProfiler): receives the
@@ -327,6 +336,41 @@ class PagedEngine:
         self._chunk = 0 if pcfg.chunk_tokens <= 0 \
             else -(-pcfg.chunk_tokens // bs) * bs
 
+    def _check_plan(self, first: Request, resumed: Optional[list]) -> None:
+        """Raise, before any device work, where the reference's engine
+        rejects its plan, with the reference's exception type.  Only a
+        batch-only plan serves a dense model.  The reference's first
+        prefill (``first``'s first chunk, one row) fails in ``shard_map``
+        (ValueError) when its batch axes (more than one shard) split the
+        row: in an MoE block, or in the sequence-parallel attention a
+        model axis takes when the KV heads do not divide it.  Otherwise a
+        model or sequence axis fails at the first decode, verify or
+        prefix continuation (NotImplementedError)."""
+        plan, cfg = self.plan, self.cfg
+        if plan is None:
+            return
+        n_batch = axis_size(plan.batch_axes)
+        if cfg.moe is not None and n_batch > 1:
+            raise ValueError(
+                f"{cfg.name}: the MoE block splits a prefill's one row over "
+                f"the batch axes {plan.batch_axes} ({n_batch} shards)")
+        if plan.model_axis is None and not plan.seq_axes:
+            return
+        n_model = axis_size(plan.model_axis)
+        ln = len(first.tokens) + max(len(resumed or ()) - 1, 0)
+        first_len = self._padded_len(min(ln, self._chunk or ln))
+        if n_batch > 1 and n_model > 1 and first_len % n_model == 0 \
+                and not divisible(cfg.n_kv_heads, plan.model_axis):
+            raise ValueError(
+                f"{cfg.name}: the sequence-parallel prefill over the model "
+                f"axis {plan.model_axis!r} ({cfg.n_kv_heads} KV heads over "
+                f"{n_model}) splits a prefill's one row over the batch axes "
+                f"{plan.batch_axes} ({n_batch} shards)")
+        raise NotImplementedError(
+            "paged decode: model/seq-sharded plans are not supported yet "
+            f"(model axis {plan.model_axis!r}, sequence axes "
+            f"{plan.seq_axes}); the paged engine takes batch axes only")
+
     def _ints(self, a) -> torch.Tensor:
         """Host int array -> int32 tensor on the engine's device."""
         return torch.as_tensor(np.asarray(a, np.int32), device=self.device)
@@ -339,7 +383,7 @@ class PagedEngine:
             {"tokens": torch.as_tensor(toks, dtype=torch.long,
                                        device=self.device)},
             cache_len=toks.shape[1], kv_len=self._ints([sn]),
-            prefix_kv=prefix)
+            prefix_kv=prefix, plan=self.plan)
 
     @staticmethod
     def _scatter(pools: list, cache: list, blk: torch.Tensor,
@@ -743,7 +787,7 @@ class PagedEngine:
             self.cfg, self.params,
             torch.as_tensor(toks, dtype=torch.long, device=self.device),
             st.pools, self._ints(bt), self._ints(kv), self._ints(blk),
-            self._ints(off))
+            self._ints(off), plan=self.plan)
         g = greedy(logits.reshape(b * t_w, -1),
                    self.cfg.vocab_size).cpu().numpy().reshape(b, t_w)
         now = time.perf_counter()
@@ -850,6 +894,8 @@ class PagedEngine:
                 raise ValueError(
                     f"request {r.rid}: needs {wb} blocks, pool has "
                     f"{self.pcfg.usable_blocks} usable")
+        if requests:
+            self._check_plan(requests[0], (resume or {}).get(requests[0].rid))
         st = PagedDecodeState.create(self.cfg, self.pcfg, self.dtype,
                                      self.device)
         queue = list(requests)
@@ -1020,7 +1066,7 @@ class PagedEngine:
                 self.cfg, self.params,
                 torch.as_tensor(ct[:, None], dtype=torch.long,
                                 device=self.device),
-                st.pools, self._ints(bt), self._ints(kv))
+                st.pools, self._ints(bt), self._ints(kv), plan=self.plan)
             nxt = greedy(logits, self.cfg.vocab_size).cpu().numpy()
             steps += 1
             now = time.perf_counter()

@@ -42,6 +42,27 @@ class ShardingPlan:
     microbatches: int = 1
 
 
+def splits_batch(plan: Optional[ShardingPlan], rows: int) -> bool:
+    """Whether ``rows`` rows are split over ``plan``'s batch axes: they
+    have more than one shard and divide the rows.  A batch they do not
+    divide runs whole on every rank, as the reference's GSPMD runs it under
+    a batch-only plan (the paged engine's one-prompt prefills, or 3 slots
+    over 4 shards); under a model or sequence axis it raises ValueError,
+    as the port always has (its model-parallel paths take whole shards)."""
+    if plan is None or not plan.batch_axes:
+        return False
+    n = axis_size(plan.batch_axes)
+    if n == 1:
+        return False
+    if rows % n == 0:
+        return True
+    if plan.model_axis is not None or plan.seq_axes:
+        raise ValueError(f"{rows} rows do not split over the batch axes "
+                         f"{plan.batch_axes} ({n} shards) of a plan with a "
+                         "model or sequence axis")
+    return False
+
+
 def batch_spec(plan: Optional[ShardingPlan], ndim: int,
                batch_dim: int = 0) -> tuple:
     if plan is None:

@@ -517,7 +517,7 @@ def test_entry_points_need_the_card_or_an_explicit_cpu(cfgs):
 def test_port_imports_no_jax_and_nothing_of_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_compare.py",
-              ROOT / "chip_variants.py"]
+              ROOT / "chip_variants.py", ROOT / "chip_gloo.py"]
     assert len(files) > 20
     names = {str(f.relative_to(ROOT / "src" / "repro_torch")) for f in files
              if "repro_torch" in f.parts}

@@ -6,7 +6,7 @@ model: 16}; the flash-decoding partial and its merge against the JAX
 package's; the mesh's rank order and collectives on 4 gloo ranks, and the
 backend it picks from where the ranks compute; the optimizer state's
 specs under every train plan; and the places a plan raises, as the
-reference does or until a later slice."""
+reference does or until a later slice; batch-only paged decode."""
 import dataclasses
 import functools
 import json
@@ -23,11 +23,16 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import list_archs
 from repro.core import deployer as jax_deployer
 from repro.kernels.decode_attention import xla as jax_decode
+from repro.core.types import Request as JaxRequest
 from repro.models import api as jax_api
+from repro.serving import PagedEngine as JaxPagedEngine
+from repro.serving import PagedEngineConfig as JaxPagedEngineConfig
+from repro.sharding.plan import ShardingPlan as JaxShardingPlan
 from repro.sharding import specs as jax_specs
 from repro.training import OptConfig as JaxOptConfig
 from repro.training import optimizer as jax_opt
 from repro_torch.configs import get_config
+from repro_torch.core.types import Request
 from repro_torch.distributed.ranks import run_ranks
 from repro_torch.kernels.decode_attention import (combine_partials,
                                                   decode_attention_partial)
@@ -199,6 +204,21 @@ def test_partial_and_combine_equal_the_reference(window):
     assert torch.isfinite(got).all()
 
 
+def test_run_ranks_reports_the_first_rank_that_raised(tmp_path):
+    """When a rank raises and the others then fail on the lost peer, the
+    parent's error names every failed rank, the rank that raised first
+    with its own exception."""
+    with pytest.raises(RuntimeError) as err:
+        run_ranks(torch_sharded_port.failing_probe, (str(tmp_path),), world=4,
+                  timeout=30.0, join_timeout=60.0)
+    msg = str(err.value)
+    assert "ranks failed (rank: exit code): {" in msg
+    first = msg.split("}; ", 1)[1].split("; ")[0]
+    assert first == "rank 2 (+0.00 s): ValueError: probe failure on rank 2"
+    for r in (0, 1, 3):
+        assert f"rank {r} (+" in msg
+
+
 def test_mesh_rank_order_and_collectives(tmp_path):
     """Rank r sits at the row-major coordinates of JAX's device grid; a
     group gathers in that order over a single axis and over ("data",
@@ -272,7 +292,9 @@ TP_DP = ShardingPlan(batch_axes=("data",), model_axis="model",
 
 def test_plans_raise_where_the_reference_does():
     """Prefix continuation and paged decode under model or sequence axes
-    raise with the reference's messages."""
+    raise with the reference's messages; paged decode under a batch-only
+    plan runs, and without a mesh (every axis of size 1) it is the
+    unsharded call, its pool write included."""
     cfg = get_config("smollm-135m").reduced()
     spec = cfg.layer_plan()[0]
     model = api.init_params(cfg, device="cpu")
@@ -286,12 +308,21 @@ def test_plans_raise_where_the_reference_does():
     pool = {"k": torch.zeros((2, 4, 1, 16)), "v": torch.zeros((2, 4, 1, 16))}
     kv_len = torch.zeros(1, dtype=torch.int32)
     tables = torch.zeros((1, 1), dtype=torch.int32)
-    for plan, match in ((TP_DP, "model/seq-sharded"),
-                        (ShardingPlan(seq_axes=("data",)), "model/seq-sharded"),
-                        (ShardingPlan(batch_axes=("data",)), "later slice")):
-        with pytest.raises(NotImplementedError, match=match):
+    for plan in (TP_DP, ShardingPlan(seq_axes=("data",))):
+        with pytest.raises(NotImplementedError, match="model/seq-sharded"):
             attention.attn_paged_decode(cfg, spec, p, x[:, :1], pool, tables,
                                         kv_len, plan=plan)
+    xs = torch.randn((1, 1, cfg.d_model),
+                     generator=torch.Generator().manual_seed(0))
+    runs = []
+    for plan in (None, ShardingPlan(batch_axes=("data",))):
+        fresh = {n: t.clone() for n, t in pool.items()}
+        y, out = attention.attn_paged_decode(cfg, spec, p, xs, fresh, tables,
+                                             kv_len + 1, plan=plan)
+        runs.append((y, out))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][n], runs[1][1][n]) for n in ("k", "v"))
+    assert runs[1][1]["k"].abs().sum() > 0
 
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-3b",
@@ -310,10 +341,13 @@ def test_recurrent_and_encdec_blocks_raise_under_a_plan(arch):
 
 
 def test_training_paged_and_fsdp_raise_under_a_plan():
-    """Only the paged engine still raises under a plan.  Training and an
-    fsdp plan run (``test_torch_sharded_train.py`` holds them on 4 ranks);
-    without a mesh every axis has size 1, so each is the unsharded
-    function."""
+    """Training and an fsdp plan run (``test_torch_sharded_train.py`` holds
+    them on 4 ranks); without a mesh every axis has size 1, so each is the
+    unsharded function.  The paged engine under a plan with a model axis
+    raises where the reference's does, with its exception type: the
+    reference's at its first decode step (``NotImplementedError``), the
+    port's before any device work (``test_torch_sharded_paged.py`` holds
+    the batch-only plan on 4 ranks, and the other raises on a mesh)."""
     cfg = get_config("smollm-135m").reduced()
     model = api.init_params(cfg, device="cpu")
     toks = torch.arange(8, dtype=torch.long).reshape(2, 4) + 2
@@ -329,8 +363,23 @@ def test_training_paged_and_fsdp_raise_under_a_plan():
         assert torch.equal(api.prefill(cfg, model, {"tokens": toks},
                                        cache_len=8, plan=fsdp)[0], lg)
     assert callable(make_train_step(cfg, TP_DP, TrainConfig()))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        PagedEngine(cfg, model, PagedEngineConfig(), plan=TP_DP)
+    reqs = [Request(rid=0, tokens=[3, 4, 5], input_len=3, slo=1e9,
+                    arrival=0.0, true_output_len=4)]
+    pcfg = dict(max_batch=2, block_size=8, n_blocks=8, max_seq_len=32,
+                max_new_tokens=4)
+    with pytest.raises(NotImplementedError, match="model/seq-sharded") as err:
+        PagedEngine(cfg, model, PagedEngineConfig(**pcfg),
+                    plan=TP_DP).run_continuous(reqs)
+    jcfg = jax_get_config("smollm-135m").reduced()
+    jplan = JaxShardingPlan(batch_axes=("data",), model_axis="model",
+                            seq_axes=("model",))
+    jparams = jax_api.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    with pytest.raises(NotImplementedError, match="model/seq-sharded") as jerr:
+        JaxPagedEngine(jcfg, jparams, JaxPagedEngineConfig(**pcfg),
+                       plan=jplan).run_continuous(
+            [JaxRequest(rid=0, tokens=[3, 4, 5], input_len=3, slo=1e9,
+                        arrival=0.0, true_output_len=4)])
+    assert type(err.value) is type(jerr.value)
 
 
 def _train_plans(jcfg):

@@ -17,7 +17,9 @@ meshes {data: 2, model: 2} and {data: 1, model: 4}.  The train cases
 (``grad``: the loss and every gradient; ``step``: three train steps;
 ``opt``: two optimizer updates on given gradients; ``compress``:
 ``dp_mean_compressed`` over data) take the train form of
-each plan (``remat``, ``seq_parallel``, no sequence axes).
+each plan (``remat``, ``seq_parallel``, no sequence axes).  A ``paged``
+case serves one request set through ``PagedEngine`` (its ``variant``:
+``PAGED_VARIANTS``), or shows where a plan makes it raise.
 """
 import dataclasses
 import json
@@ -32,6 +34,8 @@ import numpy as np
 import torch
 
 from repro.configs import get_config as jax_get_config
+from repro.data.workload import (SharedPrefixConfig, WorkloadConfig,
+                                 gen_requests, gen_shared_prefix_requests)
 from repro.models import api as jax_api
 from repro_torch.distributed.ranks import run_ranks
 from repro_torch.params import to_jax_tree
@@ -84,6 +88,23 @@ PROMPT_LENS = [5, 16, 9, 12, 7, 14]
 NEW = [6, 4, 5, 6, 3, 5]
 TIMEOUT = 240.0
 TRAIN_STEPS = 3
+# the paged cases' engine config (tests/test_torch_paged_engine.py's) and,
+# per variant, the changes to it
+PAGED_PCFG = dict(max_batch=4, block_size=8, n_blocks=64, max_seq_len=64,
+                  max_new_tokens=12)
+PAGED_VARIANTS = {
+    "plain": {},
+    "spec": dict(spec_tokens=4),
+    "b3": dict(max_batch=3),
+    "b3_spec": dict(max_batch=3, spec_tokens=4),
+    "preempt": dict(n_blocks=10, max_seq_len=32, max_new_tokens=8,
+                    preempt=True),
+    "waves": dict(prefix_cache=True, chunk_tokens=8),
+    "prefix": dict(prefix_cache=True),
+}
+WAVE_NEW = 4          # new tokens at the end of each second-wave prompt
+# the first-wave request each second-wave one extends
+WAVE_ORDER = [3, 2, 1, 0]
 
 
 def plan_case(kind, arch, mesh, plan, capacity=None, **extra):
@@ -95,6 +116,8 @@ def plan_case(kind, arch, mesh, plan, capacity=None, **extra):
         cid += f"-b{extra['n_prompts']}"
     if extra.get("opt"):
         cid += f"-{extra['opt']}"
+    if extra.get("variant"):
+        cid += f"-{extra['variant']}"
     return dict(id=cid, kind=kind, arch=arch, over=over, mesh=list(mesh),
                 plan=PLANS[plan], plan_name=plan, capacity=capacity, **extra)
 
@@ -134,6 +157,65 @@ def _shards(case) -> int:
     return int(np.prod([sizes[a] for a in case["plan"].get("batch_axes", [])]))
 
 
+def _request_rows(cfg, variant: str) -> list:
+    """A variant's requests as [rid, tokens, true_output_len, slo,
+    arrival] rows."""
+    rng = np.random.default_rng(3)
+    if variant in ("plain", "b3"):
+        # tests/test_paged_engine.py's _reqs: 10-token prompts, 1-8 new
+        reqs = gen_requests(WorkloadConfig(n_requests=7, seed=5,
+                                           vocab=cfg.vocab_size))
+        return [[r.rid, [t % cfg.vocab_size for t in r.tokens[:10]],
+                 r.true_output_len % 8 + 1, r.slo, r.arrival] for r in reqs]
+    if variant in ("spec", "b3_spec"):
+        # repeated 6-token patterns: the n-gram drafter's drafts are taken
+        rows = []
+        for i in range(6):
+            pat = rng.integers(1, cfg.vocab_size, 6).tolist()
+            rows.append([i, (pat * 4)[:20], int(rng.integers(4, 12)), 60.0, 0.0])
+        return rows
+    if variant == "preempt":
+        # three slack residents hold the blocks; tighter requests wait on
+        # them with a slot free, and evict the slackest
+        lens = [16, 16, 16, 8, 8, 8]
+        outs = [8, 8, 8, 2, 4, 4]
+        slos = [1000.0, 999.0, 998.0, 900.0, 0.001, 0.002]
+        return [[i, rng.integers(1, cfg.vocab_size, n).tolist(), o, s, 0.0]
+                for i, (n, o, s) in enumerate(zip(lens, outs, slos))]
+    if variant == "waves":
+        reqs = gen_shared_prefix_requests(SharedPrefixConfig(
+            n_requests=4, n_templates=2, prefix_len=16, suffix_mean=2.0,
+            vocab=cfg.vocab_size, seed=0))
+        return [[r.rid, [t % cfg.vocab_size for t in r.tokens[:32]],
+                 3 + r.true_output_len % 6, r.slo, r.arrival] for r in reqs]
+    # "prefix": two 24-token templates with 8-token suffixes
+    tmpl = [rng.integers(0, cfg.vocab_size, 24).tolist() for _ in range(2)]
+    return [[i, tmpl[i % 2] + rng.integers(0, cfg.vocab_size, 8).tolist(),
+             int(rng.integers(2, 8)), 10.0, float(i)] for i in range(6)]
+
+
+def _paged_inputs(case, cfg) -> None:
+    """A paged case's requests and engine config.  The ``waves`` variant
+    queues a second wave behind the first in the same run: second-wave
+    request j extends first-wave request ``WAVE_ORDER[j]`` with the tokens
+    the port's unsharded engine generated for it there (the first wave
+    alone), then WAVE_NEW new tokens, so its prefix hit reaches blocks that
+    decode steps wrote."""
+    case["pcfg"] = {**PAGED_PCFG, **PAGED_VARIANTS[case.get("variant", "plain")]}
+    rows = _request_rows(cfg, case.get("variant", "plain"))
+    if case.get("variant") == "waves":
+        cfg_p, model = port.load_model(case)
+        first = port.paged_serve(case, cfg_p, model, None, rows)["outputs"]
+        rng = np.random.default_rng(4)
+        n = len(rows)
+        for j, i in enumerate(WAVE_ORDER):
+            rid, toks, out, slo, arr = rows[i]
+            rows.append([n + j, toks + first[str(rid)]
+                         + rng.integers(0, cfg.vocab_size, WAVE_NEW).tolist(),
+                         out, slo, arr])
+    case["reqs"] = rows
+
+
 def _inputs(case, cfg, rng, inputs):
     cid = case["id"]
     if case["kind"] == "logits":
@@ -150,6 +232,8 @@ def _inputs(case, cfg, rng, inputs):
         case["new"] = NEW[:n]
         case["max_batch"] = 4
         case["cache_len"] = ENGINE_CACHE
+    elif case["kind"] == "paged":
+        _paged_inputs(case, cfg)
     elif case.get("inputs_from"):
         src = case["inputs_from"] + "/"
         for key in [k for k in inputs if k.startswith(src)]:
@@ -241,7 +325,15 @@ def run_cases(cases, tmp) -> dict:
         jax_arrays = {k: f[k] for k in f.files}
     with np.load(tmp / "port.npz") as f:
         port_arrays = {k: f[k] for k in f.files}
+    paged = {}
+    if any(c["kind"] == "paged" for c in cases):
+        for r in range(4):
+            with np.load(tmp / f"pools{r}.npz") as f:
+                pools = {k: f[k] for k in f.files}
+            paged[r] = {"run": json.loads((tmp / f"paged{r}.json").read_text()),
+                        "pools": pools}
     return {
+        "paged": paged,
         "cases": {c["id"]: c for c in cases},
         "jax": jax_arrays, "jax_tokens": json.loads((tmp / "jax.json").read_text()),
         "port": port_arrays, "port_tokens": json.loads((tmp / "port.json").read_text()),

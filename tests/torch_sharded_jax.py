@@ -4,11 +4,11 @@ oracle of the port's multi-device serve and train paths
 
     python torch_sharded_jax.py SPEC.json OUT_DIR
 
-Runs every case of SPEC (logits, engine, continuous, moe_block, grad,
-step, opt, compress) under a mesh of ``Auto`` axes, the layout the reference's
-sharded code expects (``jax.make_mesh`` defaults to ``Explicit`` axes in
-JAX 0.9, under which the embedding gather and ``with_sharding_constraint``
-fail), with the parameters placed by ``param_specs``, the optimizer state
+Runs every case of SPEC (logits, engine, continuous, paged, moe_block,
+grad, step, opt, compress) under a mesh of ``Auto`` axes, the layout the
+reference's sharded code expects (``jax.make_mesh`` defaults to
+``Explicit`` axes in JAX 0.9, under which the embedding gather and
+``with_sharding_constraint`` fail), with the parameters placed by ``param_specs``, the optimizer state
 by ``opt_state_specs`` and the batch over the plan's batch axes, as
 ``launch/dryrun.py`` lowers its train step.  Weights and inputs come from
 the harness's numpy files; results go to OUT_DIR/jax.npz and jax.json.
@@ -33,6 +33,8 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 from repro.configs import get_config  # noqa: E402
 from repro.core.types import Batch, Request  # noqa: E402
 from repro.models import api, moe  # noqa: E402
+from repro.obs.trace import Tracer  # noqa: E402
+from repro.serving import paged_engine  # noqa: E402
 from repro.serving.engine import EngineConfig, InferenceEngine  # noqa: E402
 from repro.sharding.compat import set_mesh, shard_map  # noqa: E402
 from repro.sharding.plan import ShardingPlan  # noqa: E402
@@ -163,6 +165,39 @@ def run_compress(case, mesh, inputs, out):
         out[f"{cid}/mean/{k}"] = np.asarray(v)
 
 
+# PagedBatchResult fields that read the wall clock
+CLOCKED = {"prefill_s", "decode_s", "prefill_stall_s", "inter_token_s"}
+
+
+def paged_serve(case, cfg, params, plan) -> dict:
+    """``PagedEngine(plan=)`` on the case's requests: outputs, counters but
+    the clocked ones, trace events and each admission's (rid, slot, prefix
+    tokens hit), or the exception it raised (type name and message)."""
+    reqs = [Request(rid=rid, tokens=list(t), input_len=len(t), slo=slo,
+                    arrival=arr, true_output_len=out)
+            for rid, t, out, slo, arr in case["reqs"]]
+    tracer, admits = Tracer(), []
+    eng = paged_engine.PagedEngine(
+        cfg, params, paged_engine.PagedEngineConfig(**case["pcfg"]),
+        plan=plan, tracer=tracer)
+    begin = eng._begin_prefill
+
+    def logged(st, slot, r, outs, res):
+        begin(st, slot, r, outs, res)
+        admits.append([r.rid, slot, st.prefilling[slot].done])
+    eng._begin_prefill = logged
+    try:
+        res = eng.run_continuous(reqs)
+    except (ValueError, NotImplementedError) as e:
+        return {"error": [type(e).__name__, str(e)]}
+    counters = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)
+                if f.name not in CLOCKED and f.name != "outputs"}
+    counters["inter_token_samples"] = len(res.inter_token_s)
+    return {"outputs": {str(k): v for k, v in res.outputs.items()},
+            "counters": counters, "admits": admits,
+            "events": [[e.name, e.ph, e.row] for e in tracer.events]}
+
+
 def run(case, mesh, inputs, out_arrays, out_json):
     cfg = config(case)
     plan = ShardingPlan(**{k: tuple(v) if isinstance(v, list) else v
@@ -194,6 +229,12 @@ def run(case, mesh, inputs, out_arrays, out_json):
         for i, t in enumerate(steps):
             lg, cache = dec(params, jnp.asarray(t), cache, kv_len + i)
             out_arrays[f"{cid}/decode{i}"] = np.asarray(lg)
+    elif case["kind"] == "paged":
+        out_json[cid] = {"sharded": paged_serve(case, cfg, params, plan)}
+        if not case.get("raises"):
+            out_json[cid]["unsharded"] = paged_serve(
+                case, cfg, jax.tree.map(jnp.asarray, load_tree(case["weights"])),
+                None)
     elif case["kind"] in ("engine", "continuous"):
         eng = InferenceEngine(cfg, params, EngineConfig(
             max_batch=case["max_batch"], cache_len=case["cache_len"],
@@ -229,7 +270,7 @@ def main(spec_path, out_dir):
             run(case, meshes[shape], inputs, out_arrays, out_json)
     np.savez(os.path.join(out_dir, "jax.npz"), **out_arrays)
     with open(os.path.join(out_dir, "jax.json"), "w") as f:
-        json.dump(out_json, f)
+        json.dump(out_json, f, default=lambda a: a.item())
 
 
 if __name__ == "__main__":

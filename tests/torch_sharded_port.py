@@ -5,10 +5,11 @@ the CPU (``repro_torch.distributed.ranks.run_ranks``), started by
 Each rank loads the harness's numpy weights into the port's model, cuts
 them to its slices (``params.shard_params``) and runs every case of the
 spec under the case's mesh and plan: prefill and decode logits, the
-engine padded or continuous, one MoE block, the loss and its gradients
-(gathered to full), three train steps, or ``dp_mean_compressed``.  Rank 0
-writes the arrays and tokens; every rank writes which attention wrappers
-it called, with what shapes, to show which path each plan took.
+engine padded or continuous, the paged engine, one MoE block, the loss and
+its gradients (gathered to full), three train steps, or
+``dp_mean_compressed``.  Rank 0 writes the arrays and tokens; every rank
+writes which attention wrappers it called, with what shapes, to show
+which path each plan took, and its paged engines' results and pools.
 ``collective_probe`` holds each differentiable collective's backward to
 its transpose and its forward under ``no_grad`` to plain
 ``torch.distributed`` calls."""
@@ -28,8 +29,11 @@ from repro_torch.distributed.collectives import all_gather, local_chunk
 from repro_torch.models import api
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe
+from repro_torch.obs.trace import Tracer
 from repro_torch.params import from_jax_params, shard_params, stacked_leaves
-from repro_torch.serving import EngineConfig, InferenceEngine
+from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
+                                 PagedEngineConfig)
+from repro_torch.serving import paged_engine
 from repro_torch.sharding import Mesh, ShardingPlan, set_mesh
 from repro_torch.sharding.specs import (gather_tensor, gather_tree,
                                         shard_tensor, shard_tree)
@@ -74,6 +78,62 @@ def requests(case):
     return [Request(rid=i, tokens=p, input_len=len(p), slo=1e9, arrival=0.0,
                     true_output_len=n)
             for i, (p, n) in enumerate(zip(case["prompts"], case["new"]))]
+
+
+# PagedBatchResult fields that read the wall clock
+CLOCKED = {"prefill_s", "decode_s", "prefill_stall_s", "inter_token_s"}
+
+
+def paged_serve(case, cfg, model, plan, rows=None) -> dict:
+    """``PagedEngine(plan=)`` on the case's requests (or ``rows``): its
+    outputs, its counters but the clocked ones, its trace events, each
+    admission's (rid, slot, prefix tokens hit) and its pools at the end
+    (``pools``, tensors; absent when it never made them), or the
+    exception it raised (``error``: type name and message)."""
+    reqs = [Request(rid=rid, tokens=list(t), input_len=len(t), slo=slo,
+                    arrival=arr, true_output_len=out)
+            for rid, t, out, slo, arr in (rows or case["reqs"])]
+    tracer, admits, states = Tracer(), [], []
+    eng = PagedEngine(cfg, model, PagedEngineConfig(**case["pcfg"]),
+                      plan=plan, tracer=tracer)
+    begin = eng._begin_prefill
+
+    def logged(st, slot, r, outs, res):
+        begin(st, slot, r, outs, res)
+        admits.append([r.rid, slot, st.prefilling[slot].done])
+    eng._begin_prefill = logged
+    create = paged_engine.PagedDecodeState.create
+
+    def kept(*args, **kw):
+        states.append(create(*args, **kw))
+        return states[-1]
+    paged_engine.PagedDecodeState.create = kept
+    try:
+        res = eng.run_continuous(reqs)
+    except (ValueError, NotImplementedError) as e:
+        return {"error": [type(e).__name__, str(e)], "made_pools": bool(states)}
+    finally:
+        paged_engine.PagedDecodeState.create = create
+    counters = {f.name: getattr(res, f.name) for f in dataclasses.fields(res)
+                if f.name not in CLOCKED and f.name != "outputs"}
+    counters["inter_token_samples"] = len(res.inter_token_s)
+    return {"outputs": {str(k): v for k, v in res.outputs.items()},
+            "counters": counters, "admits": admits,
+            "events": [[e.name, e.ph, e.row] for e in tracer.events],
+            "pools": states[-1].pools}
+
+
+def paged_case(case, cfg, model, plan, arrays, tokens):
+    """A paged case on this rank (plan None: the unsharded port): its
+    summary in ``tokens`` and its pools in ``arrays``, by layer."""
+    cid = case["id"]
+    if plan is None and case.get("raises"):
+        return
+    out = paged_serve(case, cfg, model, plan)
+    for i, pool in enumerate(out.pop("pools", ())):
+        for n in ("k", "v"):
+            arrays[f"{cid}/pool{i}/{n}"] = pool[n].numpy()
+    tokens[cid] = out
 
 
 def train_batch(inputs, cid, i=0) -> dict:
@@ -223,6 +283,8 @@ def run_case(case, cfg, model, plan, inputs, arrays, tokens):
             lg, cache = api.decode_step(cfg, model, torch.as_tensor(t).long(),
                                         cache, kv_len + i, plan=plan)
             arrays[f"{cid}/decode{i}"] = lg.numpy()
+    elif case["kind"] == "paged":
+        paged_case(case, cfg, model, plan, arrays, tokens)
     elif case["kind"] in ("engine", "continuous"):
         eng = InferenceEngine(cfg, model, EngineConfig(
             max_batch=case["max_batch"], cache_len=case["cache_len"],
@@ -280,6 +342,13 @@ def _partial(q, k, v, kv_len, **kw):
     return {"h": q.shape[1], "s": k.shape[1], "pos_offset": int(kw["pos_offset"])}
 
 
+def _paged(q, k_pool, v_pool, tables, lengths, **kw):
+    """K1's rows, window and the pool it reads."""
+    return {"b": q.shape[0], "t": q.shape[1] if q.dim() == 4 else 1,
+            "h": q.shape[-2], "blocks": k_pool.shape[0],
+            "tables": list(tables.shape)}
+
+
 def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
     spec = json.loads(open(spec_path).read())
     with np.load(spec["inputs"]) as f:
@@ -288,7 +357,10 @@ def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
     log.wrap("flash_attention", _flash)
     log.wrap("decode_attention", _decode)
     log.wrap("decode_attention_partial", _partial)
+    log.wrap("paged_decode_attention", _paged)
+    log.wrap("paged_window_attention", _paged)
     arrays, tokens, calls = {}, {}, {}
+    paged, pools = {}, {}
     by_mesh = defaultdict(list)
     for case in spec["cases"]:
         by_mesh[tuple(case["mesh"])].append(case)
@@ -298,10 +370,17 @@ def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
                 cfg, model = load_model(case)
                 plan = plan_of(case)
                 shard_params(cfg, model, plan)
-                run_case(case, cfg, model, plan, inputs, arrays, tokens)
+                if case["kind"] == "paged":
+                    paged_case(case, cfg, model, plan, pools, paged)
+                else:
+                    run_case(case, cfg, model, plan, inputs, arrays, tokens)
                 calls[case["id"]] = log.take()
     with open(os.path.join(out_dir, f"calls{rank}.json"), "w") as f:
         json.dump(calls, f)
+    if paged:
+        np.savez(os.path.join(out_dir, f"pools{rank}.npz"), **pools)
+        with open(os.path.join(out_dir, f"paged{rank}.json"), "w") as f:
+            json.dump(paged, f, default=lambda a: a.item())
     if rank == 0:
         np.savez(os.path.join(out_dir, "port.npz"), **arrays)
         with open(os.path.join(out_dir, "port.json"), "w") as f:
@@ -377,6 +456,15 @@ def _old_forward(name, x, axis, *dims):
 PROBES = [("psum", ()), ("all_gather", (1,)), ("local_chunk", (1,)),
           ("reduce_scatter", (0,)), ("all_to_all", (0, 2)),
           ("all_to_all", (2, 1))]
+
+
+def failing_probe(rank: int, out_dir: str) -> None:
+    """After a barrier rank 2 raises; the others wait for it in a
+    collective and lose their peer."""
+    dist.barrier()
+    if rank == 2:
+        raise ValueError("probe failure on rank 2")
+    dist.all_reduce(torch.ones(1))
 
 
 def collective_probe(rank: int, out_dir: str) -> None:
