@@ -42,7 +42,9 @@ Phases, in order; any failed check exits non-zero:
    softcap 50, minicpm3-4b's D = 96 / Dv = 64, whisper's non-causal cross
    attention (Sq != Skv), a q_offset > 0, and phase 17's shapes (4 x 512
    a step: chatglm2-6b on the card alone and on a tp_dp or tp_dp_fsdp
-   rank, qwen2-moe-a2.7b on the card alone and on an ep_tp_fsdp rank).
+   rank, qwen2-moe-a2.7b on the card alone and on an ep_tp_fsdp rank);
+   WKV6 also at phase 19's rank shapes (2 rows over 20 heads of 64, one
+   row a prompt length the ranks' prefills take).
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
@@ -244,7 +246,7 @@ Phases, in order; any failed check exits non-zero:
 16. sharded serve (``[sharded]`` lines): multi-device serving as 4 ranks
    of ``torch.distributed`` that share the one card (gloo: NCCL takes one
    rank a GPU; every collective goes through host memory), spawned after
-   the kernels are built.  chatglm2-6b at full width and 14 layers (f32)
+   the kernels are built.  chatglm2-6b at full width and 7 layers (f32)
    and qwen2-moe-a2.7b at full width and 2 layers (capacity factor 8: no
    drops, so the batch-sharded MoE is the unsharded function) are first
    served on the card alone, then by the ranks through
@@ -302,6 +304,28 @@ Phases, in order; any failed check exits non-zero:
    that second-wave hit, and every K1 and K2 shape a rank called a parity
    case; prints the decode step's wall time beside the card alone's and
    rank 0's calls and seconds in gloo.
+19. sharded recurrent serve (``[sharded_recurrent]`` lines): Mamba and
+   RWKV-6 blocks under tp_dp on {data: 2, model: 2} (batch over data, the
+   blocks over model), 4 ranks sharing the card over gloo, against the
+   card alone.  rwkv6-3b at full width and 8 of its 32 layers (f32, 3.9
+   GB; the time mix head-parallel: K4 on each rank's 2 rows of a batch of
+   4 over 20 of the 40 heads, ``o`` and the channel mix row-parallel) and
+   jamba-1.5-large-398b at full width and its first layer (f32, 8.3 GB:
+   the Mamba mixer, d_inner 16,384, channel-parallel, its in_proj's x
+   columns on model-rank 0 and z columns on model-rank 1, and a dense MLP
+   of 24,576), each drawn on the card from the seeded CUDA generator,
+   served on the card alone, which is then freed, and by the ranks, each
+   drawing the full weights in turn and keeping its slices: the 12 serve
+   requests in batches of 4, padded, then through the continuous engine
+   (4 slots).  Checks every rank's tokens (both modes) and admissions
+   (each prefill's row lengths) equal to the card alone's, the first
+   batch's prefill and decode logits within 1e-3, K4 on every rank layers
+   x prefills (none for jamba, and no attention kernel), every K4 call at
+   20 heads and every K4 shape a rank called a parity case, and the gloo
+   calls of one decode step (3 + 3 an RWKV-6 layer, 3 + 5 for jamba's
+   layer); prints the decode step's wall time beside the card alone's,
+   rank 0's calls and seconds in gloo, and each rank's memory after its
+   slices were cut and its peak while serving.
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
 the launch counts set to 0 just before it and read just after.  A
@@ -359,6 +383,7 @@ from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
 from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.models import api, attention, mamba, moe  # noqa: E402
+from repro_torch.models import rwkv as rwkv_model  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
     ring_decode, ring_decode_attention, ring_lengths)
 from repro_torch.params import shard_params, stacked_leaves  # noqa: E402
@@ -479,6 +504,9 @@ SHARDED_WORLD, SHARDED_CACHE = 4, 64
 # the other phases' 4 x 1024 and 32, to keep the script under 900 s)
 SHARDED_LONG_PROMPT, SHARDED_LONG_NEW = 512, 8
 SHARDED_LONG_CACHE = SHARDED_LONG_PROMPT + SHARDED_LONG_NEW + 8
+# chatglm2-6b's depth in phase 16: 7 of its 28 layers (14 before phase 19
+# was added, which took the script past 900 s)
+SHARDED_CHATGLM2_LAYERS = 7
 SHARDED_MOE_LAYERS, SHARDED_MOE_CAPACITY = 2, 8.0
 SHARDED_RUNS = [
     ("chatglm2 tp_dp", "chatglm2", (2, 2),
@@ -518,7 +546,7 @@ SHARDED_TRAIN_RUNS = [
 
 # phase 18: the paged engine under dp on {data: 2, model: 2} (batch over
 # both axes: one slot row a rank), 4 ranks sharing the card over gloo, and
-# the card alone: chatglm2-6b at full width and phase 16's 14 layers on
+# the card alone: chatglm2-6b at full width and 14 of its 28 layers on
 # 16-token pages, 5 a sequence, in a 48-page pool.  Runs (name, the
 # PagedEngineConfig's changes): the 12 serve requests; the shared-prefix mix
 # with the prefix cache and 16-token chunks (block-aligned hits, so every
@@ -536,6 +564,21 @@ SHARDED_PAGED_RUNS = {
 SHARDED_WAVE, SHARDED_WAVE_NEW = 8, 4   # first-wave requests; new tokens a
 #                                         second-wave prompt adds
 TOL_POOL = 1e-5                 # x the card alone's largest pool value
+
+# phase 19: Mamba and RWKV-6 blocks under tp_dp on {data: 2, model: 2}
+# (batch over data, the blocks over model), 4 ranks sharing the card over
+# gloo, against the card alone: model -> (arch, layers kept).  rwkv6-3b at
+# full width and 8 of its 32 layers (K4 on each rank's 20 of the 40
+# heads); jamba-1.5-large-398b at full width and its first layer (Mamba
+# with d_inner 16,384 and a dense MLP of 24,576; in_proj's x columns on
+# model-rank 0, its z columns on model-rank 1)
+SHARDED_RECURRENT = {"rwkv6": ("rwkv6-3b", 8), "jamba": (JAMBA, 1)}
+SHARDED_RECURRENT_PLAN = ShardingPlan(batch_axes=("data",), model_axis="model",
+                                      seq_axes=("model",), mla_absorbed=False)
+# the prompt lengths of a rank's K4 calls there: the 12 serve requests'
+# 16-token prompts padded, and the continuous engine's re-prefilled waves
+# (each slot's prompt and its tokens so far)
+SHARDED_RECURRENT_T = (16, 20, 21, 23, 24, 25, 28)
 
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
@@ -829,7 +872,12 @@ WKV6_CASES = [  # name, b, t, h, d, dv, chunk, decay_scale, w_max, s0
     # K4 splits Dv over 4 blocks: 2, 2, 2, 0 columns and 1, 1, 0, 0 columns
     ("dv6_split", 2, 40, 3, 16, 6, 32, 2.0, None, True),
     ("dv2_empty_blocks", 2, 33, 2, 16, 2, 32, 2.0, None, False),
+    # phase 19's rank shapes: rwkv6-3b's 2 rows a data shard over 20 of its
+    # 40 heads a model shard
+    *((f"rwkv_tp2_rank_t{t}", 2, t, 20, 64, 64, 32, 2.0, None, False)
+      for t in SHARDED_RECURRENT_T),
 ]
+WKV6_TIMED = ("rwkv_serve_prefill", "rwkv_long_prefill", "rwkv_tp2_rank_t28")
 WINDOW_PARITY_LAYERS = 2       # gemma2-27b card vs CPU: one local, one global
 TIMED = {"flash_attention": "long_prefill", "decode_attention": "long_decode",
          "paged_attention": "paged_long_decode", "wkv6": "rwkv_long_prefill"}
@@ -1424,7 +1472,7 @@ def phase_times() -> dict:
             lambda: ref(*args, **kw), None,
             paged_cost(case, dt), COLD["paged_attention"], dt)
         out[f"paged_attention/{case[0]}"]["splits"] = paged_splits(case[9], case[8])[0]
-    for case in WKV6_CASES[:2]:
+    for case in (c for c in WKV6_CASES if c[0] in WKV6_TIMED):
         args, kw = wkv6_inputs(case, torch.float32, gen)
         # no PyTorch call computes WKV6: library_ms null
         out[f"wkv6/{case[0]}"] = time_three(
@@ -3348,13 +3396,13 @@ def phase_train() -> dict:
 
 # ---------------------------------------------------------------- phase 16
 
-def sharded_cfg(model: str):
-    """Phase 16's configs: chatglm2-6b at full width and 14 of its 28
-    layers; qwen2-moe-a2.7b at full width and 2 of its 24, at capacity
-    factor 8 (no drops), so that its batch-sharded block is the unsharded
-    function and the tokens can be held to one card's."""
+def sharded_cfg(model: str, layers: int = SHARDED_CHATGLM2_LAYERS):
+    """Phase 16's configs: chatglm2-6b at full width and ``layers`` of its
+    28 (phase 18 keeps 14); qwen2-moe-a2.7b at full width and 2 of its 24,
+    at capacity factor 8 (no drops), so that its batch-sharded block is
+    the unsharded function and the tokens can be held to one card's."""
     if model == "chatglm2":
-        return replace(get_config("chatglm2-6b"), n_layers=CHATGLM2_LAYERS)
+        return replace(get_config("chatglm2-6b"), n_layers=layers)
     cfg = get_config("qwen2-moe-a2.7b")
     return replace(cfg, n_layers=SHARDED_MOE_LAYERS, moe=replace(
         cfg.moe, capacity_factor=SHARDED_MOE_CAPACITY))
@@ -3813,32 +3861,58 @@ class PagedShapes:
         return sorted(self.calls, key=str)
 
 
+class WKV6Shapes:
+    """The shapes at which the RWKV-6 block calls K4's wrapper in this
+    process, as WKV6_CASES rows without their name and decay (b, t, h, d,
+    dv, chunk, s0 given), recorded by wrapping ``models.rwkv.wkv6``."""
+
+    def __init__(self):
+        self.calls = set()
+        orig = rwkv_model.wkv6
+
+        def logged(r, k, v, w, u, s0=None, **kw):
+            self.calls.add((*r.shape, v.shape[3], kw.get("chunk", 32),
+                            s0 is not None))
+            return orig(r, k, v, w, u, s0, **kw)
+        rwkv_model.wkv6 = logged
+
+    def read(self) -> list:
+        return sorted(self.calls, key=str)
+
+
 def shape_coverage(tag: str, seen: list, need_grad: bool = True) -> dict:
     """Fail unless every shape at which a phase's ranks called K2 is a
-    FLASH_CASES row, every one under grad a GRAD_CASES row too, and every
-    one at which they called K1 a PAGED_CASES row: the parity phase has
-    held the kernel, and K2's gradient, against the plain version at
-    each.  ``seen``: each rank's {"calls", "grad"} of ``FlashShapes`` and
-    {"paged"} of ``PagedShapes``."""
-    calls = {tuple(r) for s in seen for r in s.get("calls", ())}
-    grad = {tuple(r) for s in seen for r in s.get("grad", ())}
-    paged = {tuple(r) for s in seen for r in s.get("paged", ())}
+    FLASH_CASES row, every one under grad a GRAD_CASES row too, every one
+    at which they called K1 a PAGED_CASES row and every one at which they
+    called K4 a WKV6_CASES row: the parity phase has held the kernel, and
+    K2's gradient, against the plain version at each.  ``seen``: each
+    rank's {"calls", "grad"} of ``FlashShapes``, {"paged"} of
+    ``PagedShapes`` and {"wkv6"} of ``WKV6Shapes``."""
+    def rows(key):
+        return {tuple(r) for s in seen for r in s.get(key, ())}
+    calls, grad, paged, wkv = (rows(k) for k in ("calls", "grad", "paged",
+                                                 "wkv6"))
     names = {tuple(c[1:]): c[0] for c in FLASH_CASES}
     grad_names = {tuple(c[1:]): c[0] for c in GRAD_CASES}
     paged_names = {tuple(c[1:12]): c[0] for c in PAGED_CASES}
+    wkv_names = {tuple(c[1:7]) + (c[9],): c[0] for c in WKV6_CASES}
     missing = sorted((calls - set(names)) | (grad - set(grad_names))
-                     | (paged - set(paged_names)), key=str)
+                     | (paged - set(paged_names)) | (wkv - set(wkv_names)),
+                     key=str)
     print(f"[{tag}] K2 shapes: {len(calls)} "
           f"({sorted(names.get(r, '?') for r in calls)}), under grad "
           f"{len(grad)} ({sorted(grad_names.get(r, '?') for r in grad)}); "
           f"K1 shapes: {len(paged)} "
           f"({sorted(paged_names.get(r, '?') for r in paged)}); "
+          f"K4 shapes: {len(wkv)} "
+          f"({sorted(wkv_names.get(r, '?') for r in wkv)}); "
           f"with no parity case: {missing}", flush=True)
     if missing or (need_grad and not grad):
-        fail(f"{tag}: K1/K2 shapes with no parity case: {missing}")
+        fail(f"{tag}: K1/K2/K4 shapes with no parity case: {missing}")
     return {"calls": sorted(names[r] for r in calls),
             "grad": sorted(grad_names[r] for r in grad),
-            "paged": sorted(paged_names[r] for r in paged)}
+            "paged": sorted(paged_names[r] for r in paged),
+            "wkv6": sorted(wkv_names[r] for r in wkv)}
 
 
 def phase_sharded_train() -> dict:
@@ -4042,7 +4116,7 @@ def sharded_paged_rank(rank: int, out_dir: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     out = Path(out_dir)
     rows = json.loads((out / "rows.json").read_text())
-    cfg = sharded_cfg("chatglm2")
+    cfg = sharded_cfg("chatglm2", CHATGLM2_LAYERS)
     mesh = Mesh({"data": 2, "model": 2}, device="cuda")
     gloo, flash, paged = GlooClock(), FlashShapes(), PagedShapes()
     recs = {}
@@ -4084,7 +4158,7 @@ def phase_sharded_paged() -> dict:
     out_dir = ROOT / "build" / "sharded_paged"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
-    cfg = sharded_cfg("chatglm2")
+    cfg = sharded_cfg("chatglm2", CHATGLM2_LAYERS)
     layers = kernel_layers(cfg)
     params = sharded_draw(cfg)
     rows = {"serve": request_rows(serve.make_requests(cfg, 12, 16))}
@@ -4194,6 +4268,231 @@ def phase_sharded_paged() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+
+def recurrent_cfg(model: str):
+    """Phase 19's configs (SHARDED_RECURRENT): full width, cut depth."""
+    arch, layers = SHARDED_RECURRENT[model]
+    return replace(get_config(arch), n_layers=layers)
+
+
+def recurrent_gloo_calls(cfg) -> int:
+    """The collectives of one decode step of ``cfg`` under tp_dp on
+    {data: 2, model: 2}: the vocab-parallel embedding's psum, the logits'
+    gathers over model and then data, and a layer's: an RWKV-6 layer's
+    psum of ``o``, all-gather of the state and psum of the channel mix's
+    ``value``; a Mamba layer's all-gather of in_proj's columns, psum of
+    B, C and dt, psum of ``out_proj`` and all-gather of the ssm state,
+    and its dense MLP's psum."""
+    per_layer = {"rwkv6": 3, "mamba": 5}
+    return 3 + sum(per_layer[sp.mixer] for sp in cfg.layer_plan())
+
+
+def recurrent_serve(cfg, params, plan, clock=None) -> dict:
+    """Serve phase 19's requests on ``params``: one card's model (``plan``
+    None) or this rank's slices under ``plan``.  First the first batch's
+    prefill and first decode-step logits, that step's collectives counted
+    by ``clock``; then, with the launch counts set to 0 just before and
+    read just after, the 12 serve requests in batches of 4 padded and then
+    continuously (4 slots), each prefill's row lengths logged (the
+    admissions)."""
+    ecfg = EngineConfig(max_batch=4, cache_len=SHARDED_CACHE, max_new_tokens=16)
+    eng = InferenceEngine(cfg, params, ecfg, plan=plan)
+    batches = sharded_batches(cfg, False)
+    toks, kv_len = eng._pad_prompts([r.tokens for r in batches[0].requests])
+    lg, cache = eng._prefill(toks, kv_len)
+    torch.cuda.synchronize()
+    if clock is not None:
+        clock.reset()
+    lg2, _ = eng._decode(greedy(lg, cfg.vocab_size)[:, None].long(), cache,
+                         kv_len)
+    step_calls = clock.read()["calls"] if clock is not None else None
+    logits = torch.stack([lg, lg2]).float().cpu().numpy()
+    del cache, lg, lg2
+    waves, prefill = [], eng._prefill
+
+    def logged(toks, kv_len):
+        waves.append(kv_len.tolist())
+        return prefill(toks, kv_len)
+    eng._prefill = logged
+    true = {r.rid: r.true_output_len for b in batches for r in b.requests}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    if clock is not None:
+        clock.reset()
+    outs, runs = {}, []
+    for b in batches:
+        res = eng.run_batch(b, true_lens=true)
+        outs.update(res.outputs)
+        runs.append({"prefill_ms": res.prefill_s * 1e3,
+                     "decode_ms": res.decode_s * 1e3, "steps": res.steps})
+    t0 = time.perf_counter()
+    cont = eng.run_continuous([r for b in batches for r in b.requests])
+    torch.cuda.synchronize()
+    cont_s = time.perf_counter() - t0
+    del eng._prefill        # the wrapper's cycle would keep the weights alive
+    return {"outputs": {str(k): v for k, v in outs.items()},
+            "continuous": {str(k): v for k, v in cont.outputs.items()},
+            "continuous_s": cont_s, "continuous_steps": cont.steps,
+            "waves": waves, "logits": logits, "launches": read_launches(),
+            "batches": runs, "step_calls": step_calls,
+            "gloo": clock.read() if clock is not None else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def sharded_recurrent_rank(rank: int, out_dir: str) -> None:
+    """One of phase 19's ranks on the card: each model of
+    SHARDED_RECURRENT drawn in turn (one full copy on the card at a time)
+    and cut to this rank's slices, then served under tp_dp.  Writes its
+    records, with the K4 shapes it called, and on rank 0 the logits."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    gloo, wkv = GlooClock(), WKV6Shapes()
+    recs = {}
+    with set_mesh(Mesh({"data": 2, "model": 2}, device="cuda")):
+        for model in SHARDED_RECURRENT:
+            cfg = recurrent_cfg(model)
+            t0 = time.perf_counter()
+            for turn in range(dist.get_world_size()):
+                if turn == rank:
+                    params = sharded_draw(cfg)
+                    shard_params(cfg, params, SHARDED_RECURRENT_PLAN)
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            draw_s = time.perf_counter() - t0
+            held = torch.cuda.memory_allocated() / 2**30
+            rec = recurrent_serve(cfg, params, SHARDED_RECURRENT_PLAN, gloo)
+            del params
+            torch.cuda.empty_cache()
+            if rank == 0:
+                np.save(out / f"{model}.npy", rec["logits"])
+            recs[model] = {k: v for k, v in rec.items() if k != "logits"} | {
+                "draw_s": draw_s, "held_gib": held}
+    recs["shapes"] = {"wkv6": wkv.read()}
+    (out / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def phase_sharded_recurrent() -> dict:
+    """Mamba and RWKV-6 blocks under tp_dp (SHARDED_RECURRENT): each model
+    served on the card alone, which is then freed, and by 4 ranks sharing
+    it over gloo: tokens (padded and continuous) and admissions equal to
+    the card alone's, logits within TOL_LOGITS, K4 on each rank layers x
+    prefills at half the heads (every shape a parity case), no attention
+    kernel, the collectives of a decode step; step times beside the card
+    alone's."""
+    out_dir = ROOT / "build" / "sharded_recurrent"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    alone, launches = {}, {k: 0 for k in TIMED}
+    for model in SHARDED_RECURRENT:
+        cfg = recurrent_cfg(model)
+        t0 = time.perf_counter()
+        params = sharded_draw(cfg)
+        draw_s = time.perf_counter() - t0
+        alone[model] = recurrent_serve(cfg, params, None)
+        alone[model]["draw_s"] = draw_s
+        alone[model]["weight_gib"] = sum(
+            p.numel() * p.element_size() for p in params.parameters()) / 2**30
+        for k in launches:
+            launches[k] += alone[model]["launches"][k]
+        del params
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_ranks(sharded_recurrent_rank, (str(out_dir),), world=SHARDED_WORLD,
+              timeout=300.0, join_timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_WORLD)]
+    print(f"[sharded_recurrent] {SHARDED_WORLD} ranks on one card over gloo "
+          f"under tp_dp {{data: 2, model: 2}}: {ranks_s:.1f} s from spawn to "
+          "join", flush=True)
+    out = {"ranks_s": ranks_s, "runs": {}, "shapes": shape_coverage(
+        "sharded_recurrent", [r["shapes"] for r in ranks], need_grad=False)}
+    for model in SHARDED_RECURRENT:
+        cfg, ref = recurrent_cfg(model), alone[model]
+        rec = ranks[0][model]
+        same, total = agreement(rec["outputs"], ref["outputs"])
+        c_same, c_total = agreement(rec["continuous"], ref["continuous"])
+        err = float(np.abs(np.load(out_dir / f"{model}.npy")
+                           - ref["logits"]).max())
+        prefills = len(ref["waves"])
+        rwkv_layers = sum(sp.mixer == "rwkv6" for sp in cfg.layer_plan())
+        want = {"flash_attention": 0, "decode_attention": 0,
+                "paged_attention": 0, "wkv6": rwkv_layers * prefills}
+        got = [r[model]["launches"] for r in ranks]
+        for r in ranks:
+            for k in launches:
+                launches[k] += r[model]["launches"][k]
+        heads = sorted({row[2] for r in ranks for row in r["shapes"]["wkv6"]})
+        calls = [r[model]["step_calls"] for r in ranks]
+        want_calls = recurrent_gloo_calls(cfg)
+        steps = sum(b["steps"] for b in rec["batches"])
+        step_ms = sum(b["decode_ms"] for b in rec["batches"]) / steps
+        ref_ms = sum(b["decode_ms"] for b in ref["batches"]) / steps
+        run_s = sum(b["prefill_ms"] + b["decode_ms"]
+                    for b in rec["batches"]) / 1e3 + rec["continuous_s"]
+        print(f"[sharded_recurrent] {model} ({cfg.name}, {cfg.n_layers} of "
+              f"{get_config(cfg.name).n_layers} layers, "
+              f"{ref['weight_gib']:.2f} GiB of f32 weights, drawn on the "
+              f"card alone in {ref['draw_s']:.1f} s): tokens {same}/{total} "
+              f"padded and {c_same}/{c_total} continuous equal to the card "
+              f"alone's; admissions {len(rec['waves'])} prefills, equal "
+              f"{all(r[model]['waves'] == ref['waves'] for r in ranks)}; "
+              f"logits max_abs_err {err:.3e} (tol {TOL_LOGITS}); launches a "
+              f"rank {got} (expected {want}); K4 heads a call {heads}",
+              flush=True)
+        print(f"[sharded_recurrent] {model}: decode {step_ms:.2f} ms a step "
+              f"(card alone {ref_ms:.2f}), {calls[0]} gloo calls a step "
+              f"(expected {want_calls}); continuous {rec['continuous_s']:.2f} "
+              f"s (card alone {ref['continuous_s']:.2f}); rank 0's "
+              f"collectives {rec['gloo']['calls']} calls, "
+              f"{rec['gloo']['s']:.2f} s in gloo of the runs' {run_s:.2f} s; "
+              f"draw and shard {rec['draw_s']:.1f} s; held "
+              f"{[round(r[model]['held_gib'], 2) for r in ranks]} GiB and "
+              f"peak {[round(r[model]['peak_gib'], 2) for r in ranks]} GiB "
+              f"a rank (card alone peak {ref['peak_gib']:.2f})", flush=True)
+        if same != total or c_same != c_total or any(
+                r[model]["outputs"] != ref["outputs"]
+                or r[model]["continuous"] != ref["continuous"] for r in ranks):
+            fail(f"sharded recurrent {model}: tokens {same}/{total}, "
+                 f"{c_same}/{c_total} equal the card alone's")
+        if any(r[model]["waves"] != ref["waves"] for r in ranks):
+            fail(f"sharded recurrent {model}: admissions differ from the "
+                 "card alone's")
+        if not err <= TOL_LOGITS:
+            fail(f"sharded recurrent {model}: logits differ from the card "
+                 f"alone's by {err}")
+        if any(g != want for g in got):
+            fail(f"sharded recurrent {model}: launches {got}, expected {want}")
+        if any(c != want_calls for c in calls):
+            fail(f"sharded recurrent {model}: gloo calls a step {calls}, "
+                 f"expected {want_calls}")
+        out["runs"][model] = {
+            "arch": cfg.name, "layers": cfg.n_layers,
+            "weight_gib": ref["weight_gib"], "tokens_equal": [same, total],
+            "continuous_equal": [c_same, c_total], "waves": ref["waves"],
+            "logits_max_abs_err": err, "launches_per_rank": got,
+            "gloo_calls_per_step": calls, "decode_ms_per_step": step_ms,
+            "one_card_decode_ms_per_step": ref_ms,
+            "continuous_s": rec["continuous_s"],
+            "one_card_continuous_s": ref["continuous_s"],
+            "batches": rec["batches"], "one_card_batches": ref["batches"],
+            "gloo_rank0": rec["gloo"], "draw_s": rec["draw_s"],
+            "held_gib": [r[model]["held_gib"] for r in ranks],
+            "peak_gib": [r[model]["peak_gib"] for r in ranks],
+            "one_card_peak_gib": ref["peak_gib"]}
+    heads = {row[2] for r in ranks for row in r["shapes"]["wkv6"]}
+    want_heads = recurrent_cfg("rwkv6").n_heads // 2
+    if heads != {want_heads}:
+        fail(f"sharded recurrent: K4 ran at {sorted(heads)} heads, expected "
+             f"{want_heads} on every rank")
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -4234,6 +4533,7 @@ def main() -> None:
     sharded = run("sharded", phase_sharded)
     sharded_train = run("sharded_train", phase_sharded_train)
     sharded_paged = run("sharded_paged", phase_sharded_paged)
+    sharded_recurrent = run("sharded_recurrent", phase_sharded_recurrent)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -4243,6 +4543,7 @@ def main() -> None:
                 + llama4["launches"][k] + jamba["launches"][k]
                 + trained["launches"][k] + sharded["launches"][k]
                 + sharded_train["launches"][k] + sharded_paged["launches"][k]
+                + sharded_recurrent["launches"][k]
                 for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
@@ -4287,7 +4588,7 @@ def main() -> None:
               "llama4": llama4, "jamba": jamba, "cluster": cluster,
               "train": trained, "sharded": sharded,
               "sharded_train": sharded_train, "sharded_paged": sharded_paged,
-              "kernels": kernels, "phase_s": phase_s,
+              "sharded_recurrent": sharded_recurrent, "kernels": kernels, "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -5,8 +5,10 @@ steps of the decoder-only family (the vision stub's prefill takes
 embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
 their slice).  ``loss_fn``, ``prefill``, ``decode_step`` and the paged
 steps (batch-only plans) take a sharding plan (``models.transformer``'s
-docstring); Mamba, RWKV-6 and encoder-decoder models raise under one
-(``transformer.check_plan``)."""
+docstring): ``prefill`` and ``decode_step`` serve every decoder-only
+family under one, Mamba and RWKV-6 blocks included; ``loss_fn`` raises
+under one for Mamba and RWKV-6 blocks, and every entry point for
+encoder-decoder models (``transformer.check_plan``)."""
 from __future__ import annotations
 
 import torch
@@ -37,7 +39,7 @@ def loss_fn(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
     for an encoder-decoder, + "embeds" for the vision stub).  Under
     ``plan`` (a mesh set) the batch is the whole batch on every rank, and
     the loss and metrics are the global ones on every rank."""
-    T.check_plan(cfg, plan)
+    T.check_plan(cfg, plan, train=True)
     if cfg.is_encdec:
         return E.encdec_loss(cfg, params, batch)
     return T.lm_loss(cfg, params, batch, plan=plan)

@@ -64,11 +64,10 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (paged_decode_attention,
                                                  paged_window_attention)
 from repro_torch.models.common import (Dense, apply_dense, apply_dense_rows,
-                                      apply_mrope, apply_rope, sharded_axis,
-                                      softcap)
-from repro_torch.sharding.mesh import axis_size, current_mesh, divisible
+                                      apply_mrope, apply_rope, cache_layout,
+                                      sharded_axis, softcap)
+from repro_torch.sharding.mesh import axis_size, divisible
 from repro_torch.sharding.plan import ShardingPlan, splits_batch
-from repro_torch.sharding.specs import cache_spec
 
 
 class Attention(nn.Module):
@@ -263,22 +262,6 @@ def _seq_axes(t: torch.Tensor):
     return spec[1] if spec and len(spec) > 1 else None
 
 
-def _cache_layout(cfg: ModelConfig, plan, entry: dict) -> dict:
-    """A layer's new cache under ``specs.cache_spec``: each tensor cut to
-    this rank's sequence slice where the spec shards it, the spec kept on
-    the tensor as ``shard_spec``."""
-    mesh = current_mesh()
-    if plan is None or mesh is None:
-        return entry
-    for name, t in entry.items():
-        spec = cache_spec(cfg, plan, name, tuple(t.shape), mesh.shape)
-        if spec[1] is not None:
-            t = local_chunk(t, spec[1], 1)
-        t.shard_spec = spec
-        entry[name] = t
-    return entry
-
-
 def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                  x: torch.Tensor, *, positions: torch.Tensor, plan=None,
                  causal: bool = True, cache_len: int = 0,
@@ -318,7 +301,7 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
         y = _o_proj(cfg, p, out, plan, seq_out)
         cache = None
         if cache_len:
-            cache = _cache_layout(cfg, plan, {
+            cache = cache_layout(cfg, plan, {
                 "c_kv": _pad_seq(c_kv, cache_len),
                 "k_rope": _pad_seq(k_rope, cache_len)})
         return y, cache
@@ -344,7 +327,7 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
                      "v": build_window_cache(v, ln, window)}
         else:
             cache = {"k": _pad_seq(k, cache_len), "v": _pad_seq(v, cache_len)}
-        cache = _cache_layout(cfg, plan, cache)
+        cache = cache_layout(cfg, plan, cache)
     return y, cache
 
 

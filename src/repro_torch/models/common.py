@@ -28,6 +28,8 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (all_gather, local_chunk,
                                                  psum, reduce_scatter)
+from repro_torch.sharding.mesh import current_mesh
+from repro_torch.sharding.specs import cache_spec
 
 
 class Dense(nn.Module):
@@ -144,6 +146,23 @@ def apply_dense_rows(p: Dense, x: torch.Tensor, plan,
     if p.b is not None:
         y = y + p.b
     return y
+
+
+def cache_layout(cfg: ModelConfig, plan, entry: dict) -> dict:
+    """A layer's new cache under ``specs.cache_spec``: each tensor cut to
+    this rank's sequence slice where the spec shards it, the spec kept on
+    the tensor as ``shard_spec``.  A recurrent state's spec shards only
+    its batch, which is already this rank's rows."""
+    mesh = current_mesh()
+    if plan is None or mesh is None:
+        return entry
+    for name, t in entry.items():
+        spec = cache_spec(cfg, plan, name, tuple(t.shape), mesh.shape)
+        if spec[1] is not None:
+            t = local_chunk(t, spec[1], 1)
+        t.shard_spec = spec
+        entry[name] = t
+    return entry
 
 
 def apply_norm(cfg: ModelConfig, p: Norm, x: torch.Tensor) -> torch.Tensor:

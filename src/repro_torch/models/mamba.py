@@ -16,6 +16,20 @@ recurrence.
 
 Decode cache of one layer: {"conv" [B, d_conv - 1, d_in] (the
 activations' dtype), "ssm" [B, d_in, N] f32}.
+
+Under a sharding plan the mixer is channel-parallel where the reference's
+specs cut ``d_in`` over the model axis (``conv_w``, ``conv_b``,
+``dt_bias``, ``a_log``, ``d_skip``, and the rows of ``bcdt_proj`` and
+``out_proj``): each rank convolves and scans its slice of the channels.
+``in_proj`` is column-sharded contiguously over [x | z], so a rank's
+columns are not its channels' x and z (on model = 2, rank 0 holds all of
+x and rank 1 all of z): the projection's columns are all-gathered over
+the model axis and each rank takes its channels of x and z.  B, C and dt
+come from a product over the channels, psummed.  ``out_proj``'s partial
+products are reduced.  The cache keeps the reference's layout, whole
+channels on every rank: the conv tail comes from the gathered x, and a
+rank reads its channels' slice of the ssm state and its new slice is
+all-gathered.
 """
 from __future__ import annotations
 
@@ -26,7 +40,9 @@ from torch import nn
 from torch.nn import functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import Dense
+from repro_torch.distributed.collectives import (all_gather, local_chunk,
+                                                 psum)
+from repro_torch.models.common import Dense, apply_dense_rows, sharded_axis
 
 
 class Mamba(nn.Module):
@@ -64,11 +80,21 @@ class Mamba(nn.Module):
 
 def _selective_inputs(p: Mamba, x: torch.Tensor, n: int):
     """x: conv'd activations [..., d_in] -> (dt [..., d_in], B [..., N], C
-    [..., N]), all f32."""
-    bcdt = x @ p.bcdt_proj.w
+    [..., N]), all f32.  Under a plan x and dt are this rank's channels,
+    and B and C the same on every rank."""
+    bcdt = psum(x @ p.bcdt_proj.w, sharded_axis(p.bcdt_proj.w, 0))
     b_ssm, c_ssm, dt_s = bcdt.split([n, n, 1], dim=-1)
     dt = F.softplus(dt_s.float() + p.dt_bias)
     return dt, b_ssm.float(), c_ssm.float()
+
+
+def _in_proj(p: Mamba, x_in: torch.Tensor):
+    """x_in [..., d] -> (x of all channels, x and z of this rank's
+    channels), each [..., d_in] unsharded (module docstring)."""
+    xz = all_gather(x_in @ p.in_proj.w, sharded_axis(p.in_proj.w, 1), -1)
+    x_all, z = xz.chunk(2, dim=-1)
+    ax = sharded_axis(p.conv_w, 1)
+    return x_all, local_chunk(x_all, ax, -1), local_chunk(z, ax, -1)
 
 
 def _causal_conv(p: Mamba, x: torch.Tensor) -> torch.Tensor:
@@ -119,15 +145,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 
 def mamba_prefill(cfg: ModelConfig, p: Mamba, x_in: torch.Tensor, *,
-                  cache_len: int = 0, chunk: int = 256, kv_len=None):
+                  cache_len: int = 0, chunk: int = 256, kv_len=None,
+                  plan=None, seq_out: bool = False):
     """x_in: [B, T, d] -> (y [B, T, d], cache or None).  The state runs
     over every position of the right-padded rows, as in the reference;
     the conv tail is each row's last d_conv - 1 valid inputs (index 0
-    repeated where the row is shorter) when ``kv_len`` is given."""
+    repeated where the row is shorter) when ``kv_len`` is given.  Under
+    ``plan`` x_in is this rank's rows, the whole sequence, and
+    ``seq_out`` reduce-scatters y to this rank's sequence slice."""
     mc = cfg.mamba
     n = mc.d_state
-    xz = x_in @ p.in_proj.w
-    x_raw, z = xz.chunk(2, dim=-1)
+    x_all, x_raw, z = _in_proj(p, x_in)
     x = _causal_conv(p, x_raw)
     dt, b_ssm, c_ssm = _selective_inputs(p, x, n)
     a = -torch.exp(p.a_log)
@@ -135,39 +163,41 @@ def mamba_prefill(cfg: ModelConfig, p: Mamba, x_in: torch.Tensor, *,
     y, h_fin = selective_scan(xf, dt, a, b_ssm, c_ssm, min(chunk, x.shape[1]))
     y = y + xf * p.d_skip
     y = y.to(x_in.dtype) * F.silu(z)
-    out = y @ p.out_proj.w
+    out = apply_dense_rows(p.out_proj, y, plan, seq_out)
 
     cache = None
     if cache_len:
         dc = mc.d_conv
         if kv_len is not None:
             idx = (kv_len[:, None].long() - (dc - 1)
-                   + torch.arange(dc - 1, device=x_raw.device)).clamp_min(0)
-            tail = x_raw[torch.arange(x_raw.shape[0], device=x_raw.device)[:, None],
+                   + torch.arange(dc - 1, device=x_all.device)).clamp_min(0)
+            tail = x_all[torch.arange(x_all.shape[0], device=x_all.device)[:, None],
                          idx]
         else:
-            tail = x_raw[:, -(dc - 1):]
-        cache = {"conv": tail.contiguous(), "ssm": h_fin}
+            tail = x_all[:, -(dc - 1):]
+        cache = {"conv": tail.contiguous(),
+                 "ssm": all_gather(h_fin, sharded_axis(p.conv_w, 1), 1)}
     return out, cache
 
 
-def mamba_decode(cfg: ModelConfig, p: Mamba, x_in: torch.Tensor, cache: dict):
+def mamba_decode(cfg: ModelConfig, p: Mamba, x_in: torch.Tensor, cache: dict,
+                 *, plan=None):
     """x_in: [B, 1, d]; cache {"conv" [B, dc - 1, d_in], "ssm" [B, d_in,
     N]}.  Returns (y [B, 1, d], the new cache)."""
     n = cfg.mamba.d_state
-    xz = x_in[:, 0] @ p.in_proj.w
-    x_raw, z = xz.chunk(2, dim=-1)
-    window = torch.cat([cache["conv"], x_raw[:, None]], dim=1)
-    xc = torch.einsum("bcd,cd->bd", window.float(), p.conv_w.float()) \
-        + p.conv_b.float()
+    ax = sharded_axis(p.conv_w, 1)
+    x_all, _, z = _in_proj(p, x_in[:, 0])
+    window = torch.cat([cache["conv"], x_all[:, None]], dim=1)
+    xc = torch.einsum("bcd,cd->bd", local_chunk(window, ax, 2).float(),
+                      p.conv_w.float()) + p.conv_b.float()
     x = F.silu(xc).to(x_in.dtype)
     dt, b_ssm, c_ssm = _selective_inputs(p, x, n)           # [B,d_in],[B,N]x2
     a = -torch.exp(p.a_log)
     abar = torch.exp(dt[..., None] * a)                      # [B, d_in, N]
     bx = (dt * x.float())[..., None] * b_ssm[:, None, :]
-    h = abar * cache["ssm"] + bx
+    h = abar * local_chunk(cache["ssm"], ax, 1) + bx
     y = torch.einsum("bdn,bn->bd", h, c_ssm)
     y = y + x.float() * p.d_skip
     y = y.to(x_in.dtype) * F.silu(z)
-    out = y @ p.out_proj.w
-    return out[:, None], {"conv": window[:, 1:], "ssm": h}
+    out = apply_dense_rows(p.out_proj, y, plan)
+    return out[:, None], {"conv": window[:, 1:], "ssm": all_gather(h, ax, 1)}

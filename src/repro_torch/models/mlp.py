@@ -2,7 +2,8 @@
 channel mix (squared ReLU, token-shifted).  Port of ``repro/models/mlp.py``.
 
 Under a plan the MLP is Megatron's: ``up`` and ``gate`` column-parallel
-(this rank's hidden units), ``down`` row-parallel, reduced once."""
+(this rank's hidden units), ``down`` row-parallel, reduced once; the
+channel mix likewise, ``key`` column-parallel and ``value`` row-parallel."""
 from __future__ import annotations
 
 import torch
@@ -56,11 +57,17 @@ class ChannelMix(nn.Module):
 
 
 def channel_mix_apply(cfg: ModelConfig, p: ChannelMix, x: torch.Tensor,
-                      shifted: torch.Tensor) -> torch.Tensor:
-    """x, shifted: [B, S, d]; shifted = x delayed by one token."""
+                      shifted: torch.Tensor, *, plan=None,
+                      seq_out: bool = False) -> torch.Tensor:
+    """x, shifted: [B, S, d]; shifted = x delayed by one token.  Under
+    ``plan`` as ``mlp_apply``: ``key``'s units are this rank's and
+    ``value``'s partial sums are reduced (``seq_out``: to this rank's
+    sequence slice)."""
     xk = x + (shifted - x) * p.mix_k
     k = torch.square(torch.relu(apply_dense(p.key, xk)))
-    return apply_dense(p.value, k)
+    if plan is None:
+        return apply_dense(p.value, k)
+    return apply_dense_rows(p.value, k, plan, seq_out)
 
 
 def token_shift(x: torch.Tensor) -> torch.Tensor:

@@ -39,8 +39,11 @@ cross entropy is the vocab-parallel one (``nll_sum``), and the nll and
 mask sums are psummed over the batch axes before the division.  With
 ``plan.remat`` each block runs under ``torch.utils.checkpoint`` (its
 forward again in the backward, the reference's ``jax.checkpoint`` of the
-scanned group).  Mamba and RWKV-6 blocks and encoder-decoder models raise
-under a plan (``check_plan``): they come with a later slice.
+scanned group).  Mamba and RWKV-6 blocks serve under a plan (prefill and
+decode: ``mamba`` channel-parallel, ``rwkv`` head-parallel, the channel
+mix as the MLP), their caches whole over the model axis as the
+reference's specs lay them out; their training loss and encoder-decoder
+models raise under one (``check_plan``).
 """
 from __future__ import annotations
 
@@ -60,9 +63,9 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
-from repro_torch.models.common import (Norm, apply_norm, gather_params,
-                                      last_valid, sharded_axis, softcap,
-                                      unshard)
+from repro_torch.models.common import (Norm, apply_norm, cache_layout,
+                                      gather_params, last_valid, sharded_axis,
+                                      softcap, unshard)
 from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
                                     mlp_apply, token_shift)
 from repro_torch.sharding.mesh import axis_size
@@ -160,19 +163,21 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
             raise NotImplementedError(
                 "prefix-continuation prefill: rwkv6 state is recurrent")
         if mode == "decode":
-            mx, c = rwkv_mod.rwkv_decode(cfg, p.mixer, h, cache)
+            mx, c = rwkv_mod.rwkv_decode(cfg, p.mixer, h, cache, plan=plan)
         else:
             mx, c = rwkv_mod.rwkv_prefill(cfg, p.mixer, h, cache_len=cache_len,
-                                          kv_len=kv_len)
+                                          kv_len=kv_len, plan=plan,
+                                          seq_out=seq_par)
     elif spec.mixer == "mamba":
         if mode != "decode" and cache is not None:
             raise NotImplementedError(
                 "prefix-continuation prefill: mamba state is recurrent")
         if mode == "decode":
-            mx, c = mamba_mod.mamba_decode(cfg, p.mixer, h, cache)
+            mx, c = mamba_mod.mamba_decode(cfg, p.mixer, h, cache, plan=plan)
         else:
             mx, c = mamba_mod.mamba_prefill(cfg, p.mixer, h,
-                                            cache_len=cache_len, kv_len=kv_len)
+                                            cache_len=cache_len, kv_len=kv_len,
+                                            plan=plan, seq_out=seq_par)
     elif mode == "decode" and block_tables is not None \
             and spec_scatter is not None:
         mx, c = attn.attn_paged_spec(cfg, spec, p.mixer, h, cache,
@@ -196,17 +201,19 @@ def block_apply(cfg: ModelConfig, spec: LayerSpec, p: Block, x: torch.Tensor,
     if spec.mlp == "moe":
         my, aux = moe_mod.moe_apply(cfg, p.mlp, h2, plan=plan, seq_out=seq_par)
     elif spec.mixer == "rwkv6":
-        if mode == "decode":
-            my = channel_mix_apply(cfg, p.mlp, h2, cache["cm_shift"][:, None])
-            c["cm_shift"] = h2[:, 0]
-        else:
-            my = channel_mix_apply(cfg, p.mlp, h2, token_shift(h2))
-            if c is not None:
-                c["cm_shift"] = last_valid(h2, kv_len)
+        decode = mode == "decode"
+        my = channel_mix_apply(
+            cfg, p.mlp, h2,
+            cache["cm_shift"][:, None] if decode else token_shift(h2),
+            plan=plan, seq_out=seq_par)
+        if c is not None:
+            c["cm_shift"] = h2[:, 0] if decode else last_valid(h2, kv_len)
     else:
         my = mlp_apply(cfg, p.mlp, h2, plan=plan, seq_out=seq_par)
     if cfg.post_block_norms:
         my = apply_norm(cfg, p.norm2_post, my)
+    if c is not None and spec.mixer != "attn":
+        c = cache_layout(cfg, plan, c)
     return x + my, (aux if mode == "train" else c)
 
 
@@ -277,18 +284,20 @@ def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Ten
     return softcap(logits.float(), cfg.final_softcap)
 
 
-def check_plan(cfg: ModelConfig, plan: Optional[ShardingPlan]) -> None:
-    """Raise for the blocks a plan cannot shard yet: Mamba, RWKV-6 and
-    encoder-decoder models, which come with a later slice."""
+def check_plan(cfg: ModelConfig, plan: Optional[ShardingPlan], *,
+               train: bool = False) -> None:
+    """Raise for what a plan cannot shard yet: encoder-decoder models, and
+    in the training loss (``train``) Mamba and RWKV-6 blocks; both come
+    with roadmap item 6d-ii."""
     if plan is None:
         return
-    mixers = {sp.mixer for sp in cfg.layer_plan()}
-    if cfg.is_encdec or mixers - {"attn"}:
+    recurrent = {sp.mixer for sp in cfg.layer_plan()} - {"attn"}
+    if cfg.is_encdec or (train and recurrent):
         kind = "encoder-decoder" if cfg.is_encdec else \
-            "/".join(sorted(mixers - {"attn"}))
+            "/".join(sorted(recurrent)) + " training"
         raise NotImplementedError(
-            f"{cfg.name}: {kind} blocks under a plan are not ported yet; "
-            "they come with the recurrent and encoder-decoder sharding slice")
+            f"{cfg.name}: {kind} under a plan is not ported yet "
+            "(roadmap item 6d-ii)")
 
 
 def batch_rows(cfg: ModelConfig, plan: Optional[ShardingPlan],

@@ -328,14 +328,31 @@ def test_plans_raise_where_the_reference_does():
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-3b",
                                   "whisper-medium"])
 def test_recurrent_and_encdec_blocks_raise_under_a_plan(arch):
+    """Mamba and RWKV-6 blocks serve under a plan (without a mesh every
+    axis has size 1, so prefill and decode are the unsharded functions;
+    ``test_torch_sharded_recurrent.py`` holds them on 4 ranks), while
+    their training loss raises; an encoder-decoder model raises at every
+    entry point.  Both name roadmap item 6d-ii."""
     cfg = get_config(arch).reduced()
-    toks = torch.zeros((2, 4), dtype=torch.long)
-    match = "recurrent and encoder-decoder sharding slice"
-    with pytest.raises(NotImplementedError, match=match):
-        api.prefill(cfg, None, {"tokens": toks}, cache_len=8, plan=TP_DP)
-    with pytest.raises(NotImplementedError, match=match):
-        api.decode_step(cfg, None, toks[:, :1], None,
-                        torch.zeros(2, dtype=torch.int32), plan=TP_DP)
+    toks = torch.arange(8, dtype=torch.long).reshape(2, 4) + 2
+    kv_len = torch.full((2,), 4, dtype=torch.int32)
+    match = "6d-ii"
+    if cfg.is_encdec:
+        with pytest.raises(NotImplementedError, match=match):
+            api.prefill(cfg, None, {"tokens": toks}, cache_len=8, plan=TP_DP)
+        with pytest.raises(NotImplementedError, match=match):
+            api.decode_step(cfg, None, toks[:, :1], None, kv_len, plan=TP_DP)
+    else:
+        model = api.init_params(cfg, device="cpu")
+        lg, cache = api.prefill(cfg, model, {"tokens": toks}, cache_len=8,
+                                kv_len=kv_len)
+        got, got_cache = api.prefill(cfg, model, {"tokens": toks},
+                                     cache_len=8, kv_len=kv_len, plan=TP_DP)
+        assert torch.equal(got, lg)
+        step = lg.argmax(-1)[:, None]
+        want = api.decode_step(cfg, model, step, cache, kv_len)[0]
+        assert torch.equal(api.decode_step(cfg, model, step, got_cache, kv_len,
+                                           plan=TP_DP)[0], want)
     with pytest.raises(NotImplementedError, match=match):
         api.loss_fn(cfg, None, {"tokens": toks, "labels": toks}, plan=TP_DP)
 

@@ -8,8 +8,9 @@ spec under the case's mesh and plan: prefill and decode logits, the
 engine padded or continuous, the paged engine, one MoE block, the loss and
 its gradients (gathered to full), three train steps, or
 ``dp_mean_compressed``.  Rank 0 writes the arrays and tokens; every rank
-writes which attention wrappers it called, with what shapes, to show
-which path each plan took, and its paged engines' results and pools.
+writes which attention and WKV6 wrappers it called, with what shapes, to
+show which path each plan took, each cache tensor's layout where a logits
+case asks (``cache_check``), and its paged engines' results and pools.
 ``collective_probe`` holds each differentiable collective's backward to
 its transpose and its forward under ``no_grad`` to plain
 ``torch.distributed`` calls."""
@@ -29,13 +30,15 @@ from repro_torch.distributed.collectives import all_gather, local_chunk
 from repro_torch.models import api
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe
+from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.obs.trace import Tracer
 from repro_torch.params import from_jax_params, shard_params, stacked_leaves
 from repro_torch.serving import (EngineConfig, InferenceEngine, PagedEngine,
                                  PagedEngineConfig)
 from repro_torch.serving import paged_engine
 from repro_torch.sharding import Mesh, ShardingPlan, set_mesh
-from repro_torch.sharding.specs import (gather_tensor, gather_tree,
+from repro_torch.sharding.mesh import current_mesh
+from repro_torch.sharding.specs import (cache_spec, gather_tensor, gather_tree,
                                         shard_tensor, shard_tree)
 from repro_torch.training import (OptConfig, TrainConfig, apply_updates,
                                   init_opt_state, make_train_step,
@@ -263,6 +266,25 @@ def run_compress_case(case, plan, inputs, arrays):
         arrays[f"{cid}/mean/{name}"] = g.numpy()
 
 
+# this rank's cache layouts of the current case (``cache_check``): [step,
+# layer, name, the tensor's shard_spec, cache_spec of its full shape]
+CACHE_SPECS = []
+
+
+def record_cache(case, cfg, plan, cache, arrays, step):
+    """Each tensor of ``cache`` gathered to full (``{cid}/cache{step}/
+    {layer}/{name}``) and, under ``plan``, its layout beside the
+    reference's spec of its full shape (``CACHE_SPECS``)."""
+    for i, entry in enumerate(cache):
+        for name, t in entry.items():
+            full = t if plan is None else gather_tensor(t, t.shard_spec)
+            arrays[f"{case['id']}/cache{step}/{i}/{name}"] = full.numpy().copy()
+            if plan is not None:
+                want = cache_spec(cfg, plan, name, tuple(full.shape),
+                                  current_mesh().shape)
+                CACHE_SPECS.append([step, i, name, t.shard_spec, want])
+
+
 def run_case(case, cfg, model, plan, inputs, arrays, tokens):
     """One case on this rank (plan None: the unsharded port)."""
     cid = case["id"]
@@ -279,10 +301,15 @@ def run_case(case, cfg, model, plan, inputs, arrays, tokens):
                                 cache_len=case["cache_len"], kv_len=kv_len,
                                 plan=plan)
         arrays[f"{cid}/prefill"] = lg.numpy()
-        for i, t in enumerate(inputs[f"{cid}/steps"]):
+        steps = inputs[f"{cid}/steps"]
+        if case.get("cache_check"):
+            record_cache(case, cfg, plan, cache, arrays, 0)
+        for i, t in enumerate(steps):
             lg, cache = api.decode_step(cfg, model, torch.as_tensor(t).long(),
                                         cache, kv_len + i, plan=plan)
             arrays[f"{cid}/decode{i}"] = lg.numpy()
+        if case.get("cache_check"):
+            record_cache(case, cfg, plan, cache, arrays, len(steps))
     elif case["kind"] == "paged":
         paged_case(case, cfg, model, plan, arrays, tokens)
     elif case["kind"] in ("engine", "continuous"):
@@ -310,19 +337,19 @@ def run_case(case, cfg, model, plan, inputs, arrays, tokens):
 
 
 class CallLog:
-    """Counts calls of the attention module's kernel wrappers (their plain
-    versions on the CPU) and keeps their shapes."""
+    """Counts calls of the attention and RWKV modules' kernel wrappers
+    (their plain versions on the CPU) and keeps their shapes."""
 
     def __init__(self):
         self.calls = defaultdict(list)
 
-    def wrap(self, name, describe):
-        orig = getattr(attn_mod, name)
+    def wrap(self, name, describe, module=attn_mod):
+        orig = getattr(module, name)
 
         def counted(*args, **kw):
             self.calls[name].append(describe(*args, **kw))
             return orig(*args, **kw)
-        setattr(attn_mod, name, counted)
+        setattr(module, name, counted)
 
     def take(self):
         out, self.calls = dict(self.calls), defaultdict(list)
@@ -349,6 +376,11 @@ def _paged(q, k_pool, v_pool, tables, lengths, **kw):
             "tables": list(tables.shape)}
 
 
+def _wkv6(r, k, v, w, u, s0=None, **kw):
+    """K4's rows, positions and heads."""
+    return {"b": r.shape[0], "t": r.shape[1], "h": r.shape[2]}
+
+
 def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
     spec = json.loads(open(spec_path).read())
     with np.load(spec["inputs"]) as f:
@@ -359,6 +391,7 @@ def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
     log.wrap("decode_attention_partial", _partial)
     log.wrap("paged_decode_attention", _paged)
     log.wrap("paged_window_attention", _paged)
+    log.wrap("wkv6", _wkv6, rwkv_mod)
     arrays, tokens, calls = {}, {}, {}
     paged, pools = {}, {}
     by_mesh = defaultdict(list)
@@ -375,6 +408,9 @@ def rank_main(rank: int, spec_path: str, out_dir: str) -> None:
                 else:
                     run_case(case, cfg, model, plan, inputs, arrays, tokens)
                 calls[case["id"]] = log.take()
+                if CACHE_SPECS:
+                    calls[case["id"]]["cache_specs"] = CACHE_SPECS[:]
+                    CACHE_SPECS.clear()
     with open(os.path.join(out_dir, f"calls{rank}.json"), "w") as f:
         json.dump(calls, f)
     if paged:
