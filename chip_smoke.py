@@ -44,7 +44,10 @@ Phases, in order; any failed check exits non-zero:
    a step: chatglm2-6b on the card alone and on a tp_dp or tp_dp_fsdp
    rank, qwen2-moe-a2.7b on the card alone and on an ep_tp_fsdp rank);
    WKV6 also at phase 19's rank shapes (2 rows over 20 heads of 64, one
-   row a prompt length the ranks' prefills take).
+   row a prompt length the ranks' prefills take); K2, its gradient and K3
+   at phase 20's rank shapes (2 rows over 8 heads of 64: the encoder over
+   1,536 frames, the decoder's self and cross prefills and steps, the
+   train step's forwards), and K3 at phase 16's serve batches on a rank.
 4. times: each kernel, its plain version and the one PyTorch call that
    computes the same function where there is one (scaled_dot_product_attention,
    timed only as a yardstick; none reads K/V through a block table, none
@@ -269,7 +272,7 @@ Phases, in order; any failed check exits non-zero:
 17. sharded training (``[sharded_train]`` lines): ``make_train_step(cfg,
    plan, tcfg)`` on 4 ranks sharing the card over gloo, as in phase 16,
    on {data: 2, model: 2}.  chatglm2-6b at full width and 4 layers (f32,
-   4 x 512 tokens a step, the train launcher's rolled tokens) for 3 AdamW
+   4 x 512 tokens a step, the train launcher's rolled tokens) for 2 AdamW
    steps under tp_dp (seq_parallel, remat, micro-batches 2) and under
    tp_dp_fsdp (the weights cut over data too, gathered a block at a time);
    qwen2-moe-a2.7b at full width and 2 layers (capacity factor 8) for 2
@@ -326,6 +329,28 @@ Phases, in order; any failed check exits non-zero:
    layer); prints the decode step's wall time beside the card alone's,
    rank 0's calls and seconds in gloo, and each rank's memory after its
    slices were cut and its peak while serving.
+20. sharded encoder-decoder (``[sharded_encdec]`` lines): whisper-medium
+   under a plan on {data: 2, model: 2}, 4 ranks sharing the card over gloo,
+   against the card alone, each run drawing the weights from the seeded
+   CUDA generator (the ranks in turn).  Served at full width and depth
+   (24 + 24 layers, f32, 3.03 GB: 1.41 GiB of slices a rank) under tp_dp
+   (batch over data; the encoder, self- and cross-attention head-parallel
+   at 8 of the 16 heads, the MLP Megatron's, the embedding and head
+   vocab-parallel) through the model API on phase 11's frames, short
+   batch and long batch; then trained at full width and 2 + 2 layers
+   under tp_dp_train (sequence-parallel residual; the encoder-decoder runs
+   no remat, as the reference's) for 2 AdamW steps of 4 x 64 tokens over
+   4 x 1,536 frames.  Checks every rank's greedy tokens equal to the card
+   alone's, the short batch's prefill and first decode-step logits within
+   1e-3, on every rank K2 72 times a prefill and K3 48 times a step (as on
+   the card alone), every call at 8 heads and every shape a parity case,
+   the caches' shapes a rank and 75 gloo calls a decode step; every rank's
+   losses and grad norms within 1e-4 of the card alone's, step 1's
+   gradients, slice by slice, within 1e-3 of each leaf's largest plus
+   1e-8 (the key biases' true gradient is 0), K2's forward and gradient 12
+   times a step; prints the prefill and decode step times beside the card
+   alone's, the gloo calls a step, each rank's memory held and peak, the
+   train steps' times and rank 0's seconds in gloo.
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
 the launch counts set to 0 just before it and read just after.  A
@@ -395,7 +420,8 @@ from repro_torch.serving import (EngineConfig, InferenceEngine,  # noqa: E402
                                  greedy, paper_cluster)
 from repro_torch.serving import paged_engine  # noqa: E402
 from repro_torch.sharding import Mesh, ShardingPlan, set_mesh  # noqa: E402
-from repro_torch.sharding.specs import gather_tensor  # noqa: E402
+from repro_torch.sharding.specs import (gather_tensor,  # noqa: E402
+                                        shard_tensor)
 from repro_torch.training import (OptConfig, TrainConfig,  # noqa: E402
                                   init_opt_state, init_training,
                                   load_train_state, make_train_step,
@@ -448,6 +474,9 @@ WHISPER_FRAMES = 1536
 WHISPER_SHORT, WHISPER_SHORT_NEW, WHISPER_SHORT_CACHE = 4, 16, 20
 WHISPER_LONG, WHISPER_LONG_NEW, WHISPER_LONG_CACHE = (448, 300, 64, 4), 32, 480
 WHISPER_PARITY_LAYERS = 2      # card vs CPU: 2 encoder + 2 decoder layers
+WHISPER_BATCHES = (  # what, prompt lengths, new tokens, cache_len
+    ("short batch", [WHISPER_SHORT] * 4, WHISPER_SHORT_NEW, WHISPER_SHORT_CACHE),
+    ("long batch", list(WHISPER_LONG), WHISPER_LONG_NEW, WHISPER_LONG_CACHE))
 N_TIMED = 25
 PAD_SPINS, SPIN = 128, "spin_kernel"   # see device_kernels
 # profiled windows, the most spin kernels one of them lost, and the windows
@@ -491,6 +520,17 @@ GRAD_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_off
                              ("chatglm2_train_tp2", 2, 16, 1),
                              ("qwen2_moe_train_alone", 2, 16, 16),
                              ("qwen2_moe_train_tp2", 2, 8, 8))),
+    # phase 20's K2 calls under grad (4 x 64 tokens over 4 x 1,536 frames,
+    # heads of 64) on the card alone (4 rows, 16 over 16 heads) and on a
+    # tp_dp_train rank (2 rows, 8 over 8): the non-causal encoder (on a
+    # rank the sequence-parallel residual is gathered before it), the
+    # decoder's causal self-attention and its cross-attention
+    *((f"whisper_train_{who}_encoder", b, 1536, 1536, h, h, 64, 64, False,
+       None, None, 0) for who, b, h in (("alone", 4, 16), ("tp2", 2, 8))),
+    *((f"whisper_train_{who}_self", b, 64, 64, h, h, 64, 64, True, None,
+       None, 0) for who, b, h in (("alone", 4, 16), ("tp2", 2, 8))),
+    *((f"whisper_train_{who}_cross", b, 64, 1536, h, h, 64, 64, False, None,
+       None, 0) for who, b, h in (("alone", 4, 16), ("tp2", 2, 8))),
 ]
 
 # phase 16: 4 ranks share the card over gloo; each run (name, model, mesh
@@ -525,8 +565,9 @@ SHARDED_RUNS = [
 # {data: 2, model: 2}, optimizer, steps), on the launcher's rolled tokens,
 # 4 x 512 a step: chatglm2-6b at full width and 4 layers under tp_dp
 # (micro-batches 2) and tp_dp_fsdp (one: fsdp's gathers and reductions
-# through gloo run once a micro-batch), AdamW, both against one card-alone
-# run at 2 micro-batches (the same function); qwen2-moe-a2.7b at full width
+# through gloo run once a micro-batch), AdamW, 2 steps each (3 until phase
+# 20 took the script past 900 s), both against one card-alone run at 2
+# micro-batches (the same function); qwen2-moe-a2.7b at full width
 # and 2 layers (capacity factor 8) under ep_tp_fsdp (Adafactor, as above
 # 20B)
 SHARDED_TRAIN_LAYERS = {"chatglm2": 4, "qwen2_moe": 2}
@@ -536,9 +577,9 @@ _TRAIN_PLAN = dict(batch_axes=("data",), model_axis="model", seq_parallel=True,
                    mla_absorbed=False, remat=True)
 SHARDED_TRAIN_RUNS = [
     ("chatglm2 tp_dp", "chatglm2",
-     ShardingPlan(**_TRAIN_PLAN, microbatches=2), "adamw", 3),
+     ShardingPlan(**_TRAIN_PLAN, microbatches=2), "adamw", 2),
     ("chatglm2 tp_dp_fsdp", "chatglm2",
-     ShardingPlan(**_TRAIN_PLAN, fsdp_axes=("data",)), "adamw", 3),
+     ShardingPlan(**_TRAIN_PLAN, fsdp_axes=("data",)), "adamw", 2),
     ("qwen2_moe ep_tp_fsdp", "qwen2_moe",
      ShardingPlan(**_TRAIN_PLAN, ep_axis="data", fsdp_axes=("data",)),
      "adafactor", 2),
@@ -579,6 +620,25 @@ SHARDED_RECURRENT_PLAN = ShardingPlan(batch_axes=("data",), model_axis="model",
 # 16-token prompts padded, and the continuous engine's re-prefilled waves
 # (each slot's prompt and its tokens so far)
 SHARDED_RECURRENT_T = (16, 20, 21, 23, 24, 25, 28)
+
+# phase 20: whisper-medium under a plan on {data: 2, model: 2}, 4 ranks
+# sharing the card over gloo, against the card alone, each drawing the
+# weights from the seeded CUDA generator: served at full width and depth
+# (24 + 24 layers, 16 over 16 heads of 64: 8 a rank) under tp_dp on phase
+# 11's frames and batches through the model API; trained at full width and
+# 2 + 2 layers under tp_dp_train (seq_parallel; the encoder-decoder runs no
+# remat, as the reference's), 2 AdamW steps of 4 x 64 tokens over 4 x 1,536
+# frames (2 + 2 layers: at 4 + 4 the script passed 900 s)
+SHARDED_ENCDEC_PLAN = ShardingPlan(batch_axes=("data",), model_axis="model",
+                                   seq_axes=("model",), mla_absorbed=False)
+SHARDED_ENCDEC_TRAIN_PLAN = ShardingPlan(**_TRAIN_PLAN)
+SHARDED_ENCDEC_TRAIN_LAYERS, SHARDED_ENCDEC_TRAIN_STEPS = 2, 2
+SHARDED_ENCDEC_TRAIN_SEQ = 64
+# a gradient leaf's absolute error floor beside TOL_TRAIN_GRAD x its
+# largest value (tests/torch_sharded_harness.py's GRAD_ATOL): whisper's
+# attention key biases have a true gradient of 0 (softmax is
+# shift-invariant over keys), so both runs hold rounding noise there
+GRAD_FLOOR = 1e-8
 
 FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_offset
     ("serve_prefill", 4, 16, 16, 9, 3, 64, 64, True, None, None, 0),
@@ -646,7 +706,8 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     # whisper-medium (group 1, D = 64): the encoder over 1,536 frames and
     # the cross-attention prefill over them (non-causal, Sq != Skv) from
     # the long batch's 448-row and the short batch's 4-row decoder
-    # prompts; the long batch's causal decoder self-attention
+    # prompts; the long and the short batch's causal decoder
+    # self-attention
     ("whisper_encoder", 4, WHISPER_FRAMES, WHISPER_FRAMES, 16, 16, 64, 64,
      False, None, None, 0),
     ("whisper_cross_prefill", 4, WHISPER_LONG[0], WHISPER_FRAMES, 16, 16, 64,
@@ -655,6 +716,8 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
      64, 64, False, None, None, 0),
     ("whisper_self_prefill", 4, WHISPER_LONG[0], WHISPER_LONG[0], 16, 16, 64,
      64, True, None, None, 0),
+    ("whisper_short_self_prefill", 4, WHISPER_SHORT, WHISPER_SHORT, 16, 16,
+     64, 64, True, None, None, 0),
     # llama4-maverick (group 5: 40 over 8 heads, D = 128; bf16 on its main
     # path): the long batch's 4 x 1024 and the serve prefill
     ("llama4_long_prefill", 4, LONG_PROMPT, LONG_PROMPT, 40, 8, 128, 128,
@@ -683,6 +746,23 @@ FLASH_CASES = [  # name, b, sq, skv, h, kv, d, dv, causal, window, softcap, q_of
     # a tp_dp_fsdp rank's
     *(c for c in GRAD_CASES if c[0].endswith(("_alone", "_micro"))
       or c[0] == "qwen2_moe_train_tp2"),
+    # phase 20's tp_dp rank (2 rows, 8 over 8 heads of 64): the encoder
+    # over 1,536 frames (also the train step's), the short and long
+    # batches' decoder self-attention and cross-attention prefills; the
+    # train step's decoder forwards, on a rank and on the card alone
+    # (GRAD_CASES; the card alone's encoder is whisper_encoder's)
+    ("whisper_tp2_encoder", 2, WHISPER_FRAMES, WHISPER_FRAMES, 8, 8, 64, 64,
+     False, None, None, 0),
+    ("whisper_tp2_short_self", 2, WHISPER_SHORT, WHISPER_SHORT, 8, 8, 64, 64,
+     True, None, None, 0),
+    ("whisper_tp2_short_cross", 2, WHISPER_SHORT, WHISPER_FRAMES, 8, 8, 64,
+     64, False, None, None, 0),
+    ("whisper_tp2_long_self", 2, WHISPER_LONG[0], WHISPER_LONG[0], 8, 8, 64,
+     64, True, None, None, 0),
+    ("whisper_tp2_long_cross", 2, WHISPER_LONG[0], WHISPER_FRAMES, 8, 8, 64,
+     64, False, None, None, 0),
+    *(c for c in GRAD_CASES if c[0].startswith("whisper_train_")
+      and c[0].endswith(("_self", "_cross"))),
 ]
 FLASH_TIMED = ("serve_prefill", "long_prefill", "s2048", "long_prefill_b1",
                "chunk_prefill", "chatglm2_prefill", "chatglm2_serve_prefill",
@@ -743,11 +823,14 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
     ("gemma2_serve_decode", 4, 64, 32, 16, 128, 128, 50.0, None,
      [24, 20, 17, 31]),
     # whisper-medium (group 1, D = 64): cross-attention over all 1,536
-    # memory rows, and the long batch's first self-attention step
+    # memory rows, the long batch's first self-attention step and the
+    # short batch's steps
     ("whisper_cross_decode", 4, WHISPER_FRAMES, 16, 16, 64, 64, None, None,
      [WHISPER_FRAMES] * 4),
     ("whisper_self_decode", 4, WHISPER_LONG_CACHE, 16, 16, 64, 64, None, None,
      [n + 1 for n in WHISPER_LONG]),
+    ("whisper_short_self_decode", 4, WHISPER_SHORT_CACHE, 16, 16, 64, 64,
+     None, None, [WHISPER_SHORT + 1, 9, 14, WHISPER_SHORT_CACHE]),
     # llama4-maverick (group 5, D = 128): the long batch's decode and the
     # serve decode
     ("llama4_long_decode", 4, LONG_CACHE, 40, 8, 128, 128, None, None,
@@ -767,6 +850,22 @@ DECODE_CASES = [  # name, b, s, h, kv, d, dv, softcap, window, kv_len
      None, None, [SHARDED_LONG_PROMPT + SHARDED_LONG_NEW // 2] * 4),
     ("chatglm2_tp2_decode", 2, SHARDED_LONG_CACHE, 16, 1, 128, 128, None,
      None, [SHARDED_LONG_PROMPT + SHARDED_LONG_NEW // 2] * 2),
+    # phase 16's serve batches on a rank (2 rows, cache_len 64): chatglm2-6b
+    # under tp_dp (16 over 1 heads of 128), qwen2-moe-a2.7b under ep_tp (8
+    # over 8)
+    ("chatglm2_tp2_serve_decode", 2, SHARDED_CACHE, 16, 1, 128, 128, None,
+     None, [24, 20]),
+    ("qwen2_moe_tp2_serve_decode", 2, SHARDED_CACHE, 8, 8, 128, 128, None,
+     None, [24, 20]),
+    # phase 20's tp_dp rank (2 rows, 8 over 8 heads of 64): the short and
+    # long batches' self-attention steps and the cross-attention over all
+    # 1,536 memory rows
+    ("whisper_tp2_short_self_decode", 2, WHISPER_SHORT_CACHE, 8, 8, 64, 64,
+     None, None, [WHISPER_SHORT + 1, WHISPER_SHORT_CACHE]),
+    ("whisper_tp2_long_self_decode", 2, WHISPER_LONG_CACHE, 8, 8, 64, 64,
+     None, None, [WHISPER_LONG[0] + 1, WHISPER_LONG[1] + 1]),
+    ("whisper_tp2_cross_decode", 2, WHISPER_FRAMES, 8, 8, 64, 64, None, None,
+     [WHISPER_FRAMES] * 2),
 ]
 DECODE_TIMED = ("serve_decode", "long_decode", "s4096_ragged",
                 "chatglm2_serve_decode", "chatglm2_long_decode",
@@ -2802,70 +2901,108 @@ def encdec_prompts(cfg, lengths, rng) -> tuple[torch.Tensor, torch.Tensor]:
     return toks.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda")
 
 
+def whisper_inputs(cfg) -> tuple:
+    """Phases 11 and 20's seeded inputs on the card: the frames [4, 1,536,
+    d] x 0.02 and, for each of WHISPER_BATCHES, (its right-padded prompts,
+    their lengths, its new tokens, its cache_len)."""
+    rng = np.random.default_rng(0)
+    frames = torch.from_numpy(
+        (rng.standard_normal((4, WHISPER_FRAMES, cfg.d_model)) * 0.02
+         ).astype(np.float32)).cuda()
+    return frames, {what: (*encdec_prompts(cfg, lengths, rng), n_new,
+                           cache_len)
+                    for what, lengths, n_new, cache_len in WHISPER_BATCHES}
+
+
+def encdec_greedy(cfg, params, frames, toks, kv_len, n_new: int,
+                  cache_len: int, plan=None) -> dict:
+    """One greedy generation through the model API as the reference's
+    tests drive an encoder-decoder (``api.prefill`` with the frames, then
+    ``api.decode_step``), each new token decoded as the padded engine
+    decodes it (``n_new`` steps at positions kv_len + step); under ``plan``
+    on this rank's slices (inputs and logits whole, as on every rank).  The
+    prefill and the decode loop each run with the launch counts set to 0
+    just before and read just after.  Returns their seconds and launches,
+    the outputs, the shapes of each layer's (self k, v, cross ck, cv), the
+    cache's layers and whether every logit was finite."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = api.prefill(cfg, params, {"frames": frames, "tokens": toks},
+                                cache_len=cache_len, kv_len=kv_len, plan=plan)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    pre = read_launches()
+    shapes = sorted({tuple(tuple(t.shape) for t in (
+        c["self"]["k"], c["self"]["v"], c["cross"]["ck"], c["cross"]["cv"]))
+        for c in cache})
+    outs = [[] for _ in range(toks.shape[0])]
+    finite = bool(torch.isfinite(logits).all())
+    reset_launches()
+    t0 = time.perf_counter()
+    for step in range(n_new):
+        nxt = greedy(logits, cfg.vocab_size)
+        for i, t in enumerate(nxt.tolist()):
+            outs[i].append(t)
+        logits, cache = api.decode_step(cfg, params, nxt[:, None].long(),
+                                        cache, kv_len + step, plan=plan)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    return {"prefill_s": prefill_s, "decode_s": decode_s,
+            "launches": [pre, read_launches()],
+            "outputs": {str(i): o for i, o in enumerate(outs)},
+            "cache_shapes": [list(map(list, sh)) for sh in shapes],
+            "cache_layers": len(cache),
+            "finite": finite and bool(torch.isfinite(logits).all()),
+            "logits_shape": list(logits.shape)}
+
+
+def encdec_expected(cfg, b: int, cache_len: int, n_new: int,
+                    rows: int = 1, heads: int = 1) -> tuple:
+    """The launches of an ``encdec_greedy`` run (flash attention n_enc + 2
+    x n_dec a prefill: encoder, decoder self, cross; the decode kernel 2 x
+    n_dec a step: self, cross; no other kernel) and its cache shapes, on
+    a device whose batch rows and KV heads the plan cuts ``rows`` and
+    ``heads`` ways."""
+    n_dec, n_enc = cfg.n_layers, cfg.n_encoder_layers
+    pre = {"flash_attention": n_enc + 2 * n_dec, "decode_attention": 0,
+           "paged_attention": 0, "wkv6": 0}
+    dec = {"flash_attention": 0, "decode_attention": 2 * n_dec * n_new,
+           "paged_attention": 0, "wkv6": 0}
+    kv, hd = cfg.n_kv_heads // heads, cfg.head_dim_eff
+    shapes = [[[b // rows, cache_len, kv, hd]] * 2
+              + [[b // rows, WHISPER_FRAMES, kv, hd]] * 2]
+    return [pre, dec], shapes
+
+
 def encdec_generate(what: str, cfg, params, frames, toks, kv_len, n_new: int,
                     cache_len: int) -> dict:
-    """Greedy generation through the model API as the reference's tests
-    drive an encoder-decoder (``api.prefill`` with the frames, then
-    ``api.decode_step``), each new token decoded as the padded engine
-    decodes it (``n_new`` steps at positions kv_len + step): a warm-up
-    run, then a run whose prefill and decode loop each run with the launch
-    counts set to 0 just before and read just after.  Checks the launches
-    (flash attention 3 x 24 a prefill: encoder, decoder self, cross; the
-    decode kernel 2 x 24 a step: self, cross; no other kernel), finite
-    logits and the cache's shapes.  Returns the record, the outputs and
-    the launches of the prefill and of the decode loop."""
-    def run():
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        logits, cache = api.prefill(cfg, params, {"frames": frames,
-                                                  "tokens": toks},
-                                    cache_len=cache_len, kv_len=kv_len)
-        torch.cuda.synchronize()
-        prefill_s = time.perf_counter() - t0
-        pre = read_launches()
-        first = (logits, cache)
-        outs = [[] for _ in range(toks.shape[0])]
-        finite = bool(torch.isfinite(logits).all())
-        reset_launches()
-        t0 = time.perf_counter()
-        for step in range(n_new):
-            nxt = greedy(logits, cfg.vocab_size)
-            for i, t in enumerate(nxt.tolist()):
-                outs[i].append(t)
-            logits, cache = api.decode_step(cfg, params, nxt[:, None].long(),
-                                            cache, kv_len + step)
-        torch.cuda.synchronize()
-        decode_s = time.perf_counter() - t0
-        dec = read_launches()
-        finite = finite and bool(torch.isfinite(logits).all())
-        return prefill_s, decode_s, pre, dec, outs, first, finite
-    run()                                                   # warm-up
-    prefill_s, decode_s, pre, dec, outs, (lg, cache), finite = run()
-    n_dec, n_enc = cfg.n_layers, cfg.n_encoder_layers
-    want_pre = {"flash_attention": n_enc + 2 * n_dec, "decode_attention": 0,
-                "paged_attention": 0, "wkv6": 0}
-    want_dec = {"flash_attention": 0, "decode_attention": 2 * n_dec * n_new,
-                "paged_attention": 0, "wkv6": 0}
+    """``encdec_greedy`` on the card alone, a warm-up run and then the run
+    whose numbers are kept.  Checks the launches and cache shapes of
+    ``encdec_expected``, finite logits and the outputs.  Returns the record,
+    the outputs and the launches of the prefill and of the decode loop."""
+    encdec_greedy(cfg, params, frames, toks, kv_len, n_new, cache_len)
+    run = encdec_greedy(cfg, params, frames, toks, kv_len, n_new, cache_len)
+    pre, dec = run["launches"]
+    (want_pre, want_dec), want_shapes = encdec_expected(
+        cfg, toks.shape[0], cache_len, n_new)
     print(f"[encdec] {what} launches: prefill {pre} (expected {want_pre}); "
           f"{n_new} decode steps {dec} (expected {want_dec})", flush=True)
     if pre != want_pre or dec != want_dec:
         fail(f"whisper {what}: launches {pre}, {dec}; expected {want_pre}, "
              f"{want_dec}")
     b, f = frames.shape[:2]
-    kv, hd = cfg.n_kv_heads, cfg.head_dim_eff
-    shapes = {(tuple(c["self"]["k"].shape), tuple(c["self"]["v"].shape),
-               tuple(c["cross"]["ck"].shape), tuple(c["cross"]["cv"].shape))
-              for c in cache}
-    want_shapes = {((b, cache_len, kv, hd),) * 2 + ((b, f, kv, hd),) * 2}
-    if not finite or tuple(lg.shape) != (b, cfg.padded_vocab) \
-            or len(cache) != n_dec or shapes != want_shapes:
-        fail(f"whisper {what}: finite {finite}, logits {tuple(lg.shape)}, "
-             f"{len(cache)} cache layers of {shapes}")
-    outputs = dict(enumerate(outs))
+    if not run["finite"] or run["logits_shape"] != [b, cfg.padded_vocab] \
+            or run["cache_layers"] != cfg.n_layers \
+            or run["cache_shapes"] != want_shapes:
+        fail(f"whisper {what}: finite {run['finite']}, logits "
+             f"{run['logits_shape']}, {run['cache_layers']} cache layers of "
+             f"{run['cache_shapes']}")
+    outputs = {int(k): v for k, v in run["outputs"].items()}
     check_outputs(f"whisper {what}", cfg, outputs, n=b)
     digest = serve.outputs_digest(outputs)
     tokens = b * n_new
+    decode_s, prefill_s = run["decode_s"], run["prefill_s"]
     rec = {"prompt_lengths": kv_len.tolist(), "cache_len": cache_len,
            "new_tokens": n_new, "prefill_ms": prefill_s * 1e3,
            "decode_ms": decode_s * 1e3,
@@ -2940,25 +3077,17 @@ def phase_encdec() -> dict:
           f"{4 * cfg.param_count() / 1e9:.2f} GB of f32 weights, drawn once "
           f"and moved in {init_s:.1f} s; plan for production mesh: {plan}",
           flush=True)
-    rng = np.random.default_rng(0)
-    frames = torch.from_numpy(
-        (rng.standard_normal((4, WHISPER_FRAMES, cfg.d_model)) * 0.02
-         ).astype(np.float32)).cuda()
+    frames, inputs = whisper_inputs(cfg)
     launches = {k: 0 for k in TIMED}
-    runs, inputs = {}, {}
-    for what, lengths, n_new, cache_len in (
-            ("short batch", [WHISPER_SHORT] * 4, WHISPER_SHORT_NEW,
-             WHISPER_SHORT_CACHE),
-            ("long batch", WHISPER_LONG, WHISPER_LONG_NEW, WHISPER_LONG_CACHE)):
-        toks, kv_len = encdec_prompts(cfg, lengths, rng)
-        inputs[what] = (toks, kv_len)
+    runs = {}
+    for what, (toks, kv_len, n_new, cache_len) in inputs.items():
         got = encdec_generate(what, cfg, params, frames, toks, kv_len, n_new,
                               cache_len)
         runs[what] = got["rec"]
         for part in got["launches"]:
             for k in launches:
                 launches[k] += part[k]
-    toks, kv_len = inputs["long batch"]
+    toks, kv_len = inputs["long batch"][:2]
     profile = {"whisper long prefill": step_breakdown(
         f"whisper long prefill (frames {tuple(frames.shape)}, prompts "
         f"{kv_len.tolist()})",
@@ -2986,7 +3115,7 @@ def phase_encdec() -> dict:
           f"({step['wall_ms']:.2f} wall)", flush=True)
     del params, cache, lg
     torch.cuda.empty_cache()
-    toks, kv_len = inputs["short batch"]
+    toks, kv_len = inputs["short batch"][:2]
     errs = encdec_logits_parity(cfg, frames, toks, kv_len)
     return {"runs": runs, "plan": plan, "init_s": init_s,
             "weight_bytes": 4 * cfg.param_count(),
@@ -3540,7 +3669,7 @@ def sharded_rank(rank: int, out_dir: str) -> None:
     meshes = {shape: Mesh({"data": shape[0], "model": shape[1]}, device="cuda")
               for shape in dict.fromkeys(r[2] for r in SHARDED_RUNS)}
     recs = {}
-    gloo = GlooClock()
+    gloo, dec = GlooClock(), DecodeShapes()
     for name, model, shape, plan, long in SHARDED_RUNS:
         cfg = sharded_cfg(model)
         torch.cuda.reset_peak_memory_stats()
@@ -3560,6 +3689,7 @@ def sharded_rank(rank: int, out_dir: str) -> None:
             np.save(Path(out_dir) / f"{name}.npy", rec["logits"])
         recs[name] = {k: v for k, v in rec.items() if k != "logits"} | {
             "draw_s": draw_s}
+    recs["shapes"] = {"decode": dec.read()}
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
@@ -3591,7 +3721,8 @@ def phase_sharded() -> dict:
              for r in range(SHARDED_WORLD)]
     print(f"[sharded] {SHARDED_WORLD} ranks on one card over gloo: "
           f"{ranks_s:.1f} s from spawn to join", flush=True)
-    out = {"ranks_s": ranks_s, "runs": {}}
+    out = {"ranks_s": ranks_s, "runs": {}, "shapes": shape_coverage(
+        "sharded", [r["shapes"] for r in ranks], need_grad=False)}
     for name, model, shape, plan, long in SHARDED_RUNS:
         cfg, ref = sharded_cfg(model), single[model]
         rec = ranks[0][name]
@@ -3700,7 +3831,7 @@ class FlashShapes:
 
     def __init__(self):
         self.calls, self.grad = set(), set()
-        orig = attention.flash_attention
+        orig = self.orig = attention.flash_attention
 
         def logged(q, k, v, **kw):
             row = (q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
@@ -3718,35 +3849,46 @@ class FlashShapes:
         return {"calls": sorted(self.calls, key=str),
                 "grad": sorted(self.grad, key=str)}
 
+    def close(self) -> None:
+        """Put the wrapper back: a recorder in the parent process, whose
+        later phases call K2 unrecorded."""
+        attention.flash_attention = self.orig
+
 
 def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
-                      shards: int = 1) -> dict:
+                      shards: int = 1, batch_at=None) -> dict:
     """Step 1's gradients handed to ``step1`` (one pass of its own, before
     the steps), then ``steps`` train steps through ``make_train_step``
     (or, for the card alone's batch-sharded MoE, ``alone_step``) with the
     launch counts set to 0 just before and read just after (K2's forward
     and its gradient): each step's loss, grad_norm and wall time, the bytes
     of parameters and state, the peak memory, the calls and seconds in
-    gloo (``gloo``, a ``GlooClock``)."""
-    base = train.token_base(cfg, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ)
+    gloo (``gloo``, a ``GlooClock``, or None on the card alone).  Step
+    i's batch is ``batch_at(i)``, by default the train launcher's rolled
+    tokens, SHARDED_TRAIN_BATCH x SHARDED_TRAIN_SEQ."""
+    if batch_at is None:
+        base = train.token_base(cfg, SHARDED_TRAIN_BATCH, SHARDED_TRAIN_SEQ)
+
+        def batch_at(i):
+            return train.batch_at(base, i, "cuda")
     named = {k: p.detach() for k, p in params.named_parameters()}
     opt = init_opt_state(named, tcfg.opt, stacked_leaves(cfg, named))
     step_fn = make_train_step(cfg, plan, tcfg) if shards == 1 \
         else alone_step(cfg, tcfg, shards)
-    step1(step_gradients(cfg, plan, params, train.batch_at(base, 0, "cuda"),
-                         tcfg.microbatches, shards)[1])
+    step1(step_gradients(cfg, plan, params, batch_at(0), tcfg.microbatches,
+                         shards)[1])
     torch.cuda.synchronize()
     step1_gib = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()        # the comparison's gathered leaves
     free = [torch.cuda.mem_get_info()[0]]
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    gloo.reset()
+    if gloo is not None:
+        gloo.reset()
     losses, norms, walls = [], [], []
     for i in range(steps):
         t0 = time.perf_counter()
-        params, opt, m = step_fn(params, opt, train.batch_at(base, i, "cuda"),
-                                 i)
+        params, opt, m = step_fn(params, opt, batch_at(i), i)
         losses.append(m["loss"].item())
         norms.append(m["grad_norm"].item())
         walls.append(time.perf_counter() - t0)
@@ -3757,7 +3899,8 @@ def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
                               if k != "flash_attention")}
     return {"losses": losses, "grad_norms": norms,
             "step_ms": [w * 1e3 for w in walls], "launches": launches,
-            "bytes": train_bytes(named, opt), "gloo": gloo.read(),
+            "bytes": train_bytes(named, opt),
+            "gloo": gloo.read() if gloo is not None else None,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
             "step1_peak_gib": step1_gib, "free_gib": min(free) / 2**30}
@@ -3776,7 +3919,7 @@ def sharded_train_rank(rank: int, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     mesh = Mesh({"data": 2, "model": 2}, device="cuda")
-    gloo, shapes = GlooClock(), FlashShapes()
+    gloo, shapes, dec = GlooClock(), FlashShapes(), DecodeShapes()
     recs = {}
     for model in SHARDED_TRAIN_LAYERS:
         cfg = sharded_train_cfg(model)
@@ -3829,7 +3972,7 @@ def sharded_train_rank(rank: int, out_dir: str) -> None:
                                 "leaves": len(errs)}
         alone.clear()
         torch.cuda.empty_cache()
-    recs["k2_shapes"] = shapes.read()
+    recs["k2_shapes"] = shapes.read() | {"decode": dec.read()}
     (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
@@ -3880,38 +4023,68 @@ class WKV6Shapes:
         return sorted(self.calls, key=str)
 
 
+class DecodeShapes:
+    """The shapes at which the attention module calls K3's wrapper in this
+    process, as DECODE_CASES rows without their name and lengths (b, s, h,
+    kv, d, dv, softcap, window), recorded by wrapping
+    ``models.attention.decode_attention``."""
+
+    def __init__(self):
+        self.calls = set()
+        orig = self.orig = attention.decode_attention
+
+        def logged(q, k, v, kv_len, **kw):
+            self.calls.add((q.shape[0], k.shape[1], q.shape[1], k.shape[2],
+                            q.shape[2], v.shape[3], kw.get("softcap"),
+                            kw.get("window")))
+            return orig(q, k, v, kv_len, **kw)
+        attention.decode_attention = logged
+
+    def read(self) -> list:
+        return sorted(self.calls, key=str)
+
+    def close(self) -> None:
+        """Put the wrapper back (``FlashShapes.close``)."""
+        attention.decode_attention = self.orig
+
+
 def shape_coverage(tag: str, seen: list, need_grad: bool = True) -> dict:
     """Fail unless every shape at which a phase's ranks called K2 is a
     FLASH_CASES row, every one under grad a GRAD_CASES row too, every one
-    at which they called K1 a PAGED_CASES row and every one at which they
-    called K4 a WKV6_CASES row: the parity phase has held the kernel, and
-    K2's gradient, against the plain version at each.  ``seen``: each
-    rank's {"calls", "grad"} of ``FlashShapes``, {"paged"} of
-    ``PagedShapes`` and {"wkv6"} of ``WKV6Shapes``."""
+    at which they called K1 a PAGED_CASES row, every one at which they
+    called K3 a DECODE_CASES row and every one at which they called K4 a
+    WKV6_CASES row: the parity phase has held the kernel, and K2's
+    gradient, against the plain version at each.  ``seen``: each rank's
+    {"calls", "grad"} of ``FlashShapes``, {"paged"} of ``PagedShapes``,
+    {"decode"} of ``DecodeShapes`` and {"wkv6"} of ``WKV6Shapes``."""
     def rows(key):
         return {tuple(r) for s in seen for r in s.get(key, ())}
-    calls, grad, paged, wkv = (rows(k) for k in ("calls", "grad", "paged",
-                                                 "wkv6"))
+    calls, grad, paged, dec, wkv = (rows(k) for k in (
+        "calls", "grad", "paged", "decode", "wkv6"))
     names = {tuple(c[1:]): c[0] for c in FLASH_CASES}
     grad_names = {tuple(c[1:]): c[0] for c in GRAD_CASES}
     paged_names = {tuple(c[1:12]): c[0] for c in PAGED_CASES}
+    dec_names = {tuple(c[1:9]): c[0] for c in DECODE_CASES}
     wkv_names = {tuple(c[1:7]) + (c[9],): c[0] for c in WKV6_CASES}
     missing = sorted((calls - set(names)) | (grad - set(grad_names))
-                     | (paged - set(paged_names)) | (wkv - set(wkv_names)),
-                     key=str)
+                     | (paged - set(paged_names)) | (dec - set(dec_names))
+                     | (wkv - set(wkv_names)), key=str)
     print(f"[{tag}] K2 shapes: {len(calls)} "
           f"({sorted(names.get(r, '?') for r in calls)}), under grad "
           f"{len(grad)} ({sorted(grad_names.get(r, '?') for r in grad)}); "
           f"K1 shapes: {len(paged)} "
           f"({sorted(paged_names.get(r, '?') for r in paged)}); "
+          f"K3 shapes: {len(dec)} "
+          f"({sorted(dec_names.get(r, '?') for r in dec)}); "
           f"K4 shapes: {len(wkv)} "
           f"({sorted(wkv_names.get(r, '?') for r in wkv)}); "
           f"with no parity case: {missing}", flush=True)
     if missing or (need_grad and not grad):
-        fail(f"{tag}: K1/K2/K4 shapes with no parity case: {missing}")
+        fail(f"{tag}: K1/K2/K3/K4 shapes with no parity case: {missing}")
     return {"calls": sorted(names[r] for r in calls),
             "grad": sorted(grad_names[r] for r in grad),
             "paged": sorted(paged_names[r] for r in paged),
+            "decode": sorted(dec_names[r] for r in dec),
             "wkv6": sorted(wkv_names[r] for r in wkv)}
 
 
@@ -4119,6 +4292,7 @@ def sharded_paged_rank(rank: int, out_dir: str) -> None:
     cfg = sharded_cfg("chatglm2", CHATGLM2_LAYERS)
     mesh = Mesh({"data": 2, "model": 2}, device="cuda")
     gloo, flash, paged = GlooClock(), FlashShapes(), PagedShapes()
+    dec = DecodeShapes()
     recs = {}
     with set_mesh(mesh):
         t0 = time.perf_counter()
@@ -4141,7 +4315,8 @@ def sharded_paged_rank(rank: int, out_dir: str) -> None:
         recs["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
         del params
         torch.cuda.empty_cache()
-    recs["shapes"] = {"calls": flash.read()["calls"], "paged": paged.read()}
+    recs["shapes"] = {"calls": flash.read()["calls"], "paged": paged.read(),
+                      "decode": dec.read()}
     (out / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
@@ -4350,7 +4525,7 @@ def sharded_recurrent_rank(rank: int, out_dir: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     out = Path(out_dir)
-    gloo, wkv = GlooClock(), WKV6Shapes()
+    gloo, wkv, dec = GlooClock(), WKV6Shapes(), DecodeShapes()
     recs = {}
     with set_mesh(Mesh({"data": 2, "model": 2}, device="cuda")):
         for model in SHARDED_RECURRENT:
@@ -4371,7 +4546,7 @@ def sharded_recurrent_rank(rank: int, out_dir: str) -> None:
                 np.save(out / f"{model}.npy", rec["logits"])
             recs[model] = {k: v for k, v in rec.items() if k != "logits"} | {
                 "draw_s": draw_s, "held_gib": held}
-    recs["shapes"] = {"wkv6": wkv.read()}
+    recs["shapes"] = {"wkv6": wkv.read(), "decode": dec.read()}
     (out / f"rank{rank}.json").write_text(json.dumps(recs))
 
 
@@ -4493,6 +4668,305 @@ def phase_sharded_recurrent() -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 20
+
+def encdec_serve(cfg, params, plan, clock=None) -> dict:
+    """Serve phase 20's whisper batches on ``params``: one card's model
+    (``plan`` None) or this rank's slices under ``plan``.  First each of
+    WHISPER_BATCHES' prefill and first decode-step logits (a warm-up too),
+    the short batch's step's collectives counted by ``clock``; then each
+    batch through ``encdec_greedy``."""
+    frames, batches = whisper_inputs(cfg)
+    logits, step_calls = [], None
+    for toks, kv_len, _, cache_len in batches.values():
+        lg, cache = api.prefill(cfg, params, {"frames": frames,
+                                              "tokens": toks},
+                                cache_len=cache_len, kv_len=kv_len, plan=plan)
+        nxt = greedy(lg, cfg.vocab_size)[:, None].long()
+        torch.cuda.synchronize()
+        if clock is not None:
+            clock.reset()
+        lg2, _ = api.decode_step(cfg, params, nxt, cache, kv_len, plan=plan)
+        torch.cuda.synchronize()
+        if clock is not None and step_calls is None:
+            step_calls = clock.read()["calls"]
+        logits += [lg.float().cpu().numpy(), lg2.float().cpu().numpy()]
+        del cache, lg, lg2
+    logits = np.stack(logits)
+    torch.cuda.reset_peak_memory_stats()
+    if clock is not None:
+        clock.reset()
+    runs = {what: encdec_greedy(cfg, params, frames, toks, kv_len, n_new,
+                                cache_len, plan)
+            for what, (toks, kv_len, n_new, cache_len) in batches.items()}
+    return {"logits": logits, "step_calls": step_calls, "runs": runs,
+            "gloo": clock.read() if clock is not None else None,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def encdec_train_cfg():
+    """Phase 20's training config: whisper-medium at full width and
+    SHARDED_ENCDEC_TRAIN_LAYERS encoder and decoder layers."""
+    return replace(get_config("whisper-medium"),
+                   n_layers=SHARDED_ENCDEC_TRAIN_LAYERS,
+                   n_encoder_layers=SHARDED_ENCDEC_TRAIN_LAYERS)
+
+
+def encdec_train_batch(cfg, i: int) -> dict:
+    """Step i's seeded batch on the card: 4 x SHARDED_ENCDEC_TRAIN_SEQ
+    tokens, their next tokens as labels, and frames [4, 1,536, d] x
+    0.02."""
+    rng = np.random.default_rng(20 + i)
+    toks = torch.from_numpy(rng.integers(
+        2, cfg.vocab_size, (4, SHARDED_ENCDEC_TRAIN_SEQ + 1))).cuda()
+    frames = torch.from_numpy((rng.standard_normal(
+        (4, WHISPER_FRAMES, cfg.d_model)) * 0.02).astype(np.float32)).cuda()
+    return {"frames": frames, "tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def sharded_encdec_rank(rank: int, out_dir: str) -> None:
+    """One of phase 20's ranks on the card: whisper-medium drawn in turn
+    (one full copy on the card at a time) and cut to this rank's slices,
+    served under tp_dp (``encdec_serve``); then its 2 + 2-layer cut drawn
+    in turn and trained under tp_dp_train, step 1's gradients held, slice
+    by slice, to the card alone's (``alone_grads.pt``).  Writes its
+    records, with the K2 and K3 shapes it called, and on rank 0 the
+    logits."""
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = Path(out_dir)
+    gloo, flash, dec = GlooClock(), FlashShapes(), DecodeShapes()
+    recs = {}
+
+    def drawn(cfg, plan):
+        for turn in range(dist.get_world_size()):
+            if turn == rank:
+                params = sharded_draw(cfg)
+                shard_params(cfg, params, plan)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return params
+    with set_mesh(Mesh({"data": 2, "model": 2}, device="cuda")):
+        cfg = get_config("whisper-medium")
+        t0 = time.perf_counter()
+        params = drawn(cfg, SHARDED_ENCDEC_PLAN)
+        draw_s = time.perf_counter() - t0
+        held = torch.cuda.memory_allocated() / 2**30
+        rec = encdec_serve(cfg, params, SHARDED_ENCDEC_PLAN, gloo)
+        del params
+        torch.cuda.empty_cache()
+        if rank == 0:
+            np.save(out / "logits.npy", rec["logits"])
+        recs["serve"] = {k: v for k, v in rec.items() if k != "logits"} | {
+            "draw_s": draw_s, "held_gib": held}
+        cfg = encdec_train_cfg()
+        plan = SHARDED_ENCDEC_TRAIN_PLAN
+        params = drawn(cfg, plan).requires_grad_(True)
+        specs = {k: p.shard_spec for k, p in params.named_parameters()}
+        ref = torch.load(out / "alone_grads.pt")
+        worst = {}
+
+        def compare(grads):
+            for k, g in grads.items():
+                want = shard_tensor(ref[k].to(g.device), specs[k])
+                err = (g - want).abs().max().item()
+                scale = ref[k].abs().max().item()
+                worst[k] = (err / (TOL_TRAIN_GRAD * scale + GRAD_FLOOR), err,
+                            scale)
+                del want
+        tcfg = TrainConfig(opt=OptConfig(kind="adamw"),
+                           microbatches=plan.microbatches)
+        rec = sharded_train_run(cfg, params, plan, tcfg,
+                                SHARDED_ENCDEC_TRAIN_STEPS, gloo, compare,
+                                batch_at=lambda i: encdec_train_batch(cfg, i))
+        del params, ref
+        torch.cuda.empty_cache()
+        leaf = max(worst, key=lambda k: worst[k][0])
+        recs["train"] = rec | {"grad_leaves": len(worst), "grad_worst_leaf":
+                               leaf, "grad_worst": list(worst[leaf])}
+    recs["shapes"] = flash.read() | {"decode": dec.read()}
+    (out / f"rank{rank}.json").write_text(json.dumps(recs))
+
+
+def phase_sharded_encdec() -> dict:
+    """whisper-medium under a plan: served at full width and depth under
+    tp_dp and trained at 2 + 2 layers under tp_dp_train, each on the card
+    alone, which is then freed, and by 4 ranks sharing it over gloo:
+    greedy tokens equal to the card alone's and both batches' prefill and
+    first-step logits within TOL_LOGITS, K2 and K3 launches a rank as on
+    the card alone, every call on 8 of the 16 heads, every shape of the
+    ranks and of the card alone a parity case, gloo calls of a decode step;
+    train losses and grad norms within TOL_SHARDED_TRAIN, step 1's
+    gradients within TOL_TRAIN_GRAD of each leaf's largest (GRAD_FLOOR
+    beside it), K2's forward and gradient a layer call each step; step
+    times beside the card alone's, each rank's peak memory."""
+    out_dir = ROOT / "build" / "sharded_encdec"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    cfg, train_cfg = get_config("whisper-medium"), encdec_train_cfg()
+    launches = {k: 0 for k in TIMED} | {"flash_attention_backward": 0}
+    flash, dec = FlashShapes(), DecodeShapes()
+    try:
+        t0 = time.perf_counter()
+        params = sharded_draw(cfg)
+        draw_s = time.perf_counter() - t0
+        alone = encdec_serve(cfg, params, None)
+        del params
+        torch.cuda.empty_cache()
+        params = sharded_draw(train_cfg).requires_grad_(True)
+        tcfg = TrainConfig(opt=OptConfig(kind="adamw"))
+        alone_train = sharded_train_run(
+            train_cfg, params, None, tcfg, SHARDED_ENCDEC_TRAIN_STEPS, None,
+            lambda grads: torch.save({k: g.cpu() for k, g in grads.items()},
+                                     out_dir / "alone_grads.pt"),
+            batch_at=lambda i: encdec_train_batch(train_cfg, i))
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        flash.close()
+        dec.close()
+    alone_shapes = flash.read() | {"decode": dec.read()}
+    for part in [r["launches"] for r in alone["runs"].values()]:
+        for p in part:
+            for k in TIMED:
+                launches[k] += p[k]
+    launches["flash_attention"] += alone_train["launches"]["flash_attention"]
+    launches["flash_attention_backward"] += \
+        alone_train["launches"]["flash_attention_backward"]
+    t0 = time.perf_counter()
+    run_ranks(sharded_encdec_rank, (str(out_dir),), world=SHARDED_WORLD,
+              timeout=300.0, join_timeout=600.0)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(SHARDED_WORLD)]
+    print(f"[sharded_encdec] {SHARDED_WORLD} ranks on one card over gloo on "
+          f"{{data: 2, model: 2}}: {ranks_s:.1f} s from spawn to join",
+          flush=True)
+    out = {"ranks_s": ranks_s, "alone_draw_s": draw_s, "runs": {},
+           "shapes": shape_coverage("sharded_encdec",
+                                    [r["shapes"] for r in ranks]),
+           "alone_shapes": shape_coverage("sharded_encdec card alone",
+                                          [alone_shapes])}
+    heads = cfg.n_heads // 2
+    seen_heads = {row[3] for r in ranks for row in r["shapes"]["calls"]} | {
+        row[2] for r in ranks for row in r["shapes"]["decode"]}
+    if seen_heads != {heads}:
+        fail(f"sharded encdec: K2/K3 ran at {sorted(seen_heads)} heads, "
+             f"expected {heads} on every rank")
+    # serve
+    err = float(np.abs(np.load(out_dir / "logits.npy")
+                       - alone["logits"]).max())
+    want_calls = 3 * cfg.n_layers + 3
+    calls = [r["serve"]["step_calls"] for r in ranks]
+    print(f"[sharded_encdec] serve whisper-medium ({cfg.n_encoder_layers} + "
+          f"{cfg.n_layers} layers) under tp_dp: both batches' prefill and "
+          f"first-step logits max_abs_err "
+          f"{err:.3e} (tol {TOL_LOGITS}); {calls[0]} gloo calls a decode "
+          f"step (expected {want_calls}); slices held "
+          f"{[round(r['serve']['held_gib'], 2) for r in ranks]} GiB and peak "
+          f"{[round(r['serve']['peak_gib'], 2) for r in ranks]} GiB a rank "
+          f"(card alone peak {alone['peak_gib']:.2f}); draw and shard "
+          f"{ranks[0]['serve']['draw_s']:.1f} s (card alone {draw_s:.1f})",
+          flush=True)
+    bad = []
+    if not err <= TOL_LOGITS:
+        bad.append(f"logits {err}")
+    if any(c != want_calls for c in calls):
+        bad.append(f"gloo calls a step {calls}, expected {want_calls}")
+    for what, lengths, n_new, cache_len in WHISPER_BATCHES:
+        ref = alone["runs"][what]
+        want_l, want_shapes = encdec_expected(cfg, len(lengths), cache_len,
+                                              n_new, rows=2, heads=2)
+        got = [r["serve"]["runs"][what] for r in ranks]
+        same, total = agreement(got[0]["outputs"], ref["outputs"])
+        step_ms = got[0]["decode_s"] * 1e3 / n_new
+        ref_ms = ref["decode_s"] * 1e3 / n_new
+        print(f"[sharded_encdec] {what} {lengths}: tokens {same}/{total} "
+              f"equal to the card alone's; launches a rank "
+              f"{[g['launches'] for g in got][0]} (expected {want_l}, card "
+              f"alone {ref['launches']}); prefill "
+              f"{got[0]['prefill_s'] * 1e3:.1f} ms (card alone "
+              f"{ref['prefill_s'] * 1e3:.1f}); decode {step_ms:.2f} ms a "
+              f"step with {calls[0]} gloo calls (card alone {ref_ms:.2f}); "
+              f"cache a rank {got[0]['cache_shapes']}", flush=True)
+        if any(g["outputs"] != ref["outputs"] for g in got) or same != total:
+            bad.append(f"{what} tokens {same}/{total}")
+        if any(g["launches"] != want_l for g in got) \
+                or ref["launches"] != encdec_expected(
+                    cfg, len(lengths), cache_len, n_new)[0]:
+            bad.append(f"{what} launches")
+        if any(g["cache_shapes"] != want_shapes or not g["finite"]
+               or g["cache_layers"] != cfg.n_layers for g in got):
+            bad.append(f"{what} caches or finite logits")
+        for g in got:
+            for p in g["launches"]:
+                for k in TIMED:
+                    launches[k] += p[k]
+        out["runs"][what] = {
+            "tokens_equal": [same, total], "launches_per_rank":
+            [g["launches"] for g in got], "one_card_launches": ref["launches"],
+            "prefill_ms": [g["prefill_s"] * 1e3 for g in got],
+            "one_card_prefill_ms": ref["prefill_s"] * 1e3,
+            "decode_ms_per_step": [g["decode_s"] * 1e3 / n_new for g in got],
+            "one_card_decode_ms_per_step": ref_ms,
+            "cache_shapes_per_rank": got[0]["cache_shapes"]}
+    out["serve"] = {"logits_max_abs_err": err, "gloo_calls_per_step": calls,
+                    "gloo_rank0": ranks[0]["serve"]["gloo"],
+                    "held_gib": [r["serve"]["held_gib"] for r in ranks],
+                    "peak_gib": [r["serve"]["peak_gib"] for r in ranks],
+                    "one_card_peak_gib": alone["peak_gib"]}
+    # train
+    layers = train_cfg.n_encoder_layers + 2 * train_cfg.n_layers
+    steps = SHARDED_ENCDEC_TRAIN_STEPS
+    want = {"flash_attention": layers * steps,
+            "flash_attention_backward": layers * steps, "others": 0}
+    got = [r["train"]["launches"] for r in ranks]
+    for g in got:
+        launches["flash_attention"] += g["flash_attention"]
+        launches["flash_attention_backward"] += g["flash_attention_backward"]
+    loss_err = max(abs(a - b) / abs(b) for r in ranks for a, b in
+                   zip(r["train"]["losses"], alone_train["losses"]))
+    norm_err = max(abs(a - b) / abs(b) for r in ranks for a, b in
+                   zip(r["train"]["grad_norms"], alone_train["grad_norms"]))
+    worst = max((r["train"]["grad_worst"] + [r["train"]["grad_worst_leaf"]]
+                 for r in ranks), key=lambda w: w[0])
+    rec = ranks[0]["train"]
+    print(f"[sharded_encdec] train whisper-medium ({train_cfg.n_encoder_layers}"
+          f" + {train_cfg.n_layers} layers, AdamW, {steps} steps of 4 x "
+          f"{SHARDED_ENCDEC_TRAIN_SEQ} tokens over 4 x {WHISPER_FRAMES} "
+          f"frames) under tp_dp_train: losses {rec['losses']} (card alone "
+          f"{alone_train['losses']}, rel err {loss_err:.2e}); grad norms rel "
+          f"err {norm_err:.2e}; tol {TOL_SHARDED_TRAIN}; step 1's gradients "
+          f"of {rec['grad_leaves']} leaves, worst {worst[1]:.3e} of the "
+          f"leaf's largest |g| {worst[2]:.3e} ({worst[3]}; {worst[0]:.3f} of "
+          f"its tolerance {TOL_TRAIN_GRAD} x largest + {GRAD_FLOOR}); "
+          f"launches a rank {got} (expected {want})", flush=True)
+    print(f"[sharded_encdec] train step ms "
+          f"{['%.1f' % t for t in rec['step_ms']]} (card alone "
+          f"{['%.1f' % t for t in alone_train['step_ms']]}); rank 0's "
+          f"collectives {rec['gloo']['calls']} calls, "
+          f"{rec['gloo']['s']:.2f} s in gloo; peak "
+          f"{[round(r['train']['peak_gib'], 2) for r in ranks]} GiB a rank "
+          f"(card alone {alone_train['peak_gib']:.2f})", flush=True)
+    if not (loss_err <= TOL_SHARDED_TRAIN and norm_err <= TOL_SHARDED_TRAIN):
+        bad.append("train losses or grad norms")
+    if not worst[0] <= 1.0:
+        bad.append(f"train gradient {worst}")
+    if any(g != want for g in got):
+        bad.append(f"train launches {got}, expected {want}")
+    if bad:
+        fail(f"sharded encdec: {bad}")
+    out["train"] = {k: [r["train"][k] for r in ranks] for k in (
+        "losses", "grad_norms", "launches", "step_ms", "peak_gib",
+        "grad_worst", "grad_worst_leaf")} | {
+        "one_card": alone_train, "loss_rel_err": loss_err,
+        "grad_norm_rel_err": norm_err, "gloo_rank0": rec["gloo"],
+        "plan": asdict(SHARDED_ENCDEC_TRAIN_PLAN)}
+    out["launches"] = launches
+    return out
+
+
 def main() -> None:
     t_start = time.perf_counter()
     phase_s = {}
@@ -4534,6 +5008,7 @@ def main() -> None:
     sharded_train = run("sharded_train", phase_sharded_train)
     sharded_paged = run("sharded_paged", phase_sharded_paged)
     sharded_recurrent = run("sharded_recurrent", phase_sharded_recurrent)
+    sharded_encdec = run("sharded_encdec", phase_sharded_encdec)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -4544,6 +5019,7 @@ def main() -> None:
                 + trained["launches"][k] + sharded["launches"][k]
                 + sharded_train["launches"][k] + sharded_paged["launches"][k]
                 + sharded_recurrent["launches"][k]
+                + sharded_encdec["launches"][k]
                 for k in TIMED}
     launches["wkv6"] += rwkv["launches"]
     kernels = []
@@ -4572,7 +5048,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/flash_attention/grad.py",
         "replaces": None, "backward_calls":
             trained["launches"]["flash_attention_backward"]
-            + sharded_train["launches"]["flash_attention_backward"],
+            + sharded_train["launches"]["flash_attention_backward"]
+            + sharded_encdec["launches"]["flash_attention_backward"],
         "max_abs_err": parity[GRAD_PARITY_TAG]["dq"]["max_abs_err"],
         **{k: grad[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                 "library_ms", "grad_ms", "grad_bound_ms",
@@ -4588,7 +5065,9 @@ def main() -> None:
               "llama4": llama4, "jamba": jamba, "cluster": cluster,
               "train": trained, "sharded": sharded,
               "sharded_train": sharded_train, "sharded_paged": sharded_paged,
-              "sharded_recurrent": sharded_recurrent, "kernels": kernels, "phase_s": phase_s,
+              "sharded_recurrent": sharded_recurrent,
+              "sharded_encdec": sharded_encdec, "kernels": kernels,
+              "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -4,11 +4,10 @@ take the audio stub's frame embeddings), and the paged decode and verify
 steps of the decoder-only family (the vision stub's prefill takes
 embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
 their slice).  ``loss_fn``, ``prefill``, ``decode_step`` and the paged
-steps (batch-only plans) take a sharding plan (``models.transformer``'s
-docstring): ``prefill`` and ``decode_step`` serve every decoder-only
-family under one, Mamba and RWKV-6 blocks included; ``loss_fn`` raises
-under one for Mamba and RWKV-6 blocks, and every entry point for
-encoder-decoder models (``transformer.check_plan``)."""
+steps (batch-only plans) take a sharding plan (``models.transformer``'s and
+``models.encdec``'s docstrings): ``loss_fn``, ``prefill`` and
+``decode_step`` run every family under one, Mamba and RWKV-6 blocks and
+encoder-decoder models included."""
 from __future__ import annotations
 
 import torch
@@ -39,9 +38,8 @@ def loss_fn(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
     for an encoder-decoder, + "embeds" for the vision stub).  Under
     ``plan`` (a mesh set) the batch is the whole batch on every rank, and
     the loss and metrics are the global ones on every rank."""
-    T.check_plan(cfg, plan, train=True)
     if cfg.is_encdec:
-        return E.encdec_loss(cfg, params, batch)
+        return E.encdec_loss(cfg, params, batch, plan=plan)
     return T.lm_loss(cfg, params, batch, plan=plan)
 
 
@@ -55,13 +53,12 @@ def prefill(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
     already computed prompt prefix) requests continuation prefill of the
     uncached suffix — see T.lm_prefill.  Under ``plan`` (a mesh set) the
     batch and logits are whole on every rank, the cache this rank's."""
-    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         if prefix_kv is not None:
             raise NotImplementedError(
                 "prefix-continuation prefill: enc-dec uses cross caches")
         return E.encdec_prefill(cfg, params, batch["frames"], batch["tokens"],
-                                cache_len=cache_len, kv_len=kv_len)
+                                cache_len=cache_len, kv_len=kv_len, plan=plan)
     return T.lm_prefill(cfg, params, batch["tokens"], cache_len=cache_len,
                         kv_len=kv_len, embeds=batch.get("embeds"),
                         prefix_kv=prefix_kv, plan=plan)
@@ -71,9 +68,9 @@ def prefill(cfg: ModelConfig, params: Transformer | EncDec, batch: dict, *,
 def decode_step(cfg: ModelConfig, params: Transformer | EncDec, tokens, cache,
                 kv_len, *, plan=None):
     """tokens [B, 1]; kv_len [B] int32.  Returns (logits [B, Vp], cache)."""
-    T.check_plan(cfg, plan)
     if cfg.is_encdec:
-        return E.encdec_decode_step(cfg, params, tokens, cache, kv_len)
+        return E.encdec_decode_step(cfg, params, tokens, cache, kv_len,
+                                    plan=plan)
     return T.lm_decode_step(cfg, params, tokens, cache, kv_len, plan=plan)
 
 
@@ -86,7 +83,6 @@ def paged_decode_step(cfg: ModelConfig, params: Transformer, tokens, pools,
     set) the inputs and logits are the whole batch's and every rank holds
     the whole pools (``T.lm_paged_decode_step``); model and sequence axes
     raise, as in the reference."""
-    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         raise NotImplementedError("paged decode: enc-dec uses cross caches")
     return T.lm_paged_decode_step(cfg, params, tokens, pools, block_tables,
@@ -102,7 +98,6 @@ def paged_spec_step(cfg: ModelConfig, params: Transformer, tokens, pools,
     where a position is invalid); kv_len [B] history before the window.
     Returns (logits [B, T, Vp], pools).  ``plan`` as in
     ``paged_decode_step``."""
-    T.check_plan(cfg, plan)
     if cfg.is_encdec:
         raise NotImplementedError("paged decode: enc-dec uses cross caches")
     return T.lm_paged_spec_step(cfg, params, tokens, pools, block_tables,

@@ -39,6 +39,10 @@ per call as the reference's ``_run_flash`` chooses:
   heads.
 * caches take ``specs.cache_spec``'s layout, which rides on each cache
   tensor as ``shard_spec``.
+* cross-attention is head-parallel as self-attention is: K2 over the
+  memory and K3 over its cache on this rank's heads (the cache [B, F, KV,
+  hd] head-sharded); a cache whose F rows ``cache_spec`` shards over the
+  sequence axes raises at decode.
 * paged decode and verify, batch-only plans alone: every rank holds the
   whole block pool (it has no batch dimension, so the reference's GSPMD
   keeps one copy on each device).  This rank's rows run q/k/v and
@@ -239,7 +243,8 @@ def _seq_parallel_prefill(plan: ShardingPlan, q, k, v, *, causal, window,
                            q_offset=axis_index(ax) * s_loc)
 
 
-def _run_flash(cfg: ModelConfig, plan, q, k, v, *, causal, window):
+def _run_flash(cfg: ModelConfig, plan, q, k, v, *, causal, window,
+               softcap):
     """Prefill attention, distributed as the reference's: head-TP when the
     KV heads (MLA: the heads) divide the model axis, with q, k, v this
     rank's heads; otherwise, with all heads, sequence-parallel when the
@@ -250,10 +255,10 @@ def _run_flash(cfg: ModelConfig, plan, q, k, v, *, causal, window):
         n = axis_size(plan.model_axis)
         if n > 1 and q.shape[1] % n == 0:
             out = _seq_parallel_prefill(plan, q, k, v, causal=causal,
-                                        window=window, softcap=cfg.attn_softcap)
+                                        window=window, softcap=softcap)
             return all_gather(out, plan.model_axis, 1)
     return flash_attention(q, k, v, causal=causal, window=window,
-                           softcap=cfg.attn_softcap)
+                           softcap=softcap)
 
 
 def _seq_axes(t: torch.Tensor):
@@ -297,7 +302,8 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     if cfg.mla is not None:
         q, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
         k, v = _mla_expand(cfg, p, c_kv, k_rope)
-        out = _run_flash(cfg, plan, q, k, v, causal=causal, window=window)
+        out = _run_flash(cfg, plan, q, k, v, causal=causal, window=window,
+                         softcap=cfg.attn_softcap)
         y = _o_proj(cfg, p, out, plan, seq_out)
         cache = None
         if cache_len:
@@ -316,7 +322,8 @@ def attn_prefill(cfg: ModelConfig, spec: LayerSpec, p: Attention,
     else:
         if sharded_axis(p.k.w, 1) is None:
             q = _all_heads(p.q.w, q)
-        out = _run_flash(cfg, plan, q, k, v, causal=causal, window=window)
+        out = _run_flash(cfg, plan, q, k, v, causal=causal, window=window,
+                         softcap=cfg.attn_softcap)
     y = _o_proj(cfg, p, out, plan, seq_out)
     cache = None
     if cache_len:
@@ -568,33 +575,48 @@ def attn_paged_spec(cfg: ModelConfig, spec: LayerSpec, p: Attention,
 # ------------------------------------------------------------ cross-attention
 
 def cross_attn_prefill(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                       memory: torch.Tensor):
+                       memory: torch.Tensor, *, plan=None,
+                       seq_out: bool = False):
     """Decoder cross-attention over the encoder output.  x: [B, S, d];
     memory: [B, F, d].  Every query row (right-padded ones too, whose
     outputs are never read) attends to all F memory rows: the
     flash-attention kernel, non-causal.  Returns (y [B, S, d], cache
     {"ck": [B, F, KV, hd], "cv": [B, F, KV, dv]}, the memory's projected
-    K/V)."""
+    K/V).  Under ``plan`` x and memory are this rank's batch rows: q, k
+    and v are column-parallel by heads and ``o`` row-parallel, as in
+    self-attention, and the cache takes ``cache_spec``'s layout;
+    ``seq_out`` returns y's sequence slice of this rank."""
     b, s, _ = x.shape
     f = memory.shape[1]
-    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_eff
-    q = apply_dense(p.q, x).reshape(b, s, h, hd)
-    k = apply_dense(p.k, memory).reshape(b, f, kv, hd)
-    v = apply_dense(p.v, memory).reshape(b, f, kv, cfg.v_head_dim_eff)
-    out = flash_attention(q, k, v, causal=False)
-    y = apply_dense(p.o, out.reshape(b, s, -1))
-    return y, {"ck": k, "cv": v}
+    hd = cfg.head_dim_eff
+    q = apply_dense(p.q, x).reshape(b, s, -1, hd)
+    k = apply_dense(p.k, memory).reshape(b, f, -1, hd)
+    v = apply_dense(p.v, memory).reshape(b, f, -1, cfg.v_head_dim_eff)
+    if sharded_axis(p.k.w, 1) is None:
+        q = _all_heads(p.q.w, q)
+    out = _run_flash(cfg, plan, q, k, v, causal=False, window=None,
+                     softcap=None)
+    y = _o_proj(cfg, p, out, plan, seq_out)
+    return y, cache_layout(cfg, plan, {"ck": k, "cv": v})
 
 
 def cross_attn_decode(cfg: ModelConfig, p: Attention, x: torch.Tensor,
-                      cache: dict) -> torch.Tensor:
+                      cache: dict, *, plan=None) -> torch.Tensor:
     """One decode token's cross-attention over the cached memory K/V
     (``cross_attn_prefill``'s cache, read only): the flash-decoding kernel
-    with every row's length the memory's F.  x: [B, 1, d] -> [B, 1, d]."""
+    with every row's length the memory's F.  x: [B, 1, d] -> [B, 1, d].
+    Under ``plan`` on a head-sharded cache the kernel runs on this rank's
+    heads.  A cache whose F rows are sharded over the sequence axes (KV
+    heads that do not divide the model axis) raises: its decode would need
+    ``_sharded_decode``'s combine, which no configuration reaches."""
+    if _seq_axes(cache["ck"]) is not None:
+        raise NotImplementedError(
+            "cross-attention decode over a sequence-sharded memory cache")
     b = x.shape[0]
-    q = apply_dense(p.q, x).reshape(b, cfg.n_heads, cfg.head_dim_eff)
+    q = apply_dense(p.q, x).reshape(b, -1, cfg.head_dim_eff)
+    if sharded_axis(p.k.w, 1) is None:
+        q = _all_heads(p.q.w, q)
     mem_len = torch.full((b,), cache["ck"].shape[1], dtype=torch.int32,
                          device=x.device)
     out = decode_attention(q, cache["ck"], cache["cv"], mem_len)
-    y = apply_dense(p.o, out.reshape(b, -1))
-    return y.reshape(b, 1, -1)
+    return _o_proj(cfg, p, out[:, None], plan)

@@ -39,11 +39,10 @@ cross entropy is the vocab-parallel one (``nll_sum``), and the nll and
 mask sums are psummed over the batch axes before the division.  With
 ``plan.remat`` each block runs under ``torch.utils.checkpoint`` (its
 forward again in the backward, the reference's ``jax.checkpoint`` of the
-scanned group).  Mamba and RWKV-6 blocks serve under a plan (prefill and
-decode: ``mamba`` channel-parallel, ``rwkv`` head-parallel, the channel
-mix as the MLP), their caches whole over the model axis as the
-reference's specs lay them out; their training loss and encoder-decoder
-models raise under one (``check_plan``).
+scanned group).  Mamba and RWKV-6 blocks run under a plan (``mamba``
+channel-parallel, ``rwkv`` head-parallel, the channel mix as the MLP),
+their caches whole over the model axis as the reference's specs lay them
+out; in the loss they keep no cache, so their state gathers do not run.
 """
 from __future__ import annotations
 
@@ -284,22 +283,6 @@ def lm_head(cfg: ModelConfig, params: Transformer, x: torch.Tensor) -> torch.Ten
     return softcap(logits.float(), cfg.final_softcap)
 
 
-def check_plan(cfg: ModelConfig, plan: Optional[ShardingPlan], *,
-               train: bool = False) -> None:
-    """Raise for what a plan cannot shard yet: encoder-decoder models, and
-    in the training loss (``train``) Mamba and RWKV-6 blocks; both come
-    with roadmap item 6d-ii."""
-    if plan is None:
-        return
-    recurrent = {sp.mixer for sp in cfg.layer_plan()} - {"attn"}
-    if cfg.is_encdec or (train and recurrent):
-        kind = "encoder-decoder" if cfg.is_encdec else \
-            "/".join(sorted(recurrent)) + " training"
-        raise NotImplementedError(
-            f"{cfg.name}: {kind} under a plan is not ported yet "
-            "(roadmap item 6d-ii)")
-
-
 def batch_rows(cfg: ModelConfig, plan: Optional[ShardingPlan],
                rows: int) -> bool:
     """Whether a call's ``rows`` are split over ``plan``'s batch axes
@@ -449,7 +432,7 @@ def lm_prefill(cfg: ModelConfig, params: Transformer, tokens: torch.Tensor, *,
     to continuation prefill: ``tokens`` holds only the uncached suffix at
     positions P.., the prefix K/V is attended through, the returned cache
     covers the suffix only, and ``kv_len`` counts valid suffix tokens.
-    Under ``plan`` (module docstring; ``check_plan`` first) the inputs and
+    Under ``plan`` (module docstring) the inputs and
     logits are the whole batch's and the cache is this rank's."""
     rows = (tokens if embeds is None else embeds).shape[0]
     split = batch_rows(cfg, plan, rows)

@@ -49,7 +49,8 @@ class TrainConfig:
 
 
 def _split_micro(batch: dict, n: int) -> list[dict]:
-    """n micro-batches of equal rows, in order."""
+    """n micro-batches of equal rows, in order; every entry of the batch
+    (tokens, labels, mask, an encoder-decoder's frames) is split alike."""
     return [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
              for k, v in batch.items()} for i in range(n)]
 

@@ -327,34 +327,42 @@ def test_plans_raise_where_the_reference_does():
 
 @pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "rwkv6-3b",
                                   "whisper-medium"])
-def test_recurrent_and_encdec_blocks_raise_under_a_plan(arch):
-    """Mamba and RWKV-6 blocks serve under a plan (without a mesh every
-    axis has size 1, so prefill and decode are the unsharded functions;
-    ``test_torch_sharded_recurrent.py`` holds them on 4 ranks), while
-    their training loss raises; an encoder-decoder model raises at every
-    entry point.  Both name roadmap item 6d-ii."""
+def test_recurrent_and_encdec_blocks_run_under_a_plan(arch):
+    """Mamba and RWKV-6 blocks and encoder-decoder models run under a plan
+    at every entry point: without a mesh every axis has size 1, so
+    ``api.prefill``, ``api.decode_step`` and ``api.loss_fn`` under TP_DP
+    are the unsharded functions, bit for bit
+    (``test_torch_sharded_recurrent.py``, ``..._recurrent_train.py`` and
+    ``..._encdec.py`` hold them on 4 ranks).  The reference's own raises
+    stay: prefix continuation and the paged steps of an encoder-decoder."""
     cfg = get_config(arch).reduced()
+    model = api.init_params(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(0)
     toks = torch.arange(8, dtype=torch.long).reshape(2, 4) + 2
-    kv_len = torch.full((2,), 4, dtype=torch.int32)
-    match = "6d-ii"
+    kv_len = torch.tensor([4, 3], dtype=torch.int32)
+    batch = {"tokens": toks}
     if cfg.is_encdec:
-        with pytest.raises(NotImplementedError, match=match):
-            api.prefill(cfg, None, {"tokens": toks}, cache_len=8, plan=TP_DP)
-        with pytest.raises(NotImplementedError, match=match):
-            api.decode_step(cfg, None, toks[:, :1], None, kv_len, plan=TP_DP)
-    else:
-        model = api.init_params(cfg, device="cpu")
-        lg, cache = api.prefill(cfg, model, {"tokens": toks}, cache_len=8,
-                                kv_len=kv_len)
-        got, got_cache = api.prefill(cfg, model, {"tokens": toks},
-                                     cache_len=8, kv_len=kv_len, plan=TP_DP)
-        assert torch.equal(got, lg)
-        step = lg.argmax(-1)[:, None]
-        want = api.decode_step(cfg, model, step, cache, kv_len)[0]
-        assert torch.equal(api.decode_step(cfg, model, step, got_cache, kv_len,
-                                           plan=TP_DP)[0], want)
-    with pytest.raises(NotImplementedError, match=match):
-        api.loss_fn(cfg, None, {"tokens": toks, "labels": toks}, plan=TP_DP)
+        batch["frames"] = torch.randn((2, cfg.cross_kv_len, cfg.d_model),
+                                      generator=gen) * 0.02
+    lg, cache = api.prefill(cfg, model, batch, cache_len=8, kv_len=kv_len)
+    got, got_cache = api.prefill(cfg, model, batch, cache_len=8,
+                                 kv_len=kv_len, plan=TP_DP)
+    assert torch.equal(got, lg)
+    step = lg.argmax(-1)[:, None]
+    want = api.decode_step(cfg, model, step, cache, kv_len)[0]
+    assert torch.equal(api.decode_step(cfg, model, step, got_cache, kv_len,
+                                       plan=TP_DP)[0], want)
+    train = {**batch, "labels": toks.roll(-1, 1)}
+    with torch.no_grad():
+        assert torch.equal(api.loss_fn(cfg, model, train, plan=TP_DP)[0],
+                           api.loss_fn(cfg, model, train)[0])
+    if cfg.is_encdec:
+        with pytest.raises(NotImplementedError, match="cross caches"):
+            api.prefill(cfg, model, batch, cache_len=8, plan=TP_DP,
+                        prefix_kv=[{"k": None}])
+        with pytest.raises(NotImplementedError, match="cross caches"):
+            api.paged_decode_step(cfg, model, step, None, None, kv_len,
+                                  plan=TP_DP)
 
 
 def test_training_paged_and_fsdp_raise_under_a_plan():

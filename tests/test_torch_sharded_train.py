@@ -22,31 +22,20 @@ import numpy as np
 import pytest
 
 from repro_torch.distributed.ranks import run_ranks
-from repro_torch.params import from_jax_params, from_jax_tree
 
 import torch_sharded_port
 from torch_sharded_harness import (MESH14, MESH22, S, TRAIN_STEPS,
-                                   jax_tree_of, max_err, plan_case,
-                                   port_arrays, run_cases)
+                                   assert_leaves, check_adafactor_moments,
+                                   check_loss_and_grads, check_train_steps,
+                                   max_err, plan_case, port_arrays, run_cases,
+                                   state_of)
 
-LOSS_RTOL = 1e-5        # loss, nll, lb_loss
-GRAD_TOL = 1e-4         # each gradient leaf, x its largest magnitude
-GRAD_ATOL = 1e-8
-NORM_RTOL = 1e-4        # grad_norm
 # the optimizer on given gradients: each leaf of the new parameters and
 # the state within this x the leaf's largest magnitude
 OPT_RTOL = 1e-6
 # dp_mean_compressed: the int8 sums are exact; XLA rounds the dequantizing
 # product in another order than torch
 COMPRESS_RTOL = 1e-6
-# Adafactor's moments after a train step, each leaf within this x its
-# largest value against the JAX package and against the unsharded port.
-# They are means of squared gradients that differ at float order (summed
-# over ranks in another order), so the optimizer's 1e-6 on given gradients
-# is out of reach: the largest gaps measured on this case are 1.75e-6
-# (JAX), 1.85e-6 (unsharded port) and, between the two unsharded
-# functions, 1.96e-6
-STEP_MOMENT_TOL = 1e-5
 ATOL = 1e-4             # logits
 MOE = "qwen2-moe-a2.7b"
 GRADS = [
@@ -84,77 +73,21 @@ def results(tmp_path_factory):
                      tmp_path_factory.mktemp("sharded_train"))
 
 
-def _rel(a, b) -> float:
-    return abs(float(a) - float(b)) / abs(float(b))
-
-
-def _assert_leaves(got: dict, want: dict, tol: float, what: str):
-    """Each leaf within ``tol`` x its largest magnitude."""
-    assert set(got) == set(want) and len(got) > 10, what
-    for key, v in want.items():
-        err = max_err(got[key], v)
-        assert err <= tol * np.abs(v).max(), (what, key, err)
-
-
-def _assert_grads(got: dict, want: dict, what: str):
-    assert set(got) == set(want), what
-    for name, ref in want.items():
-        tol = GRAD_TOL * np.abs(ref).max() + GRAD_ATOL
-        err = max_err(got[name], ref)
-        assert err <= tol, (what, name, err, tol)
-
-
 @pytest.mark.parametrize("cid", GRAD_IDS)
 def test_loss_and_grads_match_jax_sharded_and_port_unsharded(results, cid):
-    port, ref, plain = results["port"], results["jax"], results["plain"]
-    for name in ("loss", "nll", "lb_loss"):
-        for other in (ref, plain):
-            if float(other[f"{cid}/{name}"]) == 0.0:      # a dense lb_loss
-                assert float(port[f"{cid}/{name}"]) == 0.0
-            else:
-                assert _rel(port[f"{cid}/{name}"], other[f"{cid}/{name}"]) \
-                    <= LOSS_RTOL, (name, other is ref)
-    got = port_arrays(port, f"{cid}/grad")
-    want = {k: v.numpy() for k, v in
-            from_jax_params(jax_tree_of(ref, f"{cid}/grad")).items()}
-    _assert_grads(got, want, "jax sharded")
-    _assert_grads(got, port_arrays(plain, f"{cid}/grad"), "port unsharded")
-    if results["cases"][cid]["arch"] == MOE:
-        assert float(port[f"{cid}/lb_loss"]) > 0
+    check_loss_and_grads(results, cid)
 
 
 @pytest.mark.parametrize("cid", STEP_IDS)
 def test_train_steps_match_jax_sharded_and_port_unsharded(results, cid):
-    port, ref, plain = results["port"], results["jax"], results["plain"]
-    losses = []
-    for i in range(TRAIN_STEPS):
-        for other in (ref, plain):
-            assert _rel(port[f"{cid}/loss{i}"], other[f"{cid}/loss{i}"]) \
-                <= LOSS_RTOL, (i, other is ref)
-            assert _rel(port[f"{cid}/grad_norm{i}"],
-                        other[f"{cid}/grad_norm{i}"]) <= NORM_RTOL, (i, other is ref)
-        losses.append(float(port[f"{cid}/loss{i}"]))
-    assert len(set(losses)) == TRAIN_STEPS      # three batches, three losses
-
-
-def _state(arrays, cid, part, stacked):
-    got = port_arrays(arrays, f"{cid}/{part}")
-    return got if stacked is None else {
-        k: v.numpy() for k, v in (from_jax_tree if stacked else
-                                  from_jax_params)(jax_tree_of(arrays, f"{cid}/{part}")).items()}
+    check_train_steps(results, cid)
 
 
 def test_adafactor_moments_after_one_step(results):
     """qwen2-moe-a2.7b under ep_tp_fsdp: every stacked leaf's row and
     column factors after the first step, gathered (their means psum over
     the sharded dims)."""
-    cid = STEP_IDS[1]
-    port, ref, plain = results["port"], results["jax"], results["plain"]
-    for part in ("vr", "vc"):
-        got = _state(port, cid, part, None)
-        _assert_leaves(got, _state(ref, cid, part, True), STEP_MOMENT_TOL, part)
-        _assert_leaves(got, _state(plain, cid, part, None), STEP_MOMENT_TOL,
-                       part)
+    check_adafactor_moments(results, STEP_IDS[1])
 
 
 @pytest.mark.parametrize("cid", OPT_IDS)
@@ -166,9 +99,9 @@ def test_sharded_optimizer_on_given_gradients(results, cid):
     parts = ("m", "v") if results["cases"][cid]["opt"] == "adamw" \
         else ("vr", "vc")
     for part, stacked in (("p", False), *((q, q in ("vr", "vc")) for q in parts)):
-        got = _state(port, cid, part, None)
-        _assert_leaves(got, _state(ref, cid, part, stacked), OPT_RTOL, part)
-        _assert_leaves(got, _state(plain, cid, part, None), OPT_RTOL, part)
+        got = state_of(port, cid, part, None)
+        assert_leaves(got, state_of(ref, cid, part, stacked), OPT_RTOL, part)
+        assert_leaves(got, state_of(plain, cid, part, None), OPT_RTOL, part)
 
 
 def test_dp_mean_compressed_matches_the_reference(results):

@@ -17,7 +17,12 @@ meshes {data: 2, model: 2} and {data: 1, model: 4}.  The train cases
 (``grad``: the loss and every gradient; ``step``: three train steps;
 ``opt``: two optimizer updates on given gradients; ``compress``:
 ``dp_mean_compressed`` over data) take the train form of
-each plan (``remat``, ``seq_parallel``, no sequence axes).  A ``paged``
+each plan (``remat``, ``seq_parallel``, no sequence axes).  A case marked
+``port_only`` runs on the port's ranks and unsharded alone, not in the
+oracle (the port against itself, e.g. with and without remat).  A step
+case marked ``shared_grad`` runs in the oracle as the reference's train
+step in two programs, the gradients compiled once for it and a grad case
+of the same model and plan (``torch_sharded_jax.shared_grad_step``).  A ``paged``
 case serves one request set through ``PagedEngine`` (its ``variant``:
 ``PAGED_VARIANTS``), or shows where a plan makes it raise.
 """
@@ -38,7 +43,7 @@ from repro.data.workload import (SharedPrefixConfig, WorkloadConfig,
                                  gen_requests, gen_shared_prefix_requests)
 from repro.models import api as jax_api
 from repro_torch.distributed.ranks import run_ranks
-from repro_torch.params import to_jax_tree
+from repro_torch.params import from_jax_params, from_jax_tree, to_jax_tree
 
 import torch_sharded_port as port
 
@@ -141,14 +146,25 @@ def _flat(tree, prefix=""):
     return out
 
 
+def _frames(cfg, rng) -> dict:
+    """An encoder-decoder's seeded frames [B, F, d] (x 0.02, as the
+    reference's smoke tests draw them); nothing for another family."""
+    if not cfg.is_encdec:
+        return {}
+    return {"frames": (rng.standard_normal((B, cfg.cross_kv_len, cfg.d_model))
+                       * 0.02).astype(np.float32)}
+
+
 def _train_batch(cfg, rng, n_shards: int) -> dict:
     """tokens, their next tokens as labels, and a mask whose count is the
     same in each of ``n_shards`` equal row blocks (then a batch-sharded MoE
-    loss is the mean of the unsharded loss over the blocks)."""
+    loss is the mean of the unsharded loss over the blocks); an
+    encoder-decoder's frames besides."""
     toks = rng.integers(2, cfg.vocab_size, (B, S)).astype(np.int32)
     mask = (rng.random((B // n_shards, S)) > 0.2).astype(np.float32)
     mask = np.concatenate([np.roll(mask, i, 1) for i in range(n_shards)])
-    return {"tokens": toks, "labels": np.roll(toks, -1, 1), "mask": mask}
+    return {"tokens": toks, "labels": np.roll(toks, -1, 1), "mask": mask,
+            **_frames(cfg, rng)}
 
 
 def _shards(case) -> int:
@@ -223,6 +239,8 @@ def _inputs(case, cfg, rng, inputs):
         inputs[f"{cid}/kv_len"] = np.array(KV_LEN, np.int32)
         inputs[f"{cid}/steps"] = rng.integers(
             2, cfg.vocab_size, (STEPS, B, 1)).astype(np.int32)
+        for k, v in _frames(cfg, rng).items():
+            inputs[f"{cid}/{k}"] = v
         case["cache_len"] = CACHE_LEN
     elif case["kind"] in ("engine", "continuous"):
         n = case.get("n_prompts") or (4 if case["kind"] == "engine"
@@ -238,7 +256,8 @@ def _inputs(case, cfg, rng, inputs):
         src = case["inputs_from"] + "/"
         for key in [k for k in inputs if k.startswith(src)]:
             inputs[cid + "/" + key[len(src):]] = inputs[key]
-        case["per_shard"], case["steps"] = 1, 1
+        case["per_shard"] = _shards(case) if cfg.moe is not None else 1
+        case["steps"] = 1
     elif case["kind"] in ("grad", "step"):
         # a batch-sharded MoE is the mean of the unsharded function over
         # the batch shards, not the function of the whole batch
@@ -363,3 +382,103 @@ def port_arrays(arrays: dict, prefix: str) -> dict:
 
 def max_err(a, b) -> float:
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
+# The train cases' tolerances (``check_loss_and_grads``,
+# ``check_train_steps``, ``check_adafactor_moments``)
+LOSS_RTOL = 1e-5        # loss, nll, lb_loss
+GRAD_TOL = 1e-4         # each gradient leaf, x its largest magnitude
+GRAD_ATOL = 1e-8
+NORM_RTOL = 1e-4        # grad_norm
+# Adafactor's moments after a train step, each leaf within this x its
+# largest value against the JAX package and against the unsharded port.
+# They are means of squared gradients that differ at float order (summed
+# over ranks in another order), so the optimizer's 1e-6 on given gradients
+# is out of reach: the largest gaps measured on qwen2-moe-a2.7b under
+# ep_tp_fsdp are 1.75e-6 (JAX), 1.85e-6 (unsharded port) and, between the
+# two unsharded functions, 1.96e-6
+STEP_MOMENT_TOL = 1e-5
+
+
+def rel_err(a, b) -> float:
+    return abs(float(a) - float(b)) / abs(float(b))
+
+
+def assert_leaves(got: dict, want: dict, tol, what: str):
+    """Each leaf within ``tol`` (a number, or a function of the leaf's
+    name) x its largest magnitude."""
+    assert set(got) == set(want) and len(got) > 10, what
+    for key, v in want.items():
+        err = max_err(got[key], v)
+        t = tol(key) if callable(tol) else tol
+        assert err <= t * np.abs(v).max(), (what, key, err)
+
+
+def assert_grads(got: dict, want: dict, what: str):
+    assert set(got) == set(want), what
+    for name, ref in want.items():
+        tol = GRAD_TOL * np.abs(ref).max() + GRAD_ATOL
+        err = max_err(got[name], ref)
+        assert err <= tol, (what, name, err, tol)
+
+
+def state_of(arrays, cid, part, stacked):
+    """A case's ``part`` leaves by port name: the port's as they are
+    (``stacked`` None), the reference's tree converted (stacked leaves
+    when ``stacked``)."""
+    got = port_arrays(arrays, f"{cid}/{part}")
+    return got if stacked is None else {
+        k: v.numpy() for k, v in (from_jax_tree if stacked else
+                                  from_jax_params)(jax_tree_of(arrays, f"{cid}/{part}")).items()}
+
+
+def check_loss_and_grads(results, cid):
+    """A ``grad`` case: the loss and each metric the functions return
+    (an MoE's lb_loss, positive) and every gradient leaf, against the JAX
+    sharded function and the port's unsharded one."""
+    port, ref, plain = results["port"], results["jax"], results["plain"]
+    names = [n for n in ("loss", "nll", "lb_loss") if f"{cid}/{n}" in ref]
+    assert names[:2] == ["loss", "nll"]
+    for name in ("loss", "nll", "lb_loss"):
+        assert (f"{cid}/{name}" in port) == (name in names), name
+    for name in names:
+        for other in (ref, plain):
+            if float(other[f"{cid}/{name}"]) == 0.0:      # a dense lb_loss
+                assert float(port[f"{cid}/{name}"]) == 0.0
+            else:
+                assert rel_err(port[f"{cid}/{name}"], other[f"{cid}/{name}"]) \
+                    <= LOSS_RTOL, (name, other is ref)
+    got = port_arrays(port, f"{cid}/grad")
+    want = {k: v.numpy() for k, v in
+            from_jax_params(jax_tree_of(ref, f"{cid}/grad")).items()}
+    assert_grads(got, want, "jax sharded")
+    assert_grads(got, port_arrays(plain, f"{cid}/grad"), "port unsharded")
+    if _jax_cfg(results["cases"][cid]).moe is not None:
+        assert float(port[f"{cid}/lb_loss"]) > 0
+
+
+def check_train_steps(results, cid):
+    """A ``step`` case: each step's loss and grad_norm against the JAX
+    sharded train step and the port's unsharded one; each step's batch
+    gives its own loss."""
+    port, ref, plain = results["port"], results["jax"], results["plain"]
+    losses = []
+    for i in range(TRAIN_STEPS):
+        for other in (ref, plain):
+            assert rel_err(port[f"{cid}/loss{i}"], other[f"{cid}/loss{i}"]) \
+                <= LOSS_RTOL, (i, other is ref)
+            assert rel_err(port[f"{cid}/grad_norm{i}"],
+                           other[f"{cid}/grad_norm{i}"]) <= NORM_RTOL, (i, other is ref)
+        losses.append(float(port[f"{cid}/loss{i}"]))
+    assert len(set(losses)) == TRAIN_STEPS      # three batches, three losses
+
+
+def check_adafactor_moments(results, cid, tol=STEP_MOMENT_TOL):
+    """An Adafactor ``step`` case: every stacked leaf's row and column
+    factors after the first step, gathered (their means psum over the
+    sharded dims), within ``tol`` (``assert_leaves``)."""
+    port, ref, plain = results["port"], results["jax"], results["plain"]
+    for part in ("vr", "vc"):
+        got = state_of(port, cid, part, None)
+        assert_leaves(got, state_of(ref, cid, part, True), tol, part)
+        assert_leaves(got, state_of(plain, cid, part, None), tol, part)

@@ -23,6 +23,7 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
+import time  # noqa: E402
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -96,31 +97,74 @@ def _place(mesh, tree, specs):
 
 
 def _batch(mesh, plan, inputs, cid, i=0):
+    """Step ``i``'s batch placed over the plan's batch axes: tokens,
+    labels, mask and an encoder-decoder's frames."""
     axes = plan.batch_axes if len(plan.batch_axes) > 1 else plan.batch_axes[0]
     return {k: jax.device_put(inputs[f"{cid}/{i}/{k}"],
                               NamedSharding(mesh, P(axes)))
-            for k in ("tokens", "labels", "mask")}
+            for k in ("tokens", "labels", "mask", "frames")
+            if f"{cid}/{i}/{k}" in inputs}
+
+
+GRAD_FNS = {}
+
+
+def grad_fn(cfg, plan):
+    """The jitted ``value_and_grad`` of the sharded ``loss_fn``, one per
+    model and plan: a grad case and a ``shared_grad`` step case of the
+    same model and plan share its compile."""
+    if (cfg, plan) not in GRAD_FNS:
+        GRAD_FNS[cfg, plan] = jax.jit(jax.value_and_grad(
+            lambda p, b: api.loss_fn(cfg, p, b, plan=plan), has_aux=True))
+    return GRAD_FNS[cfg, plan]
+
+
+def shared_grad_step(cfg, plan, tcfg):
+    """``make_train_step``'s body at one micro-batch, run as two programs:
+    ``grad_fn``'s gradients, then the global-norm clip and
+    ``apply_updates``.  Where a grad case has compiled the gradients, the
+    step compiles only its update, a small part of a whole step's
+    compile."""
+    assert tcfg.microbatches == 1
+    grads_of = grad_fn(cfg, plan)
+
+    @jax.jit
+    def update(params, opt, grads, step):
+        gnorm = jnp.sqrt(sum(jnp.sum(g.astype(jnp.float32) ** 2)
+                             for g in jax.tree.leaves(grads)))
+        scale = jnp.minimum(1.0, tcfg.grad_clip / jnp.maximum(gnorm, 1e-9))
+        grads = jax.tree.map(lambda g: g * scale, grads)
+        params, opt = apply_updates(params, grads, opt,
+                                    step.astype(jnp.float32) + 1.0, tcfg.opt)
+        return params, opt, gnorm
+
+    def step_fn(params, opt, batch, step):
+        (loss, _), grads = grads_of(params, batch)
+        params, opt, gnorm = update(params, opt, grads, step)
+        return params, opt, {"loss": loss, "grad_norm": gnorm}
+    return step_fn
 
 
 def run_train(case, cfg, plan, mesh, params, specs, inputs, out):
     """grad: the loss, its metrics and every gradient of the sharded
-    ``loss_fn``; step: three steps of the sharded ``make_train_step``
-    (and Adafactor's moments after the first)."""
+    ``loss_fn``; step: three steps of the sharded ``make_train_step``, or
+    of ``shared_grad_step`` where the case is marked ``shared_grad`` (and
+    Adafactor's moments after the first)."""
     cid = case["id"]
     if case["kind"] == "grad":
-        (loss, met), grads = jax.jit(jax.value_and_grad(
-            lambda p, b: api.loss_fn(cfg, p, b, plan=plan), has_aux=True))(
+        (loss, met), grads = grad_fn(cfg, plan)(
             params, _batch(mesh, plan, inputs, cid))
         out[f"{cid}/loss"] = np.asarray(loss)
-        out[f"{cid}/nll"] = np.asarray(met["nll"])
-        out[f"{cid}/lb_loss"] = np.asarray(met["lb_loss"])
+        for k, v in met.items():      # an encoder-decoder's: nll alone
+            out[f"{cid}/{k}"] = np.asarray(v)
         out.update(_flat(grads, f"{cid}/grad"))
         return
     tcfg = TrainConfig(opt=OptConfig(kind=case["opt"]),
                        microbatches=plan.microbatches)
     opt = _place(mesh, init_opt_state(params, tcfg.opt),
                  opt_state_specs(specs, tcfg.opt))
-    step_fn = jax.jit(make_train_step(cfg, plan, tcfg))
+    step_fn = (shared_grad_step(cfg, plan, tcfg) if case.get("shared_grad")
+               else jax.jit(make_train_step(cfg, plan, tcfg)))
     for i in range(case["steps"]):
         params, opt, m = step_fn(params, opt, _batch(mesh, plan, inputs, cid, i),
                                  jnp.asarray(i, jnp.int32))
@@ -217,12 +261,13 @@ def run(case, mesh, inputs, out_arrays, out_json):
     elif case["kind"] == "compress":
         run_compress(case, mesh, inputs, out_arrays)
     elif case["kind"] == "logits":
-        toks = jnp.asarray(inputs[f"{cid}/tokens"])
+        batch = {k: jnp.asarray(inputs[f"{cid}/{k}"])
+                 for k in ("tokens", "frames") if f"{cid}/{k}" in inputs}
         kv_len = jnp.asarray(inputs[f"{cid}/kv_len"])
         steps = inputs[f"{cid}/steps"]
-        lg, cache = jax.jit(lambda p, t, kl: api.prefill(
-            cfg, p, {"tokens": t}, plan=plan, cache_len=case["cache_len"],
-            kv_len=kl))(params, toks, kv_len)
+        lg, cache = jax.jit(lambda p, b, kl: api.prefill(
+            cfg, p, b, plan=plan, cache_len=case["cache_len"],
+            kv_len=kl))(params, batch, kv_len)
         out_arrays[f"{cid}/prefill"] = np.asarray(lg)
         dec = jax.jit(lambda p, t, c, kl: api.decode_step(cfg, p, t, c, kl,
                                                           plan=plan))
@@ -262,12 +307,16 @@ def main(spec_path, out_dir):
         inputs = {k: f[k] for k in f.files}
     meshes = {}
     for case in spec["cases"]:
+        if case.get("port_only"):       # the port against itself alone
+            continue
         shape = tuple(case["mesh"])
         if shape not in meshes:
             meshes[shape] = jax.make_mesh(shape, ("data", "model"),
                                           axis_types=(AxisType.Auto,) * 2)
+        t0 = time.perf_counter()
         with set_mesh(meshes[shape]):
             run(case, meshes[shape], inputs, out_arrays, out_json)
+        print(f"{case['id']}: {time.perf_counter() - t0:.1f} s", flush=True)
     np.savez(os.path.join(out_dir, "jax.npz"), **out_arrays)
     with open(os.path.join(out_dir, "jax.json"), "w") as f:
         json.dump(out_json, f, default=lambda a: a.item())

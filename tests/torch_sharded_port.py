@@ -140,8 +140,11 @@ def paged_case(case, cfg, model, plan, arrays, tokens):
 
 
 def train_batch(inputs, cid, i=0) -> dict:
+    """Step ``i``'s batch: tokens, labels, mask and an encoder-decoder's
+    frames."""
     return {k: torch.as_tensor(inputs[f"{cid}/{i}/{k}"])
-            for k in ("tokens", "labels", "mask")}
+            for k in ("tokens", "labels", "mask", "frames")
+            if f"{cid}/{i}/{k}" in inputs}
 
 
 def _rows(batch: dict, n: int, i: int) -> dict:
@@ -274,14 +277,23 @@ CACHE_SPECS = []
 def record_cache(case, cfg, plan, cache, arrays, step):
     """Each tensor of ``cache`` gathered to full (``{cid}/cache{step}/
     {layer}/{name}``) and, under ``plan``, its layout beside the
-    reference's spec of its full shape (``CACHE_SPECS``)."""
-    for i, entry in enumerate(cache):
+    reference's spec of its full shape (``CACHE_SPECS``).  An
+    encoder-decoder's entries nest {"self", "cross"}: their tensors are
+    named ``self/k``, ``cross/ck``, ..."""
+    def leaves(entry, prefix=""):
         for name, t in entry.items():
+            if isinstance(t, dict):
+                yield from leaves(t, f"{prefix}{name}/")
+            else:
+                yield prefix + name, t
+
+    for i, entry in enumerate(cache):
+        for name, t in leaves(entry):
             full = t if plan is None else gather_tensor(t, t.shard_spec)
             arrays[f"{case['id']}/cache{step}/{i}/{name}"] = full.numpy().copy()
             if plan is not None:
-                want = cache_spec(cfg, plan, name, tuple(full.shape),
-                                  current_mesh().shape)
+                want = cache_spec(cfg, plan, name.split("/")[-1],
+                                  tuple(full.shape), current_mesh().shape)
                 CACHE_SPECS.append([step, i, name, t.shard_spec, want])
 
 
@@ -295,9 +307,11 @@ def run_case(case, cfg, model, plan, inputs, arrays, tokens):
     elif case["kind"] == "compress":
         run_compress_case(case, plan, inputs, arrays)
     elif case["kind"] == "logits":
-        toks = torch.as_tensor(inputs[f"{cid}/tokens"]).long()
+        batch = {"tokens": torch.as_tensor(inputs[f"{cid}/tokens"]).long()}
+        if f"{cid}/frames" in inputs:
+            batch["frames"] = torch.as_tensor(inputs[f"{cid}/frames"])
         kv_len = torch.as_tensor(inputs[f"{cid}/kv_len"])
-        lg, cache = api.prefill(cfg, model, {"tokens": toks},
+        lg, cache = api.prefill(cfg, model, batch,
                                 cache_len=case["cache_len"], kv_len=kv_len,
                                 plan=plan)
         arrays[f"{cid}/prefill"] = lg.numpy()
