@@ -351,6 +351,25 @@ Phases, in order; any failed check exits non-zero:
    times a step; prints the prefill and decode step times beside the card
    alone's, the gloo calls a step, each rank's memory held and peak, the
    train steps' times and rank 0's seconds in gloo.
+21. dry run (``[dryrun]`` lines): ``launch.dryrun`` (rank r's program on
+   meta tensors over a fake process group: nothing launches on the card)
+   in a subprocess of this script, its cells' ranks over 8 worker
+   processes.  (a) production cells at full width on the 16x16 fake mesh,
+   priced at the H100: the hillclimb's three climbs (``launch.hillclimb``)
+   and train_4k and decode_32k of smollm-135m, gemma2-27b, minicpm3-4b,
+   qwen2-moe-a2.7b, llama4-maverick-400b-a17b, jamba-1.5-large-398b,
+   rwkv6-3b and whisper-medium (not rwkv6-3b's train cell, which the dry
+   run skips, nor jamba's, ~10 minutes a rank of one core: DRYRUN_CELLS);
+   each cell's plan, whether its peak fits 80 GiB, GiB a rank of
+   parameters, optimizer state, cache and peak, collective calls and bytes
+   by kind and the kernel calls.  (b) phases 17, 19 and 20's configs,
+   batches, plans and f32 on 4 fake ranks, held exactly to what those
+   phases measured on the card: each rank's parameter-slice bytes and
+   phases 17 and 20's optimizer-state bytes, the collective calls of a
+   decode step (27 and 8 for rwkv6-3b and jamba, 75 for whisper-medium),
+   K2 and K3 calls a step (72 a prefill and 48 a step for whisper-medium);
+   the dry run's peak is printed beside each rank's measured peak, with
+   their ratio (no bound).  Any error fails the phase.
 Card-vs-CPU logits at a cut depth run on the phase's own weights: their
 first layers, moved to the CPU after the card's run.  Each path runs with
 the launch counts set to 0 just before it and read just after.  A
@@ -406,7 +425,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: E402
 from repro_torch.kernels.paged_attention.ops import paged_splits  # noqa: E402
 from repro_torch.kernels.wkv6 import (  # noqa: E402
     wkv6, wkv6_chunked, wkv6_sequential)
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.configs.base import ShapeConfig  # noqa: E402
+from repro_torch.launch import dryrun, hillclimb, serve, train  # noqa: E402
+from repro_torch.perf.cost_model import ParallelismDesc  # noqa: E402
 from repro_torch.models import api, attention, mamba, moe  # noqa: E402
 from repro_torch.models import rwkv as rwkv_model  # noqa: E402
 from repro_torch.models.attention import (  # noqa: E402
@@ -634,6 +655,30 @@ SHARDED_ENCDEC_PLAN = ShardingPlan(batch_axes=("data",), model_axis="model",
 SHARDED_ENCDEC_TRAIN_PLAN = ShardingPlan(**_TRAIN_PLAN)
 SHARDED_ENCDEC_TRAIN_LAYERS, SHARDED_ENCDEC_TRAIN_STEPS = 2, 2
 SHARDED_ENCDEC_TRAIN_SEQ = 64
+# phase 21: the dry run (``launch.dryrun``: rank r's program on meta tensors
+# over a fake process group), in a subprocess of its own, so that no fake
+# group lives beside phases 16-20's gloo ranks, its (cell, rank) runs
+# spread over DRYRUN_WORKERS forked processes.  (a) production cells at full
+# width on the 16x16 fake mesh, priced at the H100: the hillclimb's three
+# climbs, then DRYRUN_CELLS, train_4k and decode_32k of smollm-135m,
+# gemma2-27b, minicpm3-4b, qwen2-moe-a2.7b, llama4-maverick-400b-a17b,
+# jamba-1.5-large-398b, rwkv6-3b and whisper-medium, less rwkv6-3b's train
+# cell (skipped: K4 has no backward on the card) and jamba's: its Mamba
+# scan steps through the 4,096 tokens of each of its 63 Mamba layers one
+# at a time, forward, again under remat and backward, ~600 s a rank on
+# one core of the CPU (PR 34's run of ``--all``, which covers it).
+# ``--all`` itself takes well over an hour of one core, past the 45 s
+# this phase may give it.  (b) phases 17, 19 and 20's configs, batches,
+# plans and f32 on {data: 2, model: 2}, every rank
+DRYRUN_CELLS = [(arch, shape) for shape in ("train_4k", "decode_32k")
+                for arch in ("smollm-135m", "gemma2-27b", "minicpm3-4b",
+                             "qwen2-moe-a2.7b", "llama4-maverick-400b-a17b",
+                             "jamba-1.5-large-398b", "rwkv6-3b",
+                             "whisper-medium")
+                if (arch, shape) not in (("rwkv6-3b", "train_4k"),
+                                         ("jamba-1.5-large-398b", "train_4k"))]
+DRYRUN_WORKERS = 8
+DRYRUN_TIMEOUT = 300.0          # seconds the subprocess may take
 # a gradient leaf's absolute error floor beside TOL_TRAIN_GRAD x its
 # largest value (tests/torch_sharded_harness.py's GRAD_ATOL): whisper's
 # attention key biases have a true gradient of 0 (softmax is
@@ -3789,11 +3834,19 @@ def sharded_train_cfg(model: str):
     return replace(sharded_cfg(model), n_layers=SHARDED_TRAIN_LAYERS[model])
 
 
+def tensor_bytes(tensors) -> int:
+    """Bytes of ``tensors`` (an iterable)."""
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def train_bytes(named: dict, opt_state: dict) -> int:
     """Bytes of the parameters and the optimizer state this process holds."""
-    return sum(t.numel() * t.element_size() for t in named.values()) + sum(
-        t.numel() * t.element_size() for part in opt_state.values()
-        for t in part.values())
+    return tensor_bytes(named.values()) + opt_bytes(opt_state)
+
+
+def opt_bytes(opt_state: dict) -> int:
+    """Bytes of an optimizer state."""
+    return tensor_bytes(t for part in opt_state.values() for t in part.values())
 
 
 def step_gradients(cfg, plan, params, batch: dict, microbatches: int,
@@ -3900,6 +3953,8 @@ def sharded_train_run(cfg, params, plan, tcfg, steps: int, gloo, step1,
     return {"losses": losses, "grad_norms": norms,
             "step_ms": [w * 1e3 for w in walls], "launches": launches,
             "bytes": train_bytes(named, opt),
+            "param_bytes": tensor_bytes(named.values()),
+            "opt_bytes": opt_bytes(opt),
             "gloo": gloo.read() if gloo is not None else None,
             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
             "reserved_gib": torch.cuda.max_memory_reserved() / 2**30,
@@ -4171,8 +4226,9 @@ def phase_sharded_train() -> dict:
             fail(f"sharded train {name}: launches {got}, expected {want}")
         out["runs"][name] = {k: [r[name][k] for r in ranks] if k in
                              ("losses", "grad_norms", "launches", "step_ms",
-                              "bytes", "peak_gib", "reserved_gib",
-                              "step1_peak_gib", "free_gib") else v
+                              "bytes", "param_bytes", "opt_bytes", "peak_gib",
+                              "reserved_gib", "step1_peak_gib", "free_gib")
+                             else v
                              for k, v in rec.items()} | {
             "mesh": [2, 2], "plan": asdict(plan), "optimizer": optimizer,
             "loss_rel_err": loss_err, "grad_norm_rel_err": norm_err}
@@ -4539,13 +4595,14 @@ def sharded_recurrent_rank(rank: int, out_dir: str) -> None:
                 dist.barrier()
             draw_s = time.perf_counter() - t0
             held = torch.cuda.memory_allocated() / 2**30
+            param_bytes = tensor_bytes(params.parameters())
             rec = recurrent_serve(cfg, params, SHARDED_RECURRENT_PLAN, gloo)
             del params
             torch.cuda.empty_cache()
             if rank == 0:
                 np.save(out / f"{model}.npy", rec["logits"])
             recs[model] = {k: v for k, v in rec.items() if k != "logits"} | {
-                "draw_s": draw_s, "held_gib": held}
+                "draw_s": draw_s, "held_gib": held, "param_bytes": param_bytes}
     recs["shapes"] = {"wkv6": wkv.read(), "decode": dec.read()}
     (out / f"rank{rank}.json").write_text(json.dumps(recs))
 
@@ -4658,6 +4715,7 @@ def phase_sharded_recurrent() -> dict:
             "gloo_rank0": rec["gloo"], "draw_s": rec["draw_s"],
             "held_gib": [r[model]["held_gib"] for r in ranks],
             "peak_gib": [r[model]["peak_gib"] for r in ranks],
+            "param_bytes": [r[model]["param_bytes"] for r in ranks],
             "one_card_peak_gib": ref["peak_gib"]}
     heads = {row[2] for r in ranks for row in r["shapes"]["wkv6"]}
     want_heads = recurrent_cfg("rwkv6").n_heads // 2
@@ -4753,13 +4811,14 @@ def sharded_encdec_rank(rank: int, out_dir: str) -> None:
         params = drawn(cfg, SHARDED_ENCDEC_PLAN)
         draw_s = time.perf_counter() - t0
         held = torch.cuda.memory_allocated() / 2**30
+        param_bytes = tensor_bytes(params.parameters())
         rec = encdec_serve(cfg, params, SHARDED_ENCDEC_PLAN, gloo)
         del params
         torch.cuda.empty_cache()
         if rank == 0:
             np.save(out / "logits.npy", rec["logits"])
         recs["serve"] = {k: v for k, v in rec.items() if k != "logits"} | {
-            "draw_s": draw_s, "held_gib": held}
+            "draw_s": draw_s, "held_gib": held, "param_bytes": param_bytes}
         cfg = encdec_train_cfg()
         plan = SHARDED_ENCDEC_TRAIN_PLAN
         params = drawn(cfg, plan).requires_grad_(True)
@@ -4915,6 +4974,7 @@ def phase_sharded_encdec() -> dict:
                     "gloo_rank0": ranks[0]["serve"]["gloo"],
                     "held_gib": [r["serve"]["held_gib"] for r in ranks],
                     "peak_gib": [r["serve"]["peak_gib"] for r in ranks],
+                    "param_bytes": [r["serve"]["param_bytes"] for r in ranks],
                     "one_card_peak_gib": alone["peak_gib"]}
     # train
     layers = train_cfg.n_encoder_layers + 2 * train_cfg.n_layers
@@ -4959,11 +5019,214 @@ def phase_sharded_encdec() -> dict:
         fail(f"sharded encdec: {bad}")
     out["train"] = {k: [r["train"][k] for r in ranks] for k in (
         "losses", "grad_norms", "launches", "step_ms", "peak_gib",
-        "grad_worst", "grad_worst_leaf")} | {
+        "param_bytes", "opt_bytes", "grad_worst", "grad_worst_leaf")} | {
         "one_card": alone_train, "loss_rel_err": loss_err,
         "grad_norm_rel_err": norm_err, "gloo_rank0": rec["gloo"],
         "plan": asdict(SHARDED_ENCDEC_TRAIN_PLAN)}
     out["launches"] = launches
+    return out
+
+
+# ---------------------------------------------------------------- phase 21
+
+def dryrun_mirrors() -> dict:
+    """Phases 17, 19 and 20's runs as dry-run cells on {data: 2, model: 2}
+    in f32: name -> (config, shape, plan, optimizer).  Phase 17's train
+    steps of SHARDED_TRAIN_BATCH x SHARDED_TRAIN_SEQ; phase 19's decode of
+    4 rows over a cache of SHARDED_CACHE; phase 20's prefill of 4 rows
+    (1,536 frames, 192 prompt tokens: the K2 calls do not depend on the
+    lengths), the short batch's decode step, and its train step (the
+    reference's train input specs give 64 frames a row where phase 20
+    feeds 1,536, so that cell's peak is not like for like)."""
+    out = {}
+    for name, model, plan, optimizer, _ in SHARDED_TRAIN_RUNS:
+        out[f"sharded_train/{name}"] = (
+            sharded_train_cfg(model),
+            ShapeConfig("phase17_train", SHARDED_TRAIN_SEQ,
+                        SHARDED_TRAIN_BATCH, "train"), plan, optimizer)
+    for model in SHARDED_RECURRENT:
+        out[f"sharded_recurrent/{model}"] = (
+            recurrent_cfg(model),
+            ShapeConfig("phase19_decode", SHARDED_CACHE, 4, "decode"),
+            SHARDED_RECURRENT_PLAN, "adamw")
+    cfg = get_config("whisper-medium")
+    _, lengths, _, cache_len = WHISPER_BATCHES[0]
+    out["sharded_encdec/prefill"] = (
+        cfg, ShapeConfig("phase20_prefill", WHISPER_FRAMES, len(lengths),
+                         "prefill"), SHARDED_ENCDEC_PLAN, "adamw")
+    out["sharded_encdec/decode"] = (
+        cfg, ShapeConfig("phase20_decode", cache_len, len(lengths), "decode"),
+        SHARDED_ENCDEC_PLAN, "adamw")
+    out["sharded_encdec/train"] = (
+        encdec_train_cfg(), ShapeConfig("phase20_train",
+                                        SHARDED_ENCDEC_TRAIN_SEQ, 4, "train"),
+        SHARDED_ENCDEC_TRAIN_PLAN, "adamw")
+    return out
+
+
+def dryrun_tasks() -> list:
+    """The dry-run subprocess's tasks, the longest first: each (a) cell's
+    rank 0 and last rank apart (train cells first), the hillclimb's three
+    climbs, and each (b) cell's four ranks apart."""
+    cells = [("cell", arch, shape, rank) for arch, shape in DRYRUN_CELLS
+             for rank in (0, 255)]
+    trains = [t for t in cells if t[2] == "train_4k"]
+    climbs = [("climb", name) for name in ("smollm", "minicpm3", "gemma2")]
+    mirrors = [("mirror", name, rank) for name in dryrun_mirrors()
+               for rank in range(SHARDED_WORLD)]
+    return trains + climbs + [t for t in cells if t not in trains] + mirrors
+
+
+def dryrun_task(task: tuple) -> tuple:
+    """One task in a worker process: (task, its record or its error)."""
+    torch.set_num_threads(1)
+    try:
+        if task[0] == "climb":
+            return task, getattr(hillclimb, f"climb_{task[1]}")()
+        if task[0] == "cell":
+            _, arch, shape, rank = task
+            return task, dryrun.lower_cell(
+                get_config(arch), SHAPES[shape], multi_pod=False,
+                ranks=(rank,), verbose=False)
+        _, name, rank = task
+        cfg, shape, plan, optimizer = dryrun_mirrors()[name]
+        mp = dryrun.plan_of(name, plan, cfg, shape,
+                            ParallelismDesc(optimizer=optimizer))
+        return task, dryrun.lower_cell(
+            cfg, shape, multi_pod=False, mesh_plan=mp,
+            mesh_shape={"data": 2, "model": 2}, dtype=torch.float32,
+            ranks=(rank,), verbose=False)
+    except Exception as e:                          # noqa: BLE001
+        return task, {"error": f"{type(e).__name__}: {e}"}
+
+
+def dryrun_main(out_dir: str) -> None:
+    """The dry-run subprocess: every task of ``dryrun_tasks`` over
+    DRYRUN_WORKERS forked workers; each cell's ranks merged into one
+    record.  Writes ``dryrun.json``."""
+    import multiprocessing
+    t0 = time.perf_counter()
+    cells, climbs, mirrors, errors = {}, {}, {}, []
+    with multiprocessing.get_context("fork").Pool(DRYRUN_WORKERS) as pool:
+        for task, rec in pool.imap_unordered(dryrun_task, dryrun_tasks()):
+            if isinstance(rec, dict) and "error" in rec:
+                errors.append(f"{task}: {rec['error']}")
+            elif task[0] == "climb":
+                climbs[task[1]] = rec
+            else:
+                into = cells if task[0] == "cell" else mirrors
+                key = "/".join(task[1:3]) if task[0] == "cell" else task[1]
+                into.setdefault(key, []).append(rec)
+    merged = {}
+    for key, recs in list(cells.items()) + list(mirrors.items()):
+        recs.sort(key=lambda r: r["ranks"][0]["rank"])
+        merged[key] = recs[0] | {
+            "ranks": [r["ranks"][0] for r in recs],
+            "fits": all(r["fits"] for r in recs),
+            "wall_s": sum(r["wall_s"] for r in recs)}
+    Path(out_dir, "dryrun.json").write_text(json.dumps({
+        "cells": {k: merged[k] for k in cells},
+        "mirrors": {k: merged[k] for k in mirrors}, "climbs": climbs,
+        "errors": errors, "wall_s": time.perf_counter() - t0}))
+
+
+def phase_dryrun(sharded_train: dict, sharded_recurrent: dict,
+                 sharded_encdec: dict) -> dict:
+    """The dry run (``launch.dryrun``) in a subprocess (``dryrun_main``):
+    (a) production cells at full width on the 16x16 fake mesh, priced at
+    the H100: the hillclimb and DRYRUN_CELLS,
+    each cell's plan, fit in 80 GiB, GiB a rank, collectives and kernel
+    calls printed; (b) phases 17, 19 and 20's runs dry-run on 4 fake ranks
+    and held exactly to what those phases measured on the card: each
+    rank's slice and optimizer-state bytes, the collective calls of a
+    decode step, K2 and K3 calls a step; the dry run's peak printed beside
+    each rank's measured peak.  Any error fails the phase."""
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dryrun", str(out_dir)], timeout=DRYRUN_TIMEOUT)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode:
+        fail(f"dryrun: the subprocess exited {proc.returncode}")
+    res = json.loads((out_dir / "dryrun.json").read_text())
+    print(f"[dryrun] subprocess {sub_s:.1f} s ({res['wall_s']:.1f} s of "
+          f"tasks over {DRYRUN_WORKERS} workers)", flush=True)
+    if res["errors"]:
+        fail(f"dryrun: {res['errors']}")
+    for key, rec in res["cells"].items():
+        print(f"[dryrun] (a) {key}: {dryrun.summary(rec)}", flush=True)
+    bad = []
+    gib = 2 ** 30
+
+    def held(name, measured, kinds, peaks):
+        """Check each rank's (b) numbers against the card's ``measured``
+        (kind -> a list by rank) and print the peaks beside ``peaks``."""
+        rec = res["mirrors"][name]
+        got = {k: [fn(r) for r in rec["ranks"]] for k, fn in kinds.items()}
+        for k, want in measured.items():
+            if got[k] != want:
+                bad.append(f"{name} {k}: dry run {got[k]}, card {want}")
+        dry_peak = [r["memory"]["peak"] / gib for r in rec["ranks"]]
+        print(f"[dryrun] (b) {name}: "
+              + "; ".join(f"{k} {got[k]} (card {measured[k]})"
+                          for k in measured)
+              + f"; peak GiB a rank: dry run "
+              f"{[round(p, 3) for p in dry_peak]}, card "
+              f"{[round(p, 3) for p in peaks]}, ratio "
+              f"{[round(d / c, 3) for d, c in zip(dry_peak, peaks)]}",
+              flush=True)
+        return {"dry": got, "card": measured, "dry_peak_gib": dry_peak,
+                "card_peak_gib": peaks}
+
+    def calls(r):
+        return sum(r["collectives"]["calls"].values())
+    param = ("params", lambda r: r["memory"]["params"])
+    opt = ("opt_state", lambda r: r["memory"]["opt_state"])
+    k2 = ("k2", lambda r: r["kernels"]["flash_attention"])
+    k2g = ("k2_grad", lambda r: r["kernels"]["flash_attention_grad"])
+    k3 = ("k3", lambda r: r["kernels"]["decode_attention"])
+    out = {"subprocess_s": sub_s, "cells": res["cells"],
+           "climbs": res["climbs"], "mirrors": {}}
+    for name, _, _, _, steps in SHARDED_TRAIN_RUNS:
+        run = sharded_train["runs"][name]
+        out["mirrors"][name] = held(f"sharded_train/{name}", {
+            "params": run["param_bytes"], "opt_state": run["opt_bytes"],
+            "k2": [x["flash_attention"] // steps for x in run["launches"]],
+            "k2_grad": [x["flash_attention_backward"] // steps
+                        for x in run["launches"]]},
+            dict((param, opt, k2, k2g)), run["peak_gib"])
+    for model in SHARDED_RECURRENT:
+        run = sharded_recurrent["runs"][model]
+        out["mirrors"][model] = held(f"sharded_recurrent/{model}", {
+            "params": run["param_bytes"],
+            "collective_calls": run["gloo_calls_per_step"]},
+            dict((param, ("collective_calls", calls))), run["peak_gib"])
+    serve = sharded_encdec["serve"]
+    first = sharded_encdec["runs"][WHISPER_BATCHES[0][0]]
+    n_new = WHISPER_BATCHES[0][2]
+    out["mirrors"]["encdec prefill"] = held("sharded_encdec/prefill", {
+        "params": serve["param_bytes"],
+        "k2": [p["flash_attention"] for p, _ in first["launches_per_rank"]]},
+        dict((param, k2)), serve["peak_gib"])
+    out["mirrors"]["encdec decode"] = held("sharded_encdec/decode", {
+        "params": serve["param_bytes"],
+        "collective_calls": serve["gloo_calls_per_step"],
+        "k3": [d["decode_attention"] // n_new
+               for _, d in first["launches_per_rank"]]},
+        dict((param, ("collective_calls", calls), k3)), serve["peak_gib"])
+    train_run = sharded_encdec["train"]
+    steps = SHARDED_ENCDEC_TRAIN_STEPS
+    out["mirrors"]["encdec train"] = held("sharded_encdec/train", {
+        "params": train_run["param_bytes"],
+        "opt_state": train_run["opt_bytes"],
+        "k2": [x["flash_attention"] // steps for x in train_run["launches"]],
+        "k2_grad": [x["flash_attention_backward"] // steps
+                    for x in train_run["launches"]]},
+        dict((param, opt, k2, k2g)), train_run["peak_gib"])
+    if bad:
+        fail(f"dryrun: {bad}")
     return out
 
 
@@ -5009,6 +5272,8 @@ def main() -> None:
     sharded_paged = run("sharded_paged", phase_sharded_paged)
     sharded_recurrent = run("sharded_recurrent", phase_sharded_recurrent)
     sharded_encdec = run("sharded_encdec", phase_sharded_encdec)
+    dry = run("dryrun", phase_dryrun, sharded_train, sharded_recurrent,
+              sharded_encdec)
     for key in ("padded_outputs", "first_prompts", "long_outputs"):
         served.pop(key)
     launches = {k: served["serve"]["launches"][k]
@@ -5066,7 +5331,8 @@ def main() -> None:
               "train": trained, "sharded": sharded,
               "sharded_train": sharded_train, "sharded_paged": sharded_paged,
               "sharded_recurrent": sharded_recurrent,
-              "sharded_encdec": sharded_encdec, "kernels": kernels,
+              "sharded_encdec": sharded_encdec, "dryrun": dry,
+              "kernels": kernels,
               "phase_s": phase_s,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
@@ -5081,4 +5347,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dryrun"]:
+        dryrun_main(sys.argv[2])
+    else:
+        main()

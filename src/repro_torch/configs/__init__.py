@@ -1,5 +1,7 @@
 """Architecture registry of the port.  ``get_config(name)`` resolves every
-arch of the reference registry; an unknown name raises ``KeyError``."""
+arch of the reference registry; an unknown name raises ``KeyError``.
+``list_archs`` names the reference's assigned archs in its order, and with
+``include_extra`` the paper's own chatglm2-6b too."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (  # noqa: F401
@@ -37,3 +39,14 @@ def get_config(name: str) -> ModelConfig:
         return _PORTED[name]
     raise KeyError(f"unknown arch {name!r}; known: {sorted(_PORTED)}")
 
+
+
+# the reference's registry order (``repro/configs/__init__.py:14``);
+# chatglm2-6b, the paper's own evaluation model, is not an assigned cell
+_ORDER = ("llama4-maverick-400b-a17b", "qwen2-moe-a2.7b", "whisper-medium",
+          "qwen2-1.5b", "smollm-135m", "gemma2-27b", "minicpm3-4b",
+          "jamba-1.5-large-398b", "qwen2-vl-7b", "rwkv6-3b", "chatglm2-6b")
+
+
+def list_archs(include_extra: bool = False) -> list[str]:
+    return list(_ORDER) if include_extra else list(_ORDER[:-1])

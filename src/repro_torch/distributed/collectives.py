@@ -25,6 +25,13 @@ bus's rate); on NCCL it stays on the card.  ``reduce_scatter`` is an
 all-reduce followed by taking this rank's slice on either.  The groups'
 ranks are row-major over the axes, so a gather concatenates the shards in
 the reference's order.
+
+``counts`` tallies every ``torch.distributed`` call issued here, by kind
+(``all_reduce``, ``all_gather``, ``all_to_all``) and by the axes of its
+group: calls, and this rank's input bytes to the call.  A backward counts
+as the calls it makes (a psum's backward is an all_reduce).  ``reset`` and
+``read`` it around a step, as the kernels' ``launches``; the dry run
+(``launch.dryrun``) records it.
 """
 from __future__ import annotations
 
@@ -32,6 +39,38 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.sharding.mesh import Axes, Mesh, axis_size, current_mesh
+
+KINDS = ("all_reduce", "all_gather", "all_to_all")
+
+
+class CallCounts:
+    """Calls and input bytes of the collectives issued, by (kind, axes)."""
+
+    def __init__(self):
+        self._by: dict[tuple[str, tuple[str, ...]], list[int]] = {}
+
+    def add(self, kind: str, mesh: Mesh, group, x: torch.Tensor) -> None:
+        entry = self._by.setdefault((kind, mesh.group_axes(group)), [0, 0])
+        entry[0] += 1
+        entry[1] += x.numel() * x.element_size()
+
+    def reset(self) -> None:
+        self._by.clear()
+
+    def read(self) -> dict:
+        """{"calls": {kind: n}, "bytes": {kind: n}, "by_axes": {"kind
+        over a,b": {"calls", "bytes"}}}; every kind is listed."""
+        calls = dict.fromkeys(KINDS, 0)
+        nbytes = dict.fromkeys(KINDS, 0)
+        by_axes = {}
+        for (kind, axes), (n, b) in sorted(self._by.items()):
+            calls[kind] += n
+            nbytes[kind] += b
+            by_axes[f"{kind} over {','.join(axes)}"] = {"calls": n, "bytes": b}
+        return {"calls": calls, "bytes": nbytes, "by_axes": by_axes}
+
+
+counts = CallCounts()
 
 
 def axis_index(axis: Axes) -> int:
@@ -63,12 +102,14 @@ def _send(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def _all_reduce(mesh, group, x: torch.Tensor, op) -> torch.Tensor:
+    counts.add("all_reduce", mesh, group, x)
     buf = _send(mesh, x)
     dist.all_reduce(buf, op=op, group=group)
     return buf.to(x.device)
 
 
 def _all_gather(mesh, group, x: torch.Tensor, dim: int) -> torch.Tensor:
+    counts.add("all_gather", mesh, group, x)
     buf = _send(mesh, x)
     n = dist.get_world_size(group)
     parts = [_host(buf.shape, buf.dtype) if mesh.stages(x)
@@ -93,6 +134,7 @@ def _place(g: torch.Tensor, n: int, index: int, dim: int) -> torch.Tensor:
 
 def _all_to_all(mesh, group, x: torch.Tensor, split: int,
                 concat: int) -> torch.Tensor:
+    counts.add("all_to_all", mesh, group, x)
     n = dist.get_world_size(group)
     send = _send(mesh, torch.stack(x.chunk(n, dim=split)))
     recv = _host(send.shape, send.dtype) if mesh.stages(x) \

@@ -12,6 +12,11 @@ cache's capacity alone, so the host never reads ``kv_len``), stages K/V
 tiles in shared memory with ``cp.async``, and merges the blocks' (m, l,
 acc) partials through distributed shared memory in the same launch — see
 the source for the design.
+
+On ``meta`` tensors (the dry run) the wrapper checks its inputs as for the
+card, raises under grad as there, and returns an output of the kernel's
+shape and dtype on ``meta``, counted in ``meta_calls``; nothing is launched
+and no plain version runs.
 """
 from __future__ import annotations
 
@@ -94,7 +99,7 @@ def decode_attention(
     if q.device.type == "cpu":
         return decode_attention_reference(q, k, v, kv_len, softcap=softcap,
                                           window=window, scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     build.check_no_grad("decode_attention", q, k, v)
     if kv_len.dtype != torch.int32:
@@ -107,6 +112,9 @@ def decode_attention(
     check_vector_rows("decode_attention", d, dv, k, v)
     scale = scale if scale is not None else d ** -0.5
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        decode_attention.meta_calls += 1
+        return out
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
@@ -122,3 +130,4 @@ def decode_attention(
 
 
 decode_attention.launches = 0   # kernel launches, read by chip_smoke.py
+decode_attention.meta_calls = 0  # calls on meta tensors (no launch)

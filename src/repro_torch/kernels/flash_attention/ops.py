@@ -16,6 +16,16 @@ of an ``autograd.Function`` whose backward is ``flash_attention_grad``, in
 torch ops, as the reference's gradient is XLA's autodiff outside any
 Pallas kernel; on CPU tensors autograd runs through the plain version.
 Under ``no_grad`` or ``inference_mode`` the kernel is launched alone.
+
+On ``meta`` tensors (the dry run, ``launch.dryrun``) the wrapper checks its
+inputs as for the card and returns an output of the kernel's shape and
+dtype on ``meta``: nothing is launched and no plain version runs; the call
+is counted in ``meta_calls`` (``launches`` does not move).  Under grad the
+``autograd.Function`` is the same as on the card, so its backward runs
+``flash_attention_grad`` on meta tensors (counted in
+``meta_backward_calls``).  Dispatch is on the device alone: ``cpu`` runs
+the plain version, ``cuda`` the kernel, ``meta`` gives shapes, any other
+device raises.
 """
 from __future__ import annotations
 
@@ -82,7 +92,7 @@ def flash_attention(
         return flash_attention_reference(q, k, v, causal=causal, window=window,
                                          softcap=softcap, q_offset=q_offset,
                                          scale=scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
@@ -97,10 +107,14 @@ def flash_attention(
 
 
 def _launch(q, k, v, causal, window, softcap, q_offset, scale) -> torch.Tensor:
-    """One launch of the kernel on checked CUDA tensors."""
+    """One launch of the kernel on checked CUDA tensors; on meta tensors
+    the output's shape alone."""
     b, sq, h, d = q.shape
     _, skv, kv, dv = v.shape
     out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        flash_attention.meta_calls += 1
+        return out
     if out.numel() == 0:
         return out
     with torch.cuda.device(q.device):
@@ -117,7 +131,7 @@ def _launch(q, k, v, causal, window, softcap, q_offset, scale) -> torch.Tensor:
 
 class _FlashAttention(torch.autograd.Function):
     """The kernel's forward with ``flash_attention_grad`` as its backward,
-    for CUDA inputs that require grad."""
+    for CUDA (or meta) inputs that require grad."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, q_offset, scale):
@@ -129,10 +143,15 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        flash_attention.backward_calls += 1
+        if do.device.type == "meta":
+            flash_attention.meta_backward_calls += 1
+        else:
+            flash_attention.backward_calls += 1
         grads = flash_attention_grad(*ctx.saved_tensors, do, **ctx.opts)
         return (*grads, None, None, None, None, None)
 
 
 flash_attention.launches = 0         # kernel launches, read by chip_smoke.py
 flash_attention.backward_calls = 0   # backwards of kernel launches
+flash_attention.meta_calls = 0       # calls on meta tensors (no launch)
+flash_attention.meta_backward_calls = 0   # their backwards

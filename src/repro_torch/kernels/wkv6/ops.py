@@ -11,6 +11,11 @@ carries each block's columns of the state in shared memory across the
 chunks, and builds the intra-chunk matrix from the pairwise log-space decay
 once a cluster, shared through distributed shared memory — see the source
 for the design.  One launch a call.
+
+On ``meta`` tensors (the dry run) the wrapper checks its inputs as for the
+card, raises under grad as there, and returns the output and final state
+of the kernel's shapes and dtypes on ``meta``, counted in ``meta_calls``;
+nothing is launched and no plain version runs.
 """
 from __future__ import annotations
 
@@ -75,7 +80,7 @@ def wkv6(
         raise ValueError("wkv6: r, k, v, w, u, s0 on different devices")
     if r.device.type == "cpu":
         return wkv6_chunked(r, k, v, w, u, s0, chunk=chunk)
-    if r.device.type != "cuda":
+    if r.device.type not in ("cuda", "meta"):
         raise ValueError(f"wkv6: no kernel for device {r.device}")
     build.check_no_grad("wkv6", r, k, v, w, u,
                         *(() if s0 is None else (s0,)))
@@ -93,6 +98,9 @@ def wkv6(
         raise ValueError("wkv6: r, k, v, w, u, s0 must be contiguous")
     out = torch.empty((b, t, h, dv), dtype=r.dtype, device=r.device)
     state = torch.empty((b, h, d, dv), dtype=torch.float32, device=r.device)
+    if r.device.type == "meta":
+        wkv6.meta_calls += 1
+        return out, state
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel()(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
@@ -106,3 +114,4 @@ def wkv6(
 
 
 wkv6.launches = 0   # kernel launches, read by chip_smoke.py
+wkv6.meta_calls = 0  # calls on meta tensors (no launch)

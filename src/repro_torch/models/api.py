@@ -2,8 +2,8 @@
 on the family (decoder-only, or encoder-decoder, whose loss and prefill
 take the audio stub's frame embeddings), and the paged decode and verify
 steps of the decoder-only family (the vision stub's prefill takes
-embeddings).  Port of ``repro/models/api.py`` (the dry-run specs come with
-their slice).  ``loss_fn``, ``prefill``, ``decode_step`` and the paged
+embeddings), and the dry run's input and cache specs.  Port of
+``repro/models/api.py``.  ``loss_fn``, ``prefill``, ``decode_step`` and the paged
 steps (batch-only plans) take a sharding plan (``models.transformer``'s and
 ``models.encdec``'s docstrings): ``loss_fn``, ``prefill`` and
 ``decode_step`` run every family under one, Mamba and RWKV-6 blocks and
@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import encdec as E
 from repro_torch.models import transformer as T
@@ -137,3 +137,102 @@ def init_paged_pools(cfg: ModelConfig, n_blocks: int, block_size: int,
              "v": torch.zeros((n_blocks, block_size, kv, dv), dtype=dtype,
                               device=device)}
             for _ in range(cfg.n_layers)]
+
+
+# ----------------------------------------------------------------- dry-run IO
+
+def _frames_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """The audio stub's frames of a cell: seq_len for train and prefill,
+    the fixed ``cross_kv_len`` memory for decode
+    (``repro/models/api.py:122``)."""
+    return shape.seq_len if shape.kind != "decode" else cfg.cross_kv_len
+
+
+def _dec_prompt_len(cfg: ModelConfig, shape: ShapeConfig) -> int:
+    """An encoder-decoder prefill's decoder prompt: seq_len / 8, at least
+    8 (``repro/models/api.py:128``)."""
+    return max(shape.seq_len // 8, 8)
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                dtype=torch.bfloat16) -> dict:
+    """Meta tensors of every model input of the (arch x shape) cell, with
+    the reference's shapes and dtypes (``repro/models/api.py:133``):
+    train {"batch": {tokens, labels, mask} (+ frames / embeds)}; prefill
+    {"batch": {tokens} (+ frames / embeds), "kv_len"}; decode {"tokens"
+    [B, 1], "cache" (``cache_specs``), "kv_len"}."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind == "train":
+        batch = {"tokens": _meta((b, s), i32), "labels": _meta((b, s), i32),
+                 "mask": _meta((b, s), torch.float32)}
+        if cfg.is_encdec:
+            batch["frames"] = _meta((b, _frames_len(cfg, shape), cfg.d_model),
+                                    dtype)
+        if cfg.frontend == "vision_stub":
+            batch["embeds"] = _meta((b, s, cfg.d_model), dtype)
+        return {"batch": batch}
+    if shape.kind == "prefill":
+        if cfg.is_encdec:
+            batch = {"frames": _meta((b, _frames_len(cfg, shape), cfg.d_model),
+                                     dtype),
+                     "tokens": _meta((b, _dec_prompt_len(cfg, shape)), i32)}
+        elif cfg.frontend == "vision_stub":
+            batch = {"tokens": _meta((b, s), i32),
+                     "embeds": _meta((b, s, cfg.d_model), dtype)}
+        else:
+            batch = {"tokens": _meta((b, s), i32)}
+        return {"batch": batch, "kv_len": _meta((b,), i32)}
+    return {"tokens": _meta((b, 1), i32),
+            "cache": cache_specs(cfg, b, s, dtype=dtype),
+            "kv_len": _meta((b,), i32)}
+
+
+def cache_specs(cfg: ModelConfig, b: int, s_max: int,
+                dtype=torch.bfloat16) -> list[dict]:
+    """The decode cache of ``b`` sequences of capacity ``s_max`` as meta
+    tensors, in the port's layout (one entry a layer, ``models.
+    transformer``'s docstring) with the reference's shapes and dtypes
+    (``repro/models/api.py:165``, its stacked leading dimension dropped):
+    a window layer's ring holds the window, Mamba's ``ssm`` and RWKV-6's
+    ``state`` are f32."""
+    kv, hd, dv = cfg.n_kv_heads, cfg.head_dim_eff, cfg.v_head_dim_eff
+    f32 = torch.float32
+
+    def attn_entry(spec) -> dict:
+        if cfg.mla is not None:
+            m = cfg.mla
+            return {"c_kv": _meta((b, s_max, m.kv_lora_rank), dtype),
+                    "k_rope": _meta((b, s_max, m.qk_rope_head_dim), dtype)}
+        ln = s_max
+        if spec.attn == "window" and cfg.sliding_window \
+                and cfg.sliding_window < s_max:
+            ln = cfg.sliding_window
+        return {"k": _meta((b, ln, kv, hd), dtype),
+                "v": _meta((b, ln, kv, dv), dtype)}
+
+    if cfg.is_encdec:
+        return [{"self": attn_entry(cfg.layer_plan()[0]),
+                 "cross": {"ck": _meta((b, cfg.cross_kv_len, kv, hd), dtype),
+                           "cv": _meta((b, cfg.cross_kv_len, kv, dv), dtype)}}
+                for _ in range(cfg.n_layers)]
+    out = []
+    for spec in cfg.layer_plan():
+        if spec.mixer == "attn":
+            out.append(attn_entry(spec))
+        elif spec.mixer == "mamba":
+            mc = cfg.mamba
+            d_in = mc.expand * cfg.d_model
+            out.append({"conv": _meta((b, mc.d_conv - 1, d_in), dtype),
+                        "ssm": _meta((b, d_in, mc.d_state), f32)})
+        else:
+            rc = cfg.rwkv
+            h = cfg.d_model // rc.head_size
+            out.append({"shift": _meta((b, cfg.d_model), dtype),
+                        "state": _meta((b, h, rc.head_size, rc.head_size), f32),
+                        "cm_shift": _meta((b, cfg.d_model), dtype)})
+    return out

@@ -32,18 +32,34 @@ from repro_torch.sharding.mesh import current_mesh
 from repro_torch.sharding.specs import cache_spec
 
 
+def randn(*shape: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Standard normal draws of ``shape`` (f32) from ``generator``, on its
+    device; with no generator (a build on ``meta``, ``init_params(...,
+    device="meta")``) an empty meta tensor of that shape: nothing is
+    drawn."""
+    if generator is None:
+        return torch.empty(shape, device="meta")
+    return torch.randn(*shape, generator=generator, device=generator.device)
+
+
+def rand(*shape: int, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Uniform [0, 1) draws, or an empty meta tensor, as ``randn``."""
+    if generator is None:
+        return torch.empty(shape, device="meta")
+    return torch.rand(*shape, generator=generator, device=generator.device)
+
+
 class Dense(nn.Module):
     """``x @ w (+ b)`` with ``w`` [d_in, d_out]; normal init with std
     ``scale`` (default ``d_in ** -0.5``) drawn from ``generator`` (zero
-    bias)."""
+    bias), or no draw on meta (``generator`` None)."""
 
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
                  generator: Optional[torch.Generator] = None,
                  dtype=torch.float32, scale: Optional[float] = None):
         super().__init__()
         std = scale if scale is not None else d_in ** -0.5
-        w = torch.randn(d_in, d_out, generator=generator,
-                        device=generator.device if generator else None) * std
+        w = randn(d_in, d_out, generator=generator) * std
         self.w = nn.Parameter(w.to(dtype), requires_grad=False)
         self.b = nn.Parameter(torch.zeros(d_out, dtype=dtype),
                               requires_grad=False) if bias else None

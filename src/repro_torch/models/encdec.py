@@ -41,7 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.distributed.collectives import local_chunk, psum
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (Norm, apply_norm, gather_params,
-                                       last_valid, sinusoidal_positions)
+                                       last_valid, randn, sinusoidal_positions)
 from repro_torch.models.mlp import MLP, mlp_apply
 from repro_torch.models.transformer import embed_tokens, lm_head, nll_sum
 
@@ -75,7 +75,8 @@ class EncDec(nn.Module):
     head), ``enc_blocks.{i}.*``, ``dec_blocks.{i}.*``, ``enc_norm`` and
     ``final_norm``.  Each part is drawn from ``generator`` on the CPU and
     moved to ``device`` before the next is drawn, so the host holds one
-    block at a time."""
+    block at a time; with no generator (a build on ``meta``) nothing is
+    drawn."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  dtype=torch.float32, device: torch.device = torch.device("cpu")):
@@ -84,9 +85,8 @@ class EncDec(nn.Module):
         g = generator
         self.embed = nn.Module()
         self.embed.w = nn.Parameter(
-            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g,
-                         device=g.device)
-             * 0.02).to(dtype).to(device), requires_grad=False)
+            (randn(cfg.padded_vocab, cfg.d_model, generator=g) * 0.02)
+            .to(dtype).to(device), requires_grad=False)
         self.enc_blocks = nn.ModuleList(EncBlock(cfg, g, dtype).to(device)
                                         for _ in range(cfg.n_encoder_layers))
         self.dec_blocks = nn.ModuleList(DecBlock(cfg, g, dtype).to(device)
@@ -101,9 +101,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Seeded random weights, the reference's shapes and scales, on the
     card unless ``device`` says otherwise; drawn on the CPU and then moved,
     so a seed gives the same weights on every device (``generator_device=
-    "cuda"`` draws them on the card: another stream)."""
+    "cuda"`` draws them on the card: another stream).  On ``device=
+    "meta"`` nothing is drawn, as ``transformer.init_params``."""
+    device = resolve_device(device)
+    if device.type == "meta":
+        with torch.device("meta"):
+            return EncDec(cfg, None, dtype, device)
     gen = torch.Generator(resolve_device(generator_device)).manual_seed(seed)
-    return EncDec(cfg, gen, dtype, resolve_device(device))
+    return EncDec(cfg, gen, dtype, device)
 
 
 def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor, *,

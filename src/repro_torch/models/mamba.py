@@ -42,7 +42,8 @@ from torch.nn import functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import (all_gather, local_chunk,
                                                  psum)
-from repro_torch.models.common import Dense, apply_dense_rows, sharded_axis
+from repro_torch.models.common import (Dense, apply_dense_rows, rand, randn,
+                                      sharded_axis)
 
 
 class Mamba(nn.Module):
@@ -63,13 +64,12 @@ class Mamba(nn.Module):
             return nn.Parameter(x, requires_grad=False)
 
         self.in_proj = Dense(d, 2 * d_in, **kw)
-        self.conv_w = param((torch.randn(mc.d_conv, d_in, generator=g,
-                                         device=g.device)
+        self.conv_w = param((randn(mc.d_conv, d_in, generator=g)
                              * mc.d_conv ** -0.5).to(dtype))
         self.conv_b = param(torch.zeros(d_in, dtype=dtype))
         self.bcdt_proj = Dense(d_in, 2 * n + 1, **kw)
         # dt = softplus(. + dt_bias) starts in [1e-3, 1e-1], log-uniform
-        u = torch.rand(d_in, generator=g, device=g.device) \
+        u = rand(d_in, generator=g) \
             * (math.log(1e-1) - math.log(1e-3)) + math.log(1e-3)
         self.dt_bias = param(torch.log(torch.expm1(torch.exp(u))))
         self.a_log = param(torch.log(torch.arange(1, n + 1, dtype=torch.float32)

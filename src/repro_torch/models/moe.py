@@ -30,8 +30,8 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed.collectives import all_to_all, pmean
-from repro_torch.models.common import (Dense, activation, reduce_rows,
-                                      sharded_axis)
+from repro_torch.models.common import (Dense, activation, randn,
+                                      reduce_rows, sharded_axis)
 from repro_torch.models.mlp import MLP
 
 
@@ -53,8 +53,7 @@ class MoE(nn.Module):
         def bank(*shape, std):
             # scaled in place: the host holds one f32 bank at a time (21.5
             # GB at llama4-maverick's 128 experts of 5120 x 8192)
-            return nn.Parameter(torch.randn(*shape, generator=g,
-                                            device=g.device).mul_(std)
+            return nn.Parameter(randn(*shape, generator=g).mul_(std)
                                 .to(dtype), requires_grad=False)
         self.up = bank(m.n_experts, d, f, std=d ** -0.5)
         self.down = bank(m.n_experts, f, d, std=f ** -0.5)

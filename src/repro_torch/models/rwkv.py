@@ -28,7 +28,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.wkv6 import wkv6, wkv6_step
 from repro_torch.distributed.collectives import all_gather, local_chunk
 from repro_torch.models.common import (Dense, apply_dense_rows, group_norm,
-                                      last_valid, sharded_axis)
+                                      last_valid, randn, sharded_axis)
 from repro_torch.models.mlp import token_shift
 
 
@@ -51,12 +51,10 @@ class RWKV(nn.Module):
         self.o = Dense(d, d, **kw)
         # base log-decay: w = exp(-exp(w0 + tanh(x A) B))
         self.w0 = param(torch.full((d,), -5.0))
-        self.w_lora_a = param((torch.randn(d, rc.decay_lora, generator=generator,
-                                           device=generator.device)
+        self.w_lora_a = param((randn(d, rc.decay_lora, generator=generator)
                                * d ** -0.5).to(dtype))
         self.w_lora_b = param(torch.zeros(rc.decay_lora, d, dtype=dtype))
-        self.u = param(torch.randn(h, rc.head_size, generator=generator,
-                                     device=generator.device) * 0.3)
+        self.u = param(randn(h, rc.head_size, generator=generator) * 0.3)
         for name in ("mix_r", "mix_k", "mix_v", "mix_w", "mix_g"):
             setattr(self, name, param(torch.full((d,), 0.5, dtype=dtype)))
         self.ln_scale = param(torch.ones(d, dtype=dtype))

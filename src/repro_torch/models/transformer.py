@@ -63,8 +63,8 @@ from repro_torch.models import mamba as mamba_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models.common import (Norm, apply_norm, cache_layout,
-                                      gather_params, last_valid, sharded_axis,
-                                      softcap, unshard)
+                                      gather_params, last_valid, randn,
+                                      sharded_axis, softcap, unshard)
 from repro_torch.models.mlp import (MLP, ChannelMix, channel_mix_apply,
                                     mlp_apply, token_shift)
 from repro_torch.sharding.mesh import axis_size
@@ -99,7 +99,7 @@ class Transformer(nn.Module):
     ``final_norm``, and ``head.w`` [d, Vp] when embeddings are untied.
     Each part is drawn from ``generator`` on the CPU and moved to
     ``device`` before the next is drawn, so the host holds one block at a
-    time."""
+    time; with no generator (a build on ``meta``) nothing is drawn."""
 
     def __init__(self, cfg: ModelConfig, generator: torch.Generator,
                  dtype=torch.float32, device: torch.device = torch.device("cpu")):
@@ -108,8 +108,7 @@ class Transformer(nn.Module):
         g = generator
         self.embed = nn.Module()
         self.embed.w = nn.Parameter(
-            (torch.randn(cfg.padded_vocab, cfg.d_model, generator=g,
-                         device=g.device)
+            (randn(cfg.padded_vocab, cfg.d_model, generator=g)
              * 0.02).to(dtype).to(device), requires_grad=False)
         self.final_norm = Norm(cfg, dtype).to(device)
         self.blocks = nn.ModuleList(Block(cfg, spec, g, dtype).to(device)
@@ -118,8 +117,7 @@ class Transformer(nn.Module):
         if not cfg.tie_embeddings:
             self.head = nn.Module()
             self.head.w = nn.Parameter(
-                (torch.randn(cfg.d_model, cfg.padded_vocab, generator=g,
-                             device=g.device)
+                (randn(cfg.d_model, cfg.padded_vocab, generator=g)
                  * cfg.d_model ** -0.5).to(dtype).to(device), requires_grad=False)
 
 
@@ -130,8 +128,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     card unless ``device`` says otherwise.  They are drawn on the CPU and
     then moved, so a seed gives the same weights on every device;
     ``generator_device="cuda"`` draws them on the card instead (another
-    random stream, and no host draw of the weights)."""
+    random stream, and no host draw of the weights).  On ``device="meta"``
+    every parameter has the reference's shape and dtype and nothing is
+    drawn (the dry run, ``launch.dryrun``)."""
     device = resolve_device(device)
+    if device.type == "meta":
+        with torch.device("meta"):
+            return Transformer(cfg, None, dtype, device)
     gen = torch.Generator(resolve_device(generator_device)).manual_seed(seed)
     return Transformer(cfg, gen, dtype, device)
 

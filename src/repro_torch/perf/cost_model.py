@@ -5,11 +5,11 @@ candidate plans with it.
 Own copy of ``repro/perf/cost_model.py`` with the same formulas, trimmed to
 the families the port serves (dense attention, with windows and MLA, MoE
 MLPs, Mamba, RWKV-6, and the encoder-decoder's encoder stack and
-cross-attention); the reference's plan options that no port plan sets yet
-come with their slice (the absorbed MLA decode,
-sequence-sharded attention, unsharded residuals, a causal discount,
-quantized KV).  The default
-hardware is the port's ``H100``.
+cross-attention).  Of the reference's plan options the port keeps the two
+its hillclimb sets (``launch.hillclimb``): the absorbed MLA decode and a
+quantized KV cache; those that no port plan sets (sequence-sharded
+attention, unsharded residuals, a causal discount) are left out.  The
+default hardware is the port's ``H100``.
 
 Conventions: bf16 params/activations/KV (2 bytes), fp32 accumulation;
 residuals sharded over the model axis between blocks; causal attention
@@ -36,6 +36,8 @@ class ParallelismDesc:
     remat: bool = True
     microbatches: int = 1       # gradient accumulation (live activations / n)
     optimizer: str = "adafactor"   # "adamw" | "adafactor"
+    kv_bytes_per: int = 2          # quantized KV -> 1
+    mla_absorbed: bool = False     # matmul-absorbed MLA decode
 
 
 @dataclass
@@ -236,7 +238,7 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         ct.model_flops = 2.0 * cfg.param_count(active_only=True) * tokens
         ct.flops = fwd / desc.n_chips
         ct.weight_bytes_chip = weight_bytes(cfg, desc)
-        kv_total = cfg.kv_cache_bytes(b, s)
+        kv_total = cfg.kv_cache_bytes(b, s, desc.kv_bytes_per)
         ct.kv_bytes_chip = kv_total / desc.n_chips
         tokens_local = tokens / max(desc.dp, 1)
         resid_shard = desc.tp
@@ -263,18 +265,24 @@ def step_cost(cfg: ModelConfig, shape: ShapeConfig,
         fwd += cfg.n_layers * _attn_layer_flops(cfg, b, 1, cfg.cross_kv_len, 1.0)
     extra_hbm = 0.0
     if cfg.mla is not None:
-        # every plan expands the latent each step (none plans the absorbed
-        # decode): 2*S*r*H*(dn+dv) per layer, and the expanded K/V are
-        # written+read through HBM
         m = cfg.mla
-        fwd += cfg.n_layers * 2.0 * b * s * m.kv_lora_rank * \
-            cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
-        extra_hbm = cfg.n_layers * 2.0 * b * s * cfg.n_heads * \
-            (m.qk_head_dim + m.v_head_dim) * 2.0 / desc.n_chips
+        if desc.mla_absorbed:
+            # latent-space attention: q/out absorption + latent scores/values
+            fwd += cfg.n_layers * 2.0 * b * cfg.n_heads * (
+                m.qk_nope_head_dim * m.kv_lora_rank
+                + s * (2 * m.kv_lora_rank + m.qk_rope_head_dim)
+                + m.kv_lora_rank * m.v_head_dim)
+        else:
+            # latent -> K,V expansion each step: 2*S*r*H*(dn+dv) per layer,
+            # and the expanded K/V are written+read through HBM
+            fwd += cfg.n_layers * 2.0 * b * s * m.kv_lora_rank * \
+                cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)
+            extra_hbm = cfg.n_layers * 2.0 * b * s * cfg.n_heads * \
+                (m.qk_head_dim + m.v_head_dim) * 2.0 / desc.n_chips
     ct.model_flops = 2.0 * cfg.param_count(active_only=True) * tokens
     ct.flops = fwd / desc.n_chips
     ct.weight_bytes_chip = weight_bytes(cfg, desc)
-    kv_total = cfg.kv_cache_bytes(b, s)
+    kv_total = cfg.kv_cache_bytes(b, s, desc.kv_bytes_per)
     ct.kv_bytes_chip = kv_total / desc.n_chips
     # decode reads all local weights + all local KV each step
     ct.hbm_bytes = ct.weight_bytes_chip + ct.kv_bytes_chip \

@@ -14,7 +14,11 @@ makes one process subgroup for each non-empty tuple of its axes taken in
 mesh order (every axis alone, ``("data", "model")``, ...), each group's
 ranks in that row-major order, and fixes the collectives' backend once,
 from where the ranks really compute: NCCL when every rank has a card of
-its own, gloo otherwise (ranks that share a card, or CPU ranks).
+its own, gloo otherwise (ranks that share a card, or CPU ranks).  On a
+default group of the ``"fake"`` backend (``torch.testing``'s placeholder
+ranks: every collective returns at once, with its output's shape) the
+subgroups are fake too, and the mesh may compute on ``meta``: the dry run
+(``launch.dryrun``) runs one rank's program on shapes alone.
 
 ``axis_size`` and ``divisible`` are the one size rule over a mesh's shape
 (a dict of axis sizes): the specs read it on a shape alone, the model
@@ -83,8 +87,9 @@ def choose_backend(placements: list[tuple[str, int]]) -> str:
 class Mesh:
     """Named axes of sizes ``shape`` over the initialised default group,
     whose size must be their product, for ranks computing on ``device``
-    (the card unless the caller asks for the CPU).  Collective: every rank
-    must make the same meshes, in the same order."""
+    (the card unless the caller asks for the CPU, or ``meta`` over a fake
+    group).  Collective: every rank must make the same meshes, in the same
+    order."""
 
     def __init__(self, shape: dict[str, int],
                  device: torch.device | str = "cuda"):
@@ -101,11 +106,15 @@ class Mesh:
         sizes = tuple(self.shape.values())
         self.coords = dict(zip(self.axis_names,
                                (int(c) for c in np.unravel_index(self.rank, sizes))))
-        places: list = [None] * self.size
-        dist.all_gather_object(places, placement(self.device))
-        self.backend = choose_backend(places)
+        if dist.get_backend() == "fake":
+            self.backend = "fake"
+        else:
+            places: list = [None] * self.size
+            dist.all_gather_object(places, placement(self.device))
+            self.backend = choose_backend(places)
         grid = np.arange(self.size).reshape(sizes)
         self._groups: dict[tuple[str, ...], dist.ProcessGroup] = {}
+        self._axes_of: dict[int, tuple[str, ...]] = {}
         for n in range(1, len(sizes) + 1):
             for axes in itertools.combinations(self.axis_names, n):
                 keep = [self.axis_names.index(a) for a in axes]
@@ -118,7 +127,8 @@ class Mesh:
                     group = dist.new_group(ranks, backend=self.backend)
                     if self.rank in ranks:
                         self._groups[axes] = group
-        if self.rank == 0:
+                        self._axes_of[id(group)] = axes
+        if self.rank == 0 and self.backend != "fake":
             share = "a GPU each" if self.backend == "nccl" else (
                 f"{self.size} ranks on {self.device}" if self.device.type == "cuda"
                 else f"{self.size} CPU ranks")
@@ -150,6 +160,10 @@ class Mesh:
         when its size is 1)."""
         axes = self.axes(axis)
         return self._groups[axes] if axes else None
+
+    def group_axes(self, group: dist.ProcessGroup) -> tuple[str, ...]:
+        """The axes of one of this rank's subgroups."""
+        return self._axes_of[id(group)]
 
     def stages(self, x: torch.Tensor) -> bool:
         """Whether a collective moves ``x`` through host memory: a CUDA

@@ -141,27 +141,28 @@ def _terms(ct, ref=None):
 
 def _port_fields(jdesc):
     """The reference desc's fields that the port's ParallelismDesc keeps;
-    those it drops (absorbed MLA, sequence-sharded attention, unsharded
-    residuals, a causal discount, quantized KV) must be at the values the
-    port folds in."""
+    those it drops (sequence-sharded attention, unsharded residuals, a
+    causal discount) must be at the values the port folds in."""
     kept = {f.name for f in dataclasses.fields(cost_model.ParallelismDesc)}
     fields = dataclasses.asdict(jdesc)
     assert {k: v for k, v in fields.items() if k not in kept} == \
-        {"mla_absorbed": False, "attn_mode": "tp",
-         "seq_parallel_resid": True, "causal_discount": 1.0,
-         "kv_bytes_per": 2}
+        {"attn_mode": "tp", "seq_parallel_resid": True,
+         "causal_discount": 1.0}
     return {k: v for k, v in fields.items() if k in kept}
 
 
 def _descs(arch, shape):
     """Every ParallelismDesc the reference's candidate_plans makes for the
-    cell (single and multi pod), plus the single-chip desc."""
+    cell (single and multi pod), plus the single-chip desc, and each of
+    them with the hillclimb's options: the absorbed MLA decode and an int8
+    KV cache."""
     cfg, sh = jax_get_config(arch), JAX_SHAPES[shape]
     descs = [jax_cost_model.ParallelismDesc()]
     for multi_pod in (False, True):
         descs += [c.desc for c in jax_deployer.candidate_plans(
             cfg, sh, multi_pod=multi_pod)]
-    return descs
+    return descs + [dataclasses.replace(d, **opt) for d in descs
+                    for opt in ({"mla_absorbed": True}, {"kv_bytes_per": 1})]
 
 
 @pytest.mark.parametrize("arch,shape", list(_cells()))

@@ -531,7 +531,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
             "launch/train.py", "sharding/mesh.py", "sharding/plan.py",
             "sharding/specs.py", "distributed/collectives.py",
             "distributed/ranks.py", "launch/mesh.py",
-            "kernels/decode_attention/partial.py"} <= names
+            "kernels/decode_attention/partial.py", "launch/dryrun.py",
+            "launch/hillclimb.py"} <= names
     bad = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
     for path in files:
         text = path.read_text()

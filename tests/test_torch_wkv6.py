@@ -147,9 +147,12 @@ def test_wkv6_bf16_inputs_keep_dtype(rng):
 
 def test_wkv6_dispatch_and_checks(rng):
     r, k, v, w, u = _t(*_gen(rng, 1, 8, 2, 16, 16))
-    n = wkv6.launches
-    with pytest.raises(ValueError, match="no kernel for device"):
-        wkv6(*(x.to("meta") for x in (r, k, v, w, u)))
+    n, m = wkv6.launches, wkv6.meta_calls
+    # meta tensors (the dry run) give the outputs' shapes: no launch
+    out, state = wkv6(*(x.to("meta") for x in (r, k, v, w, u)))
+    assert (out.device.type, tuple(out.shape), tuple(state.shape)) == \
+        ("meta", (1, 8, 2, 16), (1, 2, 16, 16))
+    assert wkv6.meta_calls == m + 1
     with pytest.raises(TypeError):
         wkv6(r.half(), k.half(), v.half(), w, u)
     with pytest.raises(ValueError, match="disagree"):
